@@ -1,0 +1,204 @@
+"""K1's plain PyTorch version and the fused-scan path against the JAX
+package's fused_scan_candidates_packed / fused_scan_topk_e2e run with
+interpret=True, on the CPU, at the shapes of tests/test_pallas_scan.py.
+
+Tolerances: decoded candidate ids >= 99% identical per query (as sets),
+decoded values of shared ids within one quantization step (pg * 2^-22) +
+1e-6 — the two CPU products sum the same exact bf16 products in another
+order, which can move a score across a step. End-to-end sims within 1e-5,
+ids as sets up to boundary ties.
+
+The CUDA kernel itself has no CPU mode; chip_smoke.py holds it against
+this plain version on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from clann_tpu.ops.pallas import scan_topk as jst
+
+from clann_tpu_torch.ops import _build
+from clann_tpu_torch.ops import scan_topk as tst
+from clann_tpu_torch.testing import (
+    assert_topk_match,
+    decode_winners,
+    packed_agreement,
+    quant_step,
+)
+
+torch.set_num_threads(1)
+
+N, D, DPAD, QN = 2048, 24, 128, 32
+
+
+def _operands(n=N, d=D, q=QN, seed=3, n_real=None, biased=False):
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(n, d)).astype(np.float32)
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    qs = rng.normal(size=(q, d)).astype(np.float32)
+    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+    n_real = n if n_real is None else n_real
+    base[n_real:] = 0.0
+    bp = np.zeros((n, DPAD), np.float32)
+    bp[:, :d] = base
+    qp = np.zeros((q, DPAD), np.float32)
+    qp[:, :d] = qs
+    if biased:
+        bp[:n_real, d] = 1.0
+        qp[:, d] = 3.0
+    return base, qs, bp, qp, n_real
+
+
+def _both_candidates(bp, qp, **kw):
+    jv, ji = jst.fused_scan_candidates_packed(
+        jnp.asarray(bp, jnp.bfloat16), jnp.asarray(qp, jnp.bfloat16),
+        interpret=True, **kw,
+    )
+    tv, ti = tst.fused_scan_candidates_packed(
+        torch.from_numpy(bp).to(torch.bfloat16),
+        torch.from_numpy(qp).to(torch.bfloat16), **kw,
+    )
+    return np.asarray(jv), np.asarray(ji), tv.numpy(), ti.numpy()
+
+
+def _assert_candidates_match(jv, ji, tv, ti, pg, step=None):
+    q, nb = ji.shape
+    overlap = np.mean([len(set(ji[r]) & set(ti[r])) / nb for r in range(q)])
+    assert overlap >= 0.99, overlap
+    tol = (quant_step(pg) if step is None else step) + 1e-6
+    for r in range(q):
+        jmap = dict(zip(ji[r].tolist(), jv[r].tolist()))
+        for i, v in zip(ti[r].tolist(), tv[r].tolist()):
+            if i in jmap:
+                jvv = jmap[i]
+                assert (np.isinf(v) and np.isinf(jvv)) or abs(v - jvv) <= tol, (r, i, v, jvv)
+
+
+@pytest.mark.parametrize("block_n,num_bins,biased", [
+    (512, 32, False),   # per_bin 16, the test_pallas_scan shape
+    (512, 32, True),    # bias column carries the +3.0
+    (512, 512, False),  # per_bin 1: every row its own bin
+    (512, 128, True),   # per_bin 4
+    (1024, 8, False),   # per_bin 128: a bin spans a whole 128-row chunk
+])
+def test_candidates_plain_vs_jax(block_n, num_bins, biased):
+    _, _, bp, qp, n_real = _operands(n_real=N - 17, biased=biased)
+    jv, ji, tv, ti = _both_candidates(
+        bp, qp, n_real=n_real, num_bins=num_bins, block_n=block_n, q_tile=32,
+        biased=biased,
+    )
+    assert ti.max() < n_real and (ti >= 0).all()
+    _assert_candidates_match(jv, ji, tv, ti, block_n // num_bins)
+
+
+@pytest.mark.parametrize("group_r,acc_bf16", [(2, False), (4, False),
+                                              (1, True), (4, True)])
+def test_candidates_group_and_bf16_plain_vs_jax(group_r, acc_bf16):
+    _, _, bp, qp, n_real = _operands(n=1024, seed=9)
+    jv, ji, tv, ti = _both_candidates(
+        bp, qp, n_real=n_real, num_bins=32, block_n=512, q_tile=32,
+        group_r=group_r, acc_bf16=acc_bf16,
+    )
+    assert (ti % group_r == 0).all()
+    pg = 16 // group_r
+    # with acc_bf16 the scores round to bf16 (a step of 2^-7 in [2, 4))
+    # before packing, so one step of THAT is the summation-order bound
+    _assert_candidates_match(jv, ji, tv, ti, pg,
+                             step=2.0 ** -7 if acc_bf16 else None)
+
+
+def test_decode_masks_rows_beyond_n_real():
+    """Bins wholly past n_real never surface; too few real bins leave
+    -1 / -inf slots, as in the JAX decode."""
+    _, _, bp, qp, n_real = _operands(n=512, n_real=20)
+    jv, ji, tv, ti = _both_candidates(bp, qp, n_real=n_real, num_bins=64,
+                                      block_n=512, q_tile=32)
+    np.testing.assert_array_equal(np.sort(ti, axis=1), np.sort(ji, axis=1))
+    assert ((ti == -1) == np.isinf(tv)).all()
+    assert (ti < n_real).all() and (ti == -1).sum() == QN * (64 - 3)
+
+
+@pytest.mark.parametrize("group_r,acc_bf16,biased", [
+    (1, False, False), (1, False, True), (2, False, True), (4, True, False),
+    (1, True, True),
+])
+def test_e2e_vs_jax(group_r, acc_bf16, biased):
+    base, qs, _, _, _ = _operands(n=1500, q=48, seed=11)
+    bn = 512
+    n_pad = ((base.shape[0] + bn - 1) // bn) * bn
+    bp = np.zeros((n_pad, DPAD), np.float32)
+    bp[: base.shape[0], : base.shape[1]] = base
+    if biased:
+        bp[: base.shape[0], base.shape[1]] = 1.0
+    kw = dict(n_real=base.shape[0], k=5, rescore_m=16, num_bins=32,
+              block_n=bn, q_tile=16, normalize=True, biased=biased,
+              group_r=group_r, acc_bf16=acc_bf16)
+    js, ji = jst.fused_scan_topk_e2e(
+        jnp.asarray(bp, jnp.bfloat16), jnp.asarray(base), jnp.asarray(qs * 3.0),
+        interpret=True, **kw,
+    )
+    ts, ti = tst.fused_scan_topk_e2e(
+        torch.from_numpy(bp).to(torch.bfloat16), torch.from_numpy(base),
+        torch.from_numpy(qs * 3.0), **kw,
+    )
+    assert ti.dtype == torch.int64 and ts.dtype == torch.float32
+    assert_topk_match(np.asarray(ji), np.asarray(js), ti.numpy(), ts.numpy())
+
+
+def test_plain_version_blocks_agree():
+    """The block size of the plain version does not change its output."""
+    _, _, bp, qp, _ = _operands(biased=True)
+    b = torch.from_numpy(bp).to(torch.bfloat16)
+    q = torch.from_numpy(qp).to(torch.bfloat16)
+    whole = tst.packed_candidates_plain(b, q, per_bin=16, biased=True, block_rows=N)
+    blocked = tst.packed_candidates_plain(b, q, per_bin=16, biased=True, block_rows=256)
+    assert torch.equal(whole, blocked)
+    agree = packed_agreement(whole, blocked, per_bin=16)
+    assert agree == {"same_winner": 1.0, "identical": 1.0, "max_abs_err": 0.0}
+    sub, val = decode_winners(whole.numpy(), 16)
+    assert sub.max() < 16 and np.all((val > -1.01) & (val < 1.01))
+
+
+def test_wrapper_keeps_cpu_off_the_counter():
+    before = tst.KERNEL_LAUNCHES
+    _, _, bp, qp, _ = _operands(n=256)
+    tst.scan_candidates_packed(torch.from_numpy(bp).to(torch.bfloat16),
+                               torch.from_numpy(qp).to(torch.bfloat16),
+                               per_bin=16)
+    assert tst.KERNEL_LAUNCHES == before
+
+
+@pytest.mark.parametrize("case", ["dtype", "dpad", "per_bin", "ragged",
+                                  "group", "device"])
+def test_wrapper_rejects_bad_input(case):
+    b = torch.zeros((512, DPAD), dtype=torch.bfloat16)
+    q = torch.zeros((32, DPAD), dtype=torch.bfloat16)
+    kw = dict(per_bin=16)
+    if case == "dtype":
+        b = b.float()
+    elif case == "dpad":
+        q = q[:, :64]
+    elif case == "per_bin":
+        kw["per_bin"] = 12
+    elif case == "ragged":
+        b = b[:500]
+    elif case == "group":
+        kw["group_r"] = 32
+    else:  # neither CPU nor CUDA: no silent plain-version fallback
+        b, q = b.to("meta"), q.to("meta")
+    with pytest.raises(ValueError):
+        tst.scan_candidates_packed(b, q, **kw)
+
+
+def test_build_refuses_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    path = _build.library_path()
+    assert path.parent == tmp_path / "kernels" and path.name.endswith(".so")
+    assert path == _build.library_path()  # content-addressed, stable
