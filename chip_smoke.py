@@ -2,26 +2,33 @@
 """Smoke run of the PyTorch / CUDA port (clann_tpu_torch) on one GPU.
 
     python3 chip_smoke.py            # the whole run, on cuda:0
-    python3 chip_smoke.py --profile  # also a torch.profiler breakdown
+    python3 chip_smoke.py --profile  # also torch.profiler breakdowns
 
 Phases, each printing a line; any failure exits non-zero (nothing is
 caught):
 
 1. device: needs torch.cuda.is_available(); prints the card's name and
    power limit and turns TF32 off for float32 matmuls and cuDNN.
-2. build: compiles clann_tpu_torch/csrc/*.cu with nvcc into build/kernels/
-   and prints ptxas' register / shared-memory / spill summary.
-3. kernel vs plain: the K1 kernel against its plain PyTorch version on the
-   card, at the main path's shapes (1,183,514 x 100 -> dpad 128, block_n
-   32768, 64 bins, 2,048 queries) and at small ragged shapes; then CUDA-event
-   times of both at the main path's shapes.
-4. main path: the glove-100-angular-shaped synthetic set of bench.py
+2. build: compiles clann_tpu_torch/csrc/*.cu with nvcc (one process per
+   source, in parallel) into build/kernels/ and prints ptxas' register /
+   shared-memory / spill summary.
+3. kernels vs plain, each against its plain PyTorch version on the card, at
+   the main paths' shapes and at small ragged ones, then CUDA-event times of
+   both at the main paths' shapes:
+   K1 (packed scan; 1,183,514 x 100 -> dpad 128, block_n 32768, 64 bins,
+   2,048 queries), K2 (unpacked scan; pallas_scan_topk's block_n 16384,
+   128 bins, 2,048 queries), K3 (block scan; ragged shapes here, the bench
+   layout with 4,096 queries at B = 9 after the build).
+4. main paths on the glove-100-angular-shaped synthetic set of bench.py
    (1,183,514 x 100 train, 10,000 queries, clustered_unit_vectors with 1024
    modes, spread 0.7), exact ground truth on the card, then
    init_with_config -> build -> search_batch(mode="scan-pallas") with
-   recall@10 >= 0.9 and id-recall >= 0.8, the launch count of K1 during
-   that search, the "scan" mode and the certified exact scan, QPS and peak
-   device memory.
+   recall@10 >= 0.9 and id-recall >= 0.8, the "scan" mode and the certified
+   exact scan; pallas_scan_topk (K2) with the same gates; and the block
+   modes: "scan-block" at the auto budget (no gate), "scan-block" at every
+   block and "scan-block-adaptive" (both gated). Each path is run with the
+   launch counts set to 0 just before it and read just after, and fails if
+   its kernel was not launched.
 
 It prints the kernels as one JSON line, the nvidia-smi name / power limit
 line, and last {"ok": true, "device": {...}}. Imports only torch, numpy and
@@ -42,8 +49,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # The main path's shape (bench.py's headline configuration)
 N_TRAIN, DIMS, N_QUERIES, K = 1_183_514, 100, 10_000, 10
 KERNEL_QUERIES = 2_048  # one search batch (scan_search's batch_q)
+BLOCK_QUERIES = 4_096  # one block-scan batch (block_scan_search's batch_q)
 RECALL_GATE, ID_RECALL_GATE = 0.9, 0.8  # bench.py's gates
 SAME_WINNER_GATE = 0.99
+K2_VALUE_TOL = 1e-5  # f32 sums of exact bf16 products in another order
 DEVICE = "cuda"
 
 
@@ -115,17 +124,33 @@ def _norm(x):
 
 def compare_kernel(base, qp, per_bin, biased, label):
     """K1 vs its plain version on the same device tensors."""
-    import torch
-
     from clann_tpu_torch.ops import scan_topk as st
-    from clann_tpu_torch.testing import packed_agreement, quant_step
 
     got = st.scan_candidates_packed(base, qp, per_bin=per_bin, biased=biased)
     sync()
     ref = st.packed_candidates_plain(base, qp, per_bin=per_bin, biased=biased)
     sync()
+    return check_packed(got, ref, per_bin, label)
+
+
+def check_packed(got, ref, per_bin, label, live_only=False):
+    """Gates of a packed kernel (K1, K3) against its plain version. With
+    `live_only`, the winners of live slots are compared (the plain
+    version's value >= bitcast(1.0)); every other winner, of dead slots and
+    pad rows, must be bit-identical."""
+    import torch
+
+    from clann_tpu_torch.ops.block_scan import _VALID_FLOOR
+    from clann_tpu_torch.testing import packed_agreement, quant_step
+
     if got.shape != ref.shape or got.dtype != torch.int32:
         fail(f"{label}: kernel output {tuple(got.shape)} {got.dtype}, plain {tuple(ref.shape)}")
+    if live_only:
+        live = ref >= _VALID_FLOOR
+        if not torch.equal(got >= _VALID_FLOOR, live) or not torch.equal(got[~live], ref[~live]):
+            fail(f"{label}: kernel and plain version differ on dead slots or pad rows")
+        got, ref = got[live], ref[live]
+        label = f"{label} ({live.float().mean().item():.3f} of winners live)"
     agree = packed_agreement(got, ref, per_bin)
     tol = quant_step(per_bin) + 1e-5
     log(f"[kernel-vs-plain] {label}: same winner {agree['same_winner']:.6f}, "
@@ -155,7 +180,6 @@ def time_cuda(fn, reps):
 def phase_kernel(train, test, card):
     """K1 against its plain version at the main path's shapes and at small
     ragged ones; then both timed at the main path's shapes."""
-    import numpy as np
     import torch
 
     from clann_tpu_torch.data.synthetic import random_unit_vectors
@@ -194,12 +218,9 @@ def phase_kernel(train, test, card):
             fail("decoded candidates past n_real or non-finite")
 
     # times at the main path's shapes, kernel and plain in turns
-    kern = lambda: st.scan_candidates_packed(base, qp, per_bin=per_bin, biased=True)  # noqa: E731
-    plain = lambda: st.packed_candidates_plain(base, qp, per_bin=per_bin, biased=True)  # noqa: E731
-    t_plain = [time_cuda(plain, 3)]
-    t_kern = [time_cuda(kern, 20), time_cuda(kern, 20)]
-    t_plain.append(time_cuda(plain, 3))
-    ms, plain_ms = float(np.mean(t_kern)), float(np.mean(t_plain))
+    ms, plain_ms, t_kern, t_plain = time_pair(
+        lambda: st.scan_candidates_packed(base, qp, per_bin=per_bin, biased=True),
+        lambda: st.packed_candidates_plain(base, qp, per_bin=per_bin, biased=True))
     flop = 2.0 * base.shape[0] * base.shape[1] * qp.shape[0]
     log(f"[kernel-time] K1 at base {tuple(base.shape)} x queries {tuple(qp.shape)}: "
         f"kernel {ms:.3f} ms ({t_kern[0]:.3f}, {t_kern[1]:.3f}; "
@@ -208,7 +229,257 @@ def phase_kernel(train, test, card):
     return {"max_abs_err": bench["max_abs_err"], "ms": ms, "plain_ms": plain_ms}
 
 
-def phase_main_path(train, test, card, profile):
+def time_pair(kern, plain, reps_kern=20, reps_plain=3):
+    """(kernel ms, plain ms, their single calls): the two in turns, plain,
+    kernel, kernel, plain, each a CUDA-event mean."""
+    import numpy as np
+
+    t_plain = [time_cuda(plain, reps_plain)]
+    t_kern = [time_cuda(kern, reps_kern), time_cuda(kern, reps_kern)]
+    t_plain.append(time_cuda(plain, reps_plain))
+    return float(np.mean(t_kern)), float(np.mean(t_plain)), t_kern, t_plain
+
+
+def compare_candidates(base, qp, per_bin, label):
+    """K2 vs its plain version on the same device tensors: the share of
+    (query, bin) winners naming the same row, and the largest value
+    difference."""
+    import torch
+
+    from clann_tpu_torch.ops import scan_topk as st
+
+    vals, ids = st.scan_candidates(base, qp, per_bin=per_bin)
+    sync()
+    rv, ri = st.candidates_plain(base, qp, per_bin=per_bin)
+    sync()
+    if vals.shape != rv.shape or ids.dtype != torch.int32 or vals.dtype != torch.float32:
+        fail(f"{label}: kernel output {tuple(vals.shape)} {vals.dtype} {ids.dtype}, "
+             f"plain {tuple(rv.shape)}")
+    same = (ids == ri).float().mean().item()
+    err = (vals - rv).abs().max().item() if vals.numel() else 0.0
+    log(f"[kernel-vs-plain] {label}: same row {same:.6f}, max |value diff| {err:.3e} "
+        f"(tolerance: same row >= {SAME_WINNER_GATE}, |diff| <= {K2_VALUE_TOL})")
+    if not same >= SAME_WINNER_GATE or not err <= K2_VALUE_TOL:
+        fail(f"{label}: K2 disagrees with its plain version")
+    return err
+
+
+def phase_k2(train, test, card):
+    """K2 against its plain version at pallas_scan_topk's defaults on the
+    bench data and at small ragged shapes; then both timed."""
+    import torch
+
+    from clann_tpu_torch.data.synthetic import random_unit_vectors
+    from clann_tpu_torch.ops import scan_topk as st
+
+    dev = torch.device(DEVICE)
+    block_n, per_bin, q_tile = 16384, 16384 // 128, 256  # pallas_scan_topk defaults
+    n, d = train.shape
+    dpad = ((d + 127) // 128) * 128
+    base = torch.zeros((((n + block_n - 1) // block_n) * block_n, dpad),
+                       dtype=torch.bfloat16, device=dev)
+    base[:n, :d] = _norm(torch.from_numpy(train).to(dev)).to(torch.bfloat16)
+    qp = st.pad_queries(_norm(torch.from_numpy(test[:KERNEL_QUERIES]).to(dev)), dpad,
+                        q_tile, biased=False)
+    err = compare_candidates(base, qp, per_bin,
+                             f"K2 main path: base {tuple(base.shape)}, queries "
+                             f"{tuple(qp.shape)}, per_bin {per_bin}")
+    # ragged: n_real not a multiple of the bin, q_pad not a multiple of the
+    # kernel's 128-query tile, dpad 128 and 256, per_bin 1 .. 2048
+    for per_bin_s, d_s in ((1, 37), (16, 130), (128, 37), (2048, 37)):
+        v = _norm(torch.from_numpy(random_unit_vectors(3001, d_s, seed=per_bin_s)).to(dev))
+        dp = ((d_s + 127) // 128) * 128
+        b = torch.zeros((4096, dp), dtype=torch.bfloat16, device=dev)
+        b[:3001, :d_s] = v.to(torch.bfloat16)
+        q = st.pad_queries(_norm(torch.from_numpy(random_unit_vectors(77, d_s, seed=7)).to(dev)),
+                           dp, 32, biased=False)
+        compare_candidates(b, q, per_bin_s, f"K2 ragged n_real=3001 n_pad=4096 d={d_s} "
+                                            f"dpad={dp} q_pad={q.shape[0]} per_bin={per_bin_s}")
+        tv, ti = st.fused_scan_candidates(b, q, n_real=3001, num_bins=4096 // per_bin_s,
+                                          block_n=4096, q_tile=32)
+        if int(ti.max()) >= 3001 or not bool(torch.isfinite(tv[ti >= 0]).all()):
+            fail("K2: decoded candidates past n_real or non-finite")
+
+    ms, plain_ms, tk, tp = time_pair(
+        lambda: st.scan_candidates(base, qp, per_bin=per_bin),
+        lambda: st.candidates_plain(base, qp, per_bin=per_bin))
+    flop = 2.0 * base.shape[0] * base.shape[1] * qp.shape[0]
+    log(f"[kernel-time] K2 at base {tuple(base.shape)} x queries {tuple(qp.shape)}: "
+        f"kernel {ms:.3f} ms ({tk[0]:.3f}, {tk[1]:.3f}; {flop / ms / 1e9:.1f} TFLOP/s), "
+        f"plain {plain_ms:.3f} ms ({tp[0]:.3f}, {tp[1]:.3f}) on {card}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def k3_operands(layout, queries, B, q_tile):
+    """K3's operands for `queries` at budget B, made by the block path's
+    own ranking and pair bookkeeping."""
+    from clann_tpu_torch.ops import block_scan as bs
+
+    qn = _norm(queries)
+    wants, _ = bs.rank_blocks(layout, qn, B)
+    _, tile_block, qg = bs.pair_tiles(wants, qn, n_blocks=layout.n_blocks,
+                                      q_tile=q_tile, dpad=layout.base_bf16.shape[1])
+    return tile_block, qg
+
+
+def compare_k3(layout, tile_block, qg, q_tile, per_bin, label):
+    from clann_tpu_torch.ops import block_scan as bs
+
+    kw = dict(block_n=layout.block_n, q_tile=q_tile, per_bin=per_bin)
+    got = bs.block_scan_candidates_packed(layout.base_bf16, qg, tile_block, **kw)
+    sync()
+    ref = bs.block_candidates_plain(layout.base_bf16, qg, tile_block, **kw)
+    sync()
+    return check_packed(got, ref, per_bin, label, live_only=True)
+
+
+def phase_k3_ragged():
+    """K3 against its plain version on small layouts: pad rows in the last
+    block, dead slots, tiles past the last live slot, block ids out of
+    range, per_bin 1, 16, 512 and 2048, dpad 128 and 256."""
+    import numpy as np
+    import torch
+
+    from clann_tpu_torch.data.synthetic import random_unit_vectors
+    from clann_tpu_torch.ops import block_scan as bs
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(0)
+    for per_bin, block_n, d, B, q_tile in ((1, 128, 37, 3, 32), (16, 1024, 130, 2, 64),
+                                           (512, 4096, 37, 1, 32), (2048, 4096, 37, 1, 128)):
+        v = torch.from_numpy(random_unit_vectors(3001, d, seed=per_bin)).to(dev)
+        assign = rng.integers(0, 7, size=3001)
+        lay = bs.build_block_layout(v, assign, block_n, device=dev)
+        q = torch.from_numpy(random_unit_vectors(77, d, seed=7)).to(dev)
+        tile_block, qg = k3_operands(lay, q, B, q_tile)
+        # two more tiles of live queries, on block ids outside the base
+        tile_block = torch.cat([tile_block, tile_block.new_tensor([-1, lay.n_blocks + 3])])
+        qg = torch.cat([qg, qg[:q_tile], qg[:q_tile]])
+        compare_k3(lay, tile_block, qg, q_tile, per_bin,
+                   f"K3 ragged n_real=3001 n_pad={lay.base_bf16.shape[0]} d={d} "
+                   f"dpad={lay.base_bf16.shape[1]} block_n={block_n} per_bin={per_bin} "
+                   f"B={B} q_tile={q_tile} T={tile_block.shape[0]}")
+
+
+def phase_k3_bench(index, test, card):
+    """K3 against its plain version at the bench shape: the index's block
+    layout, 4,096 queries at the auto budget; then both timed."""
+    import torch
+
+    from clann_tpu_torch.ops import block_scan as bs
+    from clann_tpu_torch.ops.ivf import pallas_scan_plan
+
+    block_n, num_bins, _, q_tile = pallas_scan_plan(N_TRAIN, K, d=DIMS)
+    per_bin = block_n // num_bins
+    layout = bs.get_block_layout(index, block_n)
+    B = bs.auto_block_probe(layout.n_blocks)
+    tile_block, qg = k3_operands(
+        layout, torch.from_numpy(test[:BLOCK_QUERIES]).to(DEVICE), B, q_tile)
+    label = (f"K3 main path: {layout.n_blocks} blocks of {block_n}, B={B}, "
+             f"{BLOCK_QUERIES} queries -> T={tile_block.shape[0]} tiles of {q_tile}, "
+             f"per_bin {per_bin}")
+    agree = compare_k3(layout, tile_block, qg, q_tile, per_bin, label)
+    kw = dict(block_n=block_n, q_tile=q_tile, per_bin=per_bin)
+    ms, plain_ms, tk, tp = time_pair(
+        lambda: bs.block_scan_candidates_packed(layout.base_bf16, qg, tile_block, **kw),
+        lambda: bs.block_candidates_plain(layout.base_bf16, qg, tile_block, **kw))
+    flop = 2.0 * block_n * qg.shape[1] * qg.shape[0]
+    log(f"[kernel-time] K3 at {tile_block.shape[0]} tiles x ({block_n} rows x {q_tile} "
+        f"slots x dpad {qg.shape[1]}): kernel {ms:.3f} ms ({tk[0]:.3f}, {tk[1]:.3f}; "
+        f"{flop / ms / 1e9:.1f} TFLOP/s incl. dead slots), plain {plain_ms:.3f} ms "
+        f"({tp[0]:.3f}, {tp[1]:.3f}) on {card}")
+    return {"max_abs_err": agree["max_abs_err"], "ms": ms, "plain_ms": plain_ms}
+
+
+def check_result(d, i, label):
+    import numpy as np
+
+    if d.shape != (N_QUERIES, K) or i.shape != (N_QUERIES, K):
+        fail(f"{label}: result shapes {d.shape} {i.shape}")
+    if not np.isfinite(d).all() or i.min() < 0 or i.max() >= N_TRAIN:
+        fail(f"{label}: non-finite distances or ids out of range")
+    if not (np.diff(d, axis=1) >= -1e-6).all():
+        fail(f"{label}: distances not ascending")
+
+
+def qps(fn, reps=5):
+    """(queries per second of the median call, the calls' seconds)."""
+    import numpy as np
+
+    times = []
+    for _ in range(reps):
+        sync()
+        t = time.perf_counter()
+        fn()
+        sync()
+        times.append(time.perf_counter() - t)
+    return N_QUERIES / float(np.median(times)), times
+
+
+def phase_pallas_scan_topk(train, test, gt_d, gt_i, card):
+    """pallas_scan_topk (the K2 path) end to end, gated like scan-pallas."""
+    from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
+    from clann_tpu_torch.ops import scan_topk as st
+
+    st.CANDIDATES_LAUNCHES = 0
+    sims, ids = st.pallas_scan_topk(train, test, k=K, device=DEVICE)
+    sync()
+    launches = st.CANDIDATES_LAUNCHES
+    d = 1.0 - sims
+    check_result(d, ids, "pallas_scan_topk")
+    rec, idr = recall_values(gt_d, d, K)[0], recall_by_ids(gt_i, ids, K)
+    q, times = qps(lambda: st.pallas_scan_topk(train, test, k=K, device=DEVICE), reps=1)
+    log(f"[main] pallas_scan_topk (K2) recall@10 {rec:.4f} (gate {RECALL_GATE}), id-recall "
+        f"{idr:.4f} (gate {ID_RECALL_GATE}); K2 launches {launches}; {q:.0f} QPS "
+        f"({times[0]:.4f} s per call of {N_QUERIES}, base staging included) on {card}")
+    if launches < 1:
+        fail("pallas_scan_topk did not launch the K2 kernel")
+    if rec < RECALL_GATE or idr < ID_RECALL_GATE:
+        fail("pallas_scan_topk recall below the gate")
+    return launches
+
+
+def phase_block_modes(handle, test, gt_d, gt_i, card):
+    """The block modes through the facade: scan-block at the auto budget
+    (printed, not gated), at every block, and scan-block-adaptive (gated)."""
+    import numpy as np
+
+    from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
+    from clann_tpu_torch.ops import block_scan as bs
+    from clann_tpu_torch.ops.ivf import pallas_scan_plan
+
+    n_blocks = bs.get_block_layout(handle.index, pallas_scan_plan(N_TRAIN, K, d=DIMS)[0]).n_blocks
+    total = 0
+    for label, mode, n_probe, gated in (
+        (f"scan-block auto B={bs.auto_block_probe(n_blocks)}/{n_blocks}", "scan-block", None, False),
+        (f"scan-block B={n_blocks}/{n_blocks}", "scan-block", n_blocks, True),
+        ("scan-block-adaptive", "scan-block-adaptive", None, True),
+    ):
+        bs.KERNEL_LAUNCHES = 0
+        d, i, stats = handle.search_batch(test, mode=mode, n_probe=n_probe)
+        sync()
+        launches = bs.KERNEL_LAUNCHES
+        total += launches
+        check_result(d, i, label)
+        rec, idr = recall_values(gt_d, d, K)[0], recall_by_ids(gt_i, i, K)
+        q, times = qps(lambda: handle.search_batch(test, mode=mode, n_probe=n_probe),
+                       reps=5 if gated else 1)
+        unc = np.asarray(stats.uncertified)
+        log(f"[main] {label}: recall@10 {rec:.4f}, id-recall {idr:.4f}"
+            f"{f' (gates {RECALL_GATE} / {ID_RECALL_GATE})' if gated else ' (no gate)'}; "
+            f"dc/query {float(np.mean(stats.distance_computations)):.0f}; blocks/query "
+            f"{float(np.mean(stats.clusters_visited)):.2f}; uncertified queries "
+            f"{int((unc > 0).sum())}; K3 launches {launches}; {q:.0f} QPS "
+            f"({'median of 5' if gated else 'one call'}: s/call "
+            f"{', '.join(f'{x:.4f}' for x in times)}) on {card}")
+        if launches < 1:
+            fail(f"{label} did not launch the K3 kernel")
+        if gated and (rec < RECALL_GATE or idr < ID_RECALL_GATE):
+            fail(f"{label}: recall below the gate")
+    return total
+
+
+def phase_main_path(train, test, card):
     import numpy as np
     import torch
 
@@ -247,12 +518,7 @@ def phase_main_path(train, test, card, profile):
         f"{first_s:.3f} s; K1 launches in it: {launches}")
     if launches < 1:
         fail("scan-pallas did not launch the K1 kernel")
-    if d.shape != (N_QUERIES, K) or i.shape != (N_QUERIES, K):
-        fail(f"result shapes {d.shape} {i.shape}")
-    if not np.isfinite(d).all() or i.min() < 0 or i.max() >= N_TRAIN:
-        fail("non-finite distances or ids out of range")
-    if not (np.diff(d, axis=1) >= -1e-6).all():
-        fail("distances not ascending")
+    check_result(d, i, "scan-pallas")
     rec = recall_values(gt_d, d, K)[0]
     idr = recall_by_ids(gt_i, i, K)
     log(f"[main] scan-pallas recall@10 {rec:.4f} (gate {RECALL_GATE}), "
@@ -260,16 +526,6 @@ def phase_main_path(train, test, card, profile):
         f"{float(np.mean(stats.distance_computations)):.0f}")
     if rec < RECALL_GATE or idr < ID_RECALL_GATE:
         fail("scan-pallas recall below the gate")
-
-    def qps(fn, reps=5):
-        times = []
-        for _ in range(reps):
-            sync()
-            t = time.perf_counter()
-            fn()
-            sync()
-            times.append(time.perf_counter() - t)
-        return N_QUERIES / float(np.median(times)), times
 
     qps_p, reps_p = qps(lambda: handle.search_batch(test, mode="scan-pallas"))
     ds, is_, _ = handle.search_batch(test, mode="scan")
@@ -291,13 +547,11 @@ def phase_main_path(train, test, card, profile):
         f"peak device memory {peak:.3f} GB")
     if rec_s < RECALL_GATE or rec_e < RECALL_GATE:
         fail("scan / exact recall below the gate")
-    if profile:
-        profile_search(handle, test)
-    return launches
+    return handle, gt_d, gt_i, launches
 
 
-def profile_search(handle, test):
-    """Device time by kernel for one scan-pallas search_batch call."""
+def profile_search(handle, test, mode):
+    """Device time by kernel for one search_batch call in `mode`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -306,14 +560,14 @@ def profile_search(handle, test):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            handle.search_batch(test, mode="scan-pallas")
+            handle.search_batch(test, mode=mode)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     # device-side events only (kernels, copies), so nothing is counted twice
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in rows) / 1e3
-    log(f"[profile] scan-pallas search_batch of {len(test)} queries: wall "
+    log(f"[profile] {mode} search_batch of {len(test)} queries: wall "
         f"{wall * 1e3:.2f} ms under the profiler, device busy {busy:.2f} ms "
         f"(idle share {max(0.0, 1 - busy / (wall * 1e3)):.3f})")
     for e in rows[:10]:
@@ -324,7 +578,8 @@ def profile_search(handle, test):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler breakdown of one scan-pallas call")
+                    help="add torch.profiler breakdowns of one scan-pallas and one "
+                         "scan-block call")
     args = ap.parse_args()
 
     import_port()
@@ -342,18 +597,36 @@ def main():
 
     label = f"{card} ({smi})"
     k1 = phase_kernel(train, test, label)
-    launches = phase_main_path(train, test, label, args.profile)
+    k2 = phase_k2(train, test, label)
+    phase_k3_ragged()
+    handle, gt_d, gt_i, launches_k1 = phase_main_path(train, test, label)
+    launches_k2 = phase_pallas_scan_topk(train, test, gt_d, gt_i, label)
+    k3 = phase_k3_bench(handle.index, test, label)
+    launches_k3 = phase_block_modes(handle, test, gt_d, gt_i, label)
+    log(f"[main] peak device memory over the whole run "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    if args.profile:
+        for mode in ("scan-pallas", "scan-block"):
+            profile_search(handle, test, mode)
 
+    kernels = [
+        ("scan_topk_packed (K1)", "clann_tpu_torch/csrc/scan_topk.cu",
+         "clann_tpu/ops/pallas/scan_topk.py:83", launches_k1, k1),
+        ("scan_candidates (K2)", "clann_tpu_torch/csrc/scan_topk.cu",
+         "clann_tpu/ops/pallas/scan_topk.py:50", launches_k2, k2),
+        ("block_scan_packed (K3)", "clann_tpu_torch/csrc/block_scan.cu",
+         "clann_tpu/ops/pallas/block_scan.py:276", launches_k3, k3),
+    ]
     log(json.dumps({"kernels": [{
-        "name": "scan_topk_packed (K1)",
+        "name": name,
         "route": "cuda",
-        "source": "clann_tpu_torch/csrc/scan_topk.cu",
-        "replaces": "clann_tpu/ops/pallas/scan_topk.py:83",
+        "source": source,
+        "replaces": replaces,
         "launches": launches,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-    }]}))
+        "max_abs_err": m["max_abs_err"],
+        "ms": m["ms"],
+        "plain_ms": m["plain_ms"],
+    } for name, source, replaces, launches, m in kernels]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

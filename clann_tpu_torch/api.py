@@ -3,10 +3,13 @@
 `init` / `init_with_config` / `build` / `search` and `Clann.search_batch`,
 with an explicit `device`. The reference's facade is src/lib.rs:41-264.
 
-Ported search modes: "scan" (full dense scan) and "scan-pallas" (the fused
-scan whose candidate stage is the CUDA kernel K1 on a CUDA device). Every
-other mode of the JAX facade raises NotImplementedError naming the
-ROADMAP.md slice that brings it; none falls back to another mode.
+Ported search modes: "scan" (full dense scan), "scan-pallas" (the fused
+scan whose candidate stage is the CUDA kernel K1 on a CUDA device),
+"scan-block" (block-probed fused scan, kernel K3; n_probe = blocks per
+query) and "scan-block-adaptive" (doubling probe budget until the block
+certificate holds; n_probe = starting budget). Every other mode of the JAX
+facade raises NotImplementedError naming the ROADMAP.md slice that brings
+it; none falls back to another mode.
 """
 
 from __future__ import annotations
@@ -26,8 +29,6 @@ log = logging.getLogger("clann_tpu_torch")
 
 # JAX facade modes that later port slices bring (ROADMAP.md, "Port slices")
 _UNPORTED_MODES = {
-    "scan-block": "slice 2 (block scan + K3)",
-    "scan-block-adaptive": "slice 2 (block scan + K3)",
     "auto": "slice 3 (IVF dense layout; 'auto' resolves to 'dense')",
     "dense": "slice 3 (IVF dense layout)",
     "adaptive": "slice 3 (IVF dense layout)",
@@ -107,13 +108,15 @@ class Clann:
         """Batched k-NN. Returns (distances (Q, k) ascending, ids (Q, k),
         stats) as numpy arrays.
 
-        mode: "scan" or "scan-pallas" (default: config.search_mode).
-        `delta`, `n_probe` and `filter_type` belong to modes not ported yet
-        and are accepted for signature parity.
+        mode: "scan", "scan-pallas", "scan-block" or "scan-block-adaptive"
+        (default: config.search_mode). `n_probe`: blocks per query
+        ("scan-block") or the starting budget ("scan-block-adaptive").
+        `delta` and `filter_type` belong to modes not ported yet and are
+        accepted for signature parity.
         """
         from clann_tpu_torch.ops.ivf import scan_search
 
-        del delta, n_probe, filter_type
+        del delta, filter_type
         index = self._require_built()
         mode = mode or self.config.search_mode
         if mode == "scan":
@@ -121,6 +124,16 @@ class Clann:
         elif mode == "scan-pallas":
             dists, ids, stats = scan_search(index, queries, k=k,
                                             use_pallas=True)
+        elif mode == "scan-block":
+            from clann_tpu_torch.ops.block_scan import block_scan_search
+
+            dists, ids, stats = block_scan_search(index, queries, k=k,
+                                                  n_probe=n_probe)
+        elif mode == "scan-block-adaptive":
+            from clann_tpu_torch.ops.block_scan import block_scan_search_adaptive
+
+            dists, ids, stats = block_scan_search_adaptive(
+                index, queries, k=k, n_probe0=n_probe)
         elif mode in _UNPORTED_MODES:
             raise NotImplementedError(
                 f"search mode {mode!r} is not ported yet: ROADMAP.md "

@@ -8,8 +8,9 @@ clusters with fewer than max(brute_force_threshold, k) points
 
 Not built yet (later items of ROADMAP.md): the LSH hash tables, sketches
 and prefix directories, the global tables, and the dense IVF layout. The
-dense scan modes read only `vectors` (and `n_clusters` for their stats), so
-they are complete with this index.
+dense scan modes read only `vectors` (and `n_clusters` for their stats), and
+the block scan `vectors` and `assignment`, so they are complete with this
+index.
 """
 
 from __future__ import annotations
@@ -49,6 +50,8 @@ class ClusteredIndex:
     metric: str = "angular"
     # ops/ivf._pallas_base's padded bf16 copy of `vectors` (derived)
     pallas_base_cache: Dict = dataclasses.field(default_factory=dict, repr=False)
+    # ops/block_scan.get_block_layout's BlockLayouts, by block_n (derived)
+    block_layout_cache: Dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def n(self) -> int:

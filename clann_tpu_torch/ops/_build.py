@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, on first use, under
-``build/kernels/`` at the repository root (listed in ``.gitignore``). The
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects are linked into one shared library with a
+plain C interface, on first use, under ``build/kernels/`` at the repository
+root (listed in ``.gitignore``). The
 library name carries a hash of the sources and flags, so an edited source is
 rebuilt and a stale library is never loaded. The library is bound with
 ``ctypes``: pointers and the stream are ``c_void_p``, so 64-bit values are
@@ -28,7 +29,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -65,22 +66,36 @@ def library_path() -> Path:
     return BUILD_DIR / f"libclann_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: List[List[str]]) -> List[str]:
+    """Run the commands in parallel; their output, or raise if one failed
+    (after every one has ended)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, text in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{text}")
+    return outs
+
+
 def build() -> Path:
     """Compile csrc/*.cu unless the library for these sources exists."""
     out = library_path()
     if out.exists():
         return out
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
+    objs = [out.with_suffix(f".{src.stem}.{os.getpid()}.o") for src in _sources()]
+    try:
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                         for o, src in zip(objs, _sources())])
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     PTXAS_INFO[:] = [
-        ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+        ln.strip() for ln in "".join(logs).splitlines()
         if "spill" in ln or ("ptxas info" in ln and (
             "Used" in ln or "Compiling entry" in ln))
     ]
@@ -98,6 +113,11 @@ def load_library() -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.clann_scan_topk_packed.argtypes = [vp, vp, vp, i64, i32, i32, i32, i32, i32, vp]
     lib.clann_scan_topk_packed.restype = i32
+    lib.clann_scan_candidates.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32, vp]
+    lib.clann_scan_candidates.restype = i32
+    lib.clann_block_scan_packed.argtypes = [
+        vp, vp, vp, vp, i64, i64, i32, i64, i32, i32, i32, vp]
+    lib.clann_block_scan_packed.restype = i32
     lib.clann_cuda_error_string.argtypes = [i32]
     lib.clann_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib

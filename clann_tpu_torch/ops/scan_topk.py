@@ -1,6 +1,7 @@
-"""Fused dense-scan candidates (K1) and the fused-scan query path (PyTorch).
+"""Fused dense-scan candidates (K1, K2) and the fused-scan query paths
+(PyTorch).
 
-Port of the packed half of ``clann_tpu.ops.pallas.scan_topk``:
+Port of ``clann_tpu.ops.pallas.scan_topk``:
 
 - ``scan_candidates_packed`` is the wrapper of K1, the hand-written CUDA
   kernel in ``csrc/scan_topk.cu`` that replaces the Pallas kernel
@@ -14,6 +15,12 @@ Port of the packed half of ``clann_tpu.ops.pallas.scan_topk``:
 - ``fused_scan_candidates_packed`` adds the decode and the top-`num_bins`
   selection; ``fused_scan_topk_e2e`` the top-`rescore_m` cut, the exact f32
   rescore and the final top-k.
+- ``scan_candidates`` is the wrapper of K2 (same source file), which
+  replaces the unpacked Pallas kernel ``_scan_kernel``: per bin and query the
+  f32 max of the score and the lowest row reaching it, as ``(q_pad,
+  n_pad / per_bin)`` vals and ids. ``candidates_plain`` is its plain
+  version; ``fused_scan_candidates`` and ``pallas_scan_topk`` are the path
+  around it.
 
 `block_n` and `num_bins` matter only through ``per_bin = block_n //
 num_bins``; `q_tile` only pads the query count. Both keep the JAX meaning so
@@ -22,20 +29,28 @@ that the port selects the same candidates as the JAX package.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from clann_tpu_torch.ops.distances import _normalize_queries, rescore
+from clann_tpu_torch.ops.distances import (
+    _normalize_queries,
+    as_device_f32,
+    l2_normalize,
+    rescore,
+)
 
-# Launches of the K1 kernel made by scan_candidates_packed (the plain
-# version never counts). A run resets it and reads it back to show that its
-# main path went through the kernel.
+# Launches of the K1 kernel made by scan_candidates_packed, and of the K2
+# kernel made by scan_candidates (the plain versions never count). A run
+# resets them and reads them back to show that its path went through the
+# kernel.
 KERNEL_LAUNCHES = 0
+CANDIDATES_LAUNCHES = 0
 
 # decoded sentinel for padded / invalid rows (the JAX decode's value)
 _INVALID = -(1 << 30)
 
 
-def _check_packed_args(base_bf16, queries_bf16, per_bin, group_r):
+def _check_operands(base_bf16, queries_bf16, per_bin):
     if base_bf16.dtype != torch.bfloat16 or queries_bf16.dtype != torch.bfloat16:
         raise ValueError("base and queries must be bfloat16")
     if base_bf16.dim() != 2 or queries_bf16.dim() != 2:
@@ -49,6 +64,12 @@ def _check_packed_args(base_bf16, queries_bf16, per_bin, group_r):
         raise ValueError("base and queries must be on one device")
     if per_bin < 1 or per_bin & (per_bin - 1):
         raise ValueError(f"per_bin={per_bin} must be a power of two")
+    if base_bf16.shape[0] % per_bin:
+        raise ValueError(f"n_pad={base_bf16.shape[0]} is not a multiple of per_bin={per_bin}")
+
+
+def _check_packed_args(base_bf16, queries_bf16, per_bin, group_r):
+    _check_operands(base_bf16, queries_bf16, per_bin)
     if group_r < 1 or group_r & (group_r - 1) or per_bin % group_r:
         raise ValueError(f"group_r={group_r} must be a power of two dividing per_bin")
     pg = per_bin // group_r
@@ -56,8 +77,18 @@ def _check_packed_args(base_bf16, queries_bf16, per_bin, group_r):
     # >= 9 of them must survive (bf16 inputs carry ~8)
     if pg > (1 << 14):
         raise ValueError(f"per_bin / group_r = {pg} exceeds 16384")
-    if base_bf16.shape[0] % per_bin:
-        raise ValueError(f"n_pad={base_bf16.shape[0]} is not a multiple of per_bin={per_bin}")
+
+
+def _check_cuda_operands(base_bf16, queries_bf16):
+    """What the CUDA kernels take beyond _check_operands."""
+    if not base_bf16.is_cuda:
+        raise ValueError(f"unsupported device {base_bf16.device}")
+    if not (base_bf16.is_contiguous() and queries_bf16.is_contiguous()):
+        raise ValueError("base and queries must be contiguous")
+    if base_bf16.shape[1] % 64:
+        raise ValueError(f"dpad={base_bf16.shape[1]} must be a multiple of 64")
+    if base_bf16.data_ptr() % 16 or queries_bf16.data_ptr() % 16:
+        raise ValueError("base and queries must be 16-byte aligned")
 
 
 def scan_candidates_packed(
@@ -84,18 +115,11 @@ def scan_candidates_packed(
             base_bf16, queries_bf16, per_bin=per_bin, biased=biased,
             group_r=group_r, acc_bf16=acc_bf16,
         )
-    if not base_bf16.is_cuda:
-        raise ValueError(f"unsupported device {base_bf16.device}")
+    _check_cuda_operands(base_bf16, queries_bf16)
     if group_r != 1 or acc_bf16:
         raise ValueError("the CUDA kernel takes group_r=1 and acc_bf16=False only")
-    if not (base_bf16.is_contiguous() and queries_bf16.is_contiguous()):
-        raise ValueError("base and queries must be contiguous")
     n_pad, dpad = base_bf16.shape
     q_pad = queries_bf16.shape[0]
-    if dpad % 64:
-        raise ValueError(f"dpad={dpad} must be a multiple of 64")
-    if base_bf16.data_ptr() % 16 or queries_bf16.data_ptr() % 16:
-        raise ValueError("base and queries must be 16-byte aligned")
 
     from clann_tpu_torch.ops import _build
 
@@ -296,3 +320,139 @@ def fused_scan_topk_e2e(
     ex = rescore(base_f32, i, queries_f32)
     s, sel2 = torch.topk(ex, k, dim=1)
     return s, torch.where(torch.isfinite(s), torch.gather(i, 1, sel2), -1)
+
+
+def scan_candidates(
+    base_bf16: torch.Tensor,  # (n_pad, dpad) bf16
+    queries_bf16: torch.Tensor,  # (q_pad, dpad) bf16
+    *,
+    per_bin: int,
+):
+    """K2: per (query, bin) the f32 max of the score and the lowest row
+    reaching it, as vals (q_pad, n_pad // per_bin) f32 and ids (same shape)
+    int32 global rows, the JAX kernel's layout.
+
+    CUDA tensors launch the hand-written kernel on the current stream (and
+    raise on anything it does not take); CPU tensors run candidates_plain.
+    """
+    global CANDIDATES_LAUNCHES
+
+    _check_operands(base_bf16, queries_bf16, per_bin)
+    if base_bf16.device.type == "cpu":
+        return candidates_plain(base_bf16, queries_bf16, per_bin=per_bin)
+    _check_cuda_operands(base_bf16, queries_bf16)
+    n_pad, dpad = base_bf16.shape
+    q_pad = queries_bf16.shape[0]
+    if per_bin > (1 << 14) or n_pad >= (1 << 31):
+        raise ValueError(f"per_bin={per_bin} > 16384 or n_pad={n_pad} past int32 ids")
+
+    from clann_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    dev = base_bf16.device
+    vals = torch.empty((q_pad, n_pad // per_bin), dtype=torch.float32, device=dev)
+    ids = torch.empty((q_pad, n_pad // per_bin), dtype=torch.int32, device=dev)
+    if vals.numel() == 0:
+        return vals, ids  # nothing to launch (and nothing counted)
+    code = lib.clann_scan_candidates(
+        base_bf16.data_ptr(), queries_bf16.data_ptr(), vals.data_ptr(),
+        ids.data_ptr(), n_pad, q_pad, dpad, per_bin, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, code, "clann_scan_candidates launch")
+    CANDIDATES_LAUNCHES += 1
+    return vals, ids
+
+
+def candidates_plain(
+    base_bf16: torch.Tensor,
+    queries_bf16: torch.Tensor,
+    *,
+    per_bin: int,
+    block_rows: int = 32768,
+):
+    """K2's function in plain PyTorch, block by block over the base: f32
+    product of the upcast bf16 operands, bin max, first argmax (torch.argmax
+    returns the first maximal index, as the JAX kernel's min over the rows
+    reaching the max does)."""
+    _check_operands(base_bf16, queries_bf16, per_bin)
+    n_pad = base_bf16.shape[0]
+    q_pad = queries_bf16.shape[0]
+    qf = queries_bf16.float()
+    blk = max(per_bin, (block_rows // per_bin) * per_bin)
+    vals, ids = [], []
+    for start in range(0, n_pad, blk):
+        s = torch.matmul(base_bf16[start : start + blk].float(), qf.T)
+        nb = s.shape[0] // per_bin
+        s3 = s.view(nb, per_bin, q_pad)
+        arg = torch.argmax(s3, dim=1)
+        first = torch.arange(nb, device=s.device)[:, None] * per_bin + start
+        vals.append(s3.amax(dim=1))
+        ids.append((first + arg).to(torch.int32))
+    return torch.cat(vals).T.contiguous(), torch.cat(ids).T.contiguous()
+
+
+def fused_scan_candidates(
+    base_bf16: torch.Tensor,  # (n_pad, dpad) bf16, rows beyond n_real zero
+    queries_bf16: torch.Tensor,  # (q_pad, dpad) bf16
+    *,
+    n_real: int,
+    num_bins: int = 128,
+    block_n: int = 16384,
+    q_tile: int = 256,
+):
+    """(q_pad, num_bins) approximate top candidates (vals f32, ids int64):
+    K2, then the padded rows masked and the strongest num_bins of the
+    (n_pad / per_bin) bin winners kept, as the JAX function does."""
+    per_bin = _check_plan(base_bf16.shape[0], queries_bf16.shape[0],
+                          block_n, q_tile, num_bins, 1)
+    vals, ids = scan_candidates(base_bf16, queries_bf16, per_bin=per_bin)
+    ids = ids.long()
+    vals = torch.where(ids < n_real, vals, -torch.inf)
+    if vals.shape[1] > num_bins:
+        vals, sel = torch.topk(vals, num_bins, dim=1)
+        ids = torch.gather(ids, 1, sel)
+    return vals, torch.where(torch.isfinite(vals), ids, -1)
+
+
+def pallas_scan_topk(
+    base,
+    queries,
+    k: int = 10,
+    num_bins: int = 128,
+    block_n: int = 16384,
+    q_tile: int = 256,
+    batch_q: int = 4096,
+    device="cpu",
+):
+    """Fused-kernel dense scan (K2 candidates): returns numpy (exact cosine
+    sims desc (Q, k) f32, ids (Q, k) int32).
+
+    The base is unbiased, padded to dpad = ceil(d / 128) * 128 columns; the
+    candidates of each batch of `batch_q` queries are re-scored exactly in
+    f32 and the best k kept, as in the JAX function.
+    """
+    if k > num_bins:
+        raise ValueError(f"k={k} must be <= num_bins={num_bins}")
+    base_n = l2_normalize(as_device_f32(base, device))
+    qn_all = l2_normalize(as_device_f32(queries, device))
+    n, d = base_n.shape
+    dpad = ((d + 127) // 128) * 128
+    n_pad = ((n + block_n - 1) // block_n) * block_n
+    base_p = torch.zeros((n_pad, dpad), dtype=torch.bfloat16, device=base_n.device)
+    base_p[:n, :d] = base_n.to(torch.bfloat16)
+
+    out_s, out_i = [], []
+    for s in range(0, qn_all.shape[0], batch_q):
+        qn = qn_all[s : s + batch_q]
+        qp = pad_queries(qn, dpad, q_tile, biased=False)
+        vals, ids = fused_scan_candidates(
+            base_p, qp, n_real=n, num_bins=num_bins, block_n=block_n,
+            q_tile=q_tile,
+        )
+        ids = ids[: qn.shape[0]]
+        top_s, sel = torch.topk(rescore(base_n, ids, qn), k, dim=1)
+        out_s.append(top_s)
+        out_i.append(torch.gather(ids, 1, sel))
+    return (torch.cat(out_s).cpu().numpy(),
+            torch.cat(out_i).cpu().numpy().astype(np.int32))

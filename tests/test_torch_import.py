@@ -22,6 +22,7 @@ SLICE_MODULES = [
     "clann_tpu_torch.metrics.recall",
     "clann_tpu_torch.metrics.trace",
     "clann_tpu_torch.ops._build",
+    "clann_tpu_torch.ops.block_scan",
     "clann_tpu_torch.ops.distances",
     "clann_tpu_torch.ops.gmm",
     "clann_tpu_torch.ops.ivf",

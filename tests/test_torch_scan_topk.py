@@ -18,6 +18,7 @@ import torch
 
 import jax.numpy as jnp
 
+from clann_tpu.data.synthetic import clustered_unit_vectors, random_unit_vectors
 from clann_tpu.ops.pallas import scan_topk as jst
 
 from clann_tpu_torch.ops import _build
@@ -64,11 +65,10 @@ def _both_candidates(bp, qp, **kw):
     return np.asarray(jv), np.asarray(ji), tv.numpy(), ti.numpy()
 
 
-def _assert_candidates_match(jv, ji, tv, ti, pg, step=None):
+def _assert_candidates_match(jv, ji, tv, ti, tol):
     q, nb = ji.shape
     overlap = np.mean([len(set(ji[r]) & set(ti[r])) / nb for r in range(q)])
     assert overlap >= 0.99, overlap
-    tol = (quant_step(pg) if step is None else step) + 1e-6
     for r in range(q):
         jmap = dict(zip(ji[r].tolist(), jv[r].tolist()))
         for i, v in zip(ti[r].tolist(), tv[r].tolist()):
@@ -91,7 +91,7 @@ def test_candidates_plain_vs_jax(block_n, num_bins, biased):
         biased=biased,
     )
     assert ti.max() < n_real and (ti >= 0).all()
-    _assert_candidates_match(jv, ji, tv, ti, block_n // num_bins)
+    _assert_candidates_match(jv, ji, tv, ti, quant_step(block_n // num_bins) + 1e-6)
 
 
 @pytest.mark.parametrize("group_r,acc_bf16", [(2, False), (4, False),
@@ -106,8 +106,8 @@ def test_candidates_group_and_bf16_plain_vs_jax(group_r, acc_bf16):
     pg = 16 // group_r
     # with acc_bf16 the scores round to bf16 (a step of 2^-7 in [2, 4))
     # before packing, so one step of THAT is the summation-order bound
-    _assert_candidates_match(jv, ji, tv, ti, pg,
-                             step=2.0 ** -7 if acc_bf16 else None)
+    _assert_candidates_match(jv, ji, tv, ti,
+                             (2.0 ** -7 if acc_bf16 else quant_step(pg)) + 1e-6)
 
 
 def test_decode_masks_rows_beyond_n_real():
@@ -202,3 +202,123 @@ def test_build_refuses_without_nvcc(monkeypatch, tmp_path):
     path = _build.library_path()
     assert path.parent == tmp_path / "kernels" and path.name.endswith(".so")
     assert path == _build.library_path()  # content-addressed, stable
+
+
+# ---------------------------------------------------------------- K2
+
+
+def _both_unpacked(bp, qp, **kw):
+    jv, ji = jst.fused_scan_candidates(
+        jnp.asarray(bp, jnp.bfloat16), jnp.asarray(qp, jnp.bfloat16),
+        interpret=True, **kw,
+    )
+    tv, ti = tst.fused_scan_candidates(
+        torch.from_numpy(bp).to(torch.bfloat16),
+        torch.from_numpy(qp).to(torch.bfloat16), **kw,
+    )
+    assert tv.dtype == torch.float32 and ti.dtype == torch.int64
+    return np.asarray(jv), np.asarray(ji), tv.numpy(), ti.numpy()
+
+
+@pytest.mark.parametrize("block_n,num_bins", [
+    (512, 32),    # the test_pallas_scan shape, per_bin 16
+    (512, 512),   # per_bin 1
+    (512, 128),   # per_bin 4
+    (1024, 8),    # per_bin 128: a bin spans a whole 128-row chunk
+    (2048, 32),   # one block: the raw bin winners, no cross-block top-k
+])
+def test_k2_candidates_plain_vs_jax(block_n, num_bins):
+    _, _, bp, qp, n_real = _operands(n_real=N - 17)
+    jv, ji, tv, ti = _both_unpacked(bp, qp, n_real=n_real, num_bins=num_bins,
+                                    block_n=block_n, q_tile=32)
+    assert ti.shape == (QN, num_bins)
+    assert ti.max() < n_real and (ti >= 0).all()
+    _assert_candidates_match(jv, ji, tv, ti, 1e-5)
+
+
+def test_k2_ties_take_the_lowest_row():
+    """Equal scores in a bin (duplicated rows): both kernels name the
+    first row reaching the max, and the raw layout matches JAX exactly."""
+    _, _, bp, qp, _ = _operands(n=512, seed=4)
+    bp[1::2] = bp[0::2]  # rows 2i and 2i+1 score alike
+    jv, ji, tv, ti = _both_unpacked(bp, qp, n_real=512, num_bins=64,
+                                    block_n=512, q_tile=32)
+    assert (ti % 2 == 0).all()
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(tv, jv, atol=1e-6)
+
+
+def test_k2_raw_layout_and_blocks_agree():
+    """scan_candidates' (q_pad, n_bins) layout: id = bin * per_bin + row in
+    bin, vals the bin max; the plain version's block size changes nothing."""
+    _, _, bp, qp, _ = _operands(n=1024, seed=8)
+    b = torch.from_numpy(bp).to(torch.bfloat16)
+    q = torch.from_numpy(qp).to(torch.bfloat16)
+    vals, ids = tst.scan_candidates(b, q, per_bin=16)
+    assert vals.shape == ids.shape == (QN, 64) and ids.dtype == torch.int32
+    s = (b.float() @ q.float().T).numpy().reshape(64, 16, QN)
+    np.testing.assert_allclose(vals.numpy(), s.max(axis=1).T, atol=1e-6)
+    np.testing.assert_array_equal(ids.numpy() // 16, np.arange(64)[None, :].repeat(QN, 0))
+    v2, i2 = tst.candidates_plain(b, q, per_bin=16, block_rows=128)
+    assert torch.equal(v2, vals) and torch.equal(i2, ids)
+
+
+@pytest.mark.parametrize("shape", ["brute_force", "descending", "padding", "batched"])
+def test_pallas_scan_topk_vs_jax(shape):
+    if shape in ("brute_force", "batched"):
+        base = clustered_unit_vectors(3000, 32, n_modes=16, seed=0)
+        queries = random_unit_vectors(64, 32, seed=1)
+        kw = dict(k=10, num_bins=32, block_n=512, q_tile=64)
+        if shape == "batched":
+            kw["batch_q"] = 24
+    elif shape == "descending":
+        base = random_unit_vectors(1500, 16, seed=3)
+        queries = random_unit_vectors(32, 16, seed=4)
+        kw = dict(k=8, num_bins=16, block_n=512, q_tile=32)
+    else:  # n not a multiple of block_n: padded rows never returned
+        base = random_unit_vectors(700, 16, seed=5)
+        queries = random_unit_vectors(16, 16, seed=6)
+        kw = dict(k=5, num_bins=16, block_n=512, q_tile=16)
+    js, ji = jst.pallas_scan_topk(base, queries, interpret=True, **kw)
+    before = tst.CANDIDATES_LAUNCHES
+    ts, ti = tst.pallas_scan_topk(base, queries, **kw)
+    assert tst.CANDIDATES_LAUNCHES == before  # CPU tensors: plain version
+    assert ts.dtype == np.float32 and ti.dtype == np.int32
+    assert_topk_match(ji, js, ti, ts)
+    assert (np.diff(ts, axis=1) <= 1e-6).all()
+    assert ti.min() >= 0 and ti.max() < base.shape[0]
+    if shape == "brute_force":
+        bn = base / np.linalg.norm(base, axis=1, keepdims=True)
+        qn = queries / np.linalg.norm(queries, axis=1, keepdims=True)
+        gt = np.argsort(-(qn @ bn.T), axis=1)[:, :10]
+        hit = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(ti, gt)])
+        assert hit >= 0.9, hit
+
+
+def test_pallas_scan_topk_k_bounded_by_bins():
+    base = random_unit_vectors(600, 16, seed=7)
+    with pytest.raises(ValueError):
+        jst.pallas_scan_topk(base, base[:4], k=20, num_bins=16, interpret=True)
+    with pytest.raises(ValueError, match="num_bins"):
+        tst.pallas_scan_topk(base, base[:4], k=20, num_bins=16)
+
+
+@pytest.mark.parametrize("case", ["dtype", "dpad", "per_bin", "ragged", "device"])
+def test_k2_wrapper_rejects_bad_input(case):
+    b = torch.zeros((512, DPAD), dtype=torch.bfloat16)
+    q = torch.zeros((32, DPAD), dtype=torch.bfloat16)
+    per_bin = 16
+    if case == "dtype":
+        q = q.float()
+    elif case == "dpad":
+        q = q[:, :64]
+    elif case == "per_bin":
+        per_bin = 12
+    elif case == "ragged":
+        b = b[:500]
+    else:  # neither CPU nor CUDA: no silent plain-version fallback
+        b, q = b.to("meta"), q.to("meta")
+    before = tst.CANDIDATES_LAUNCHES
+    with pytest.raises(ValueError):
+        tst.scan_candidates(b, q, per_bin=per_bin)
+    assert tst.CANDIDATES_LAUNCHES == before

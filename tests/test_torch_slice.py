@@ -1,7 +1,7 @@
 """The ported slice as a whole against the JAX package, on the CPU:
 cluster build, scan_search in every pull mode (kernel path pinned, plain
 path, certified exact), the Clann facade's "scan" / "scan-pallas" modes and
-the facade's error probes.
+the facade's error probes (the block modes are in test_torch_block_scan.py).
 
 Both packages search the SAME index: the JAX index's geometry fields are
 carried across with index_from_arrays. The port's own build is compared
@@ -188,8 +188,7 @@ def test_facade_single_query_search(world):
 
 
 @pytest.mark.parametrize("mode", [None, "auto", "dense", "lsh", "lsh-global",
-                                  "lsh-clustered", "scan-block",
-                                  "scan-block-adaptive", "adaptive"])
+                                  "lsh-clustered", "adaptive"])
 def test_unported_modes_raise(world, mode):
     train = world[0]
     t = clann_tpu_torch.init_with_config(train[:200], TConfig(**CFG), device="cpu").build()
