@@ -29,6 +29,24 @@ caught):
    block and "scan-block-adaptive" (both gated). Each path is run with the
    launch counts set to 0 just before it and read just after, and fails if
    its kernel was not launched.
+5. gather: K4-K7 against their plain versions on the card, bit-exact, at
+   the gather-rate probe's shapes (131,072 rows: 4 KB pages, 8-row groups
+   and 128-word slices of the (1,849,250, 128) word table), K7 at the global
+   engine's record table (L = 128, G = 32, 512-byte rows), at ragged row
+   counts with the first and last rows and out-of-range indices (zeros),
+   and at 12-byte rows (the 4-byte-lane instance); then CUDA-event times of
+   each kernel and its plain version. Then the gather-rate probe's entry
+   point (clann_tpu_torch.probes.gather_rate.run) as a path of its own,
+   which must launch K4-K7.
+6. lsh-build: the LSH configuration of bench.py's lsh_at_0.9 row
+   (LSH_AT_09.json "chosen": L = 128, gather_block 32, chunk 2048,
+   filter_expand 8, global engine, no dense layout) built with
+   init_with_config -> build on the same data: seconds per build span,
+   bytes of each LSH array, peak device memory.
+7. lsh: search_batch(mode="lsh") over the first 2,048 queries at delta 0.95
+   and 0.9, gated recall@10 >= 0.8 * delta, failing if K7 was not launched;
+   recall, id-recall, dc and candidates per query, QPS, loop iterations and
+   host syncs per batch; batch 256 against one batch of 1,024.
 
 It prints the kernels as one JSON line, the nvidia-smi name / power limit
 line, and last {"ok": true, "device": {...}}. Imports only torch, numpy and
@@ -38,6 +56,7 @@ the clann_tpu_torch package beside this file.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -53,6 +72,9 @@ BLOCK_QUERIES = 4_096  # one block-scan batch (block_scan_search's batch_q)
 RECALL_GATE, ID_RECALL_GATE = 0.9, 0.8  # bench.py's gates
 SAME_WINNER_GATE = 0.99
 K2_VALUE_TOL = 1e-5  # f32 sums of exact bf16 products in another order
+LSH_QUERIES = 2_048  # the lsh path's query count (first queries of the set)
+LSH_DELTAS = (0.95, 0.9)
+LSH_BIG_BATCH = 1_024  # compared with the engine's default batch of 256
 DEVICE = "cuda"
 
 
@@ -160,6 +182,21 @@ def check_packed(got, ref, per_bin, label, live_only=False):
     if agree["same_winner"] < SAME_WINNER_GATE or agree["max_abs_err"] > tol:
         fail(f"{label}: kernel disagrees with its plain version: {agree}")
     return agree
+
+
+@contextlib.contextmanager
+def traced():
+    """The package tracer on for a block (its build spans synchronize the
+    card, so they time device work); yields a function that formats the
+    spans' seconds."""
+    from clann_tpu_torch.metrics.trace import TRACER
+
+    TRACER.clear()
+    TRACER.enabled = True
+    try:
+        yield lambda: ", ".join(f"{k} {v:.3f}" for k, v in sorted(TRACER.totals.items()))
+    finally:
+        TRACER.enabled = False
 
 
 def time_cuda(fn, reps):
@@ -391,10 +428,10 @@ def phase_k3_bench(index, test, card):
     return {"max_abs_err": agree["max_abs_err"], "ms": ms, "plain_ms": plain_ms}
 
 
-def check_result(d, i, label):
+def check_result(d, i, label, n_queries=N_QUERIES):
     import numpy as np
 
-    if d.shape != (N_QUERIES, K) or i.shape != (N_QUERIES, K):
+    if d.shape != (n_queries, K) or i.shape != (n_queries, K):
         fail(f"{label}: result shapes {d.shape} {i.shape}")
     if not np.isfinite(d).all() or i.min() < 0 or i.max() >= N_TRAIN:
         fail(f"{label}: non-finite distances or ids out of range")
@@ -402,7 +439,7 @@ def check_result(d, i, label):
         fail(f"{label}: distances not ascending")
 
 
-def qps(fn, reps=5):
+def qps(fn, reps=5, n_queries=N_QUERIES):
     """(queries per second of the median call, the calls' seconds)."""
     import numpy as np
 
@@ -413,7 +450,7 @@ def qps(fn, reps=5):
         fn()
         sync()
         times.append(time.perf_counter() - t)
-    return N_QUERIES / float(np.median(times)), times
+    return n_queries / float(np.median(times)), times
 
 
 def phase_pallas_scan_topk(train, test, gt_d, gt_i, card):
@@ -505,17 +542,18 @@ def phase_main_path(train, test, card):
     st.KERNEL_LAUNCHES = 0
     handle = clann_tpu_torch.init_with_config(train, cfg, device=DEVICE)
     t0 = time.perf_counter()
-    handle.build()
-    sync()
+    with traced() as spans:
+        handle.build()
+        sync()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     d, i, stats = handle.search_batch(test, mode="scan-pallas")
     first_s = time.perf_counter() - t0
     launches = st.KERNEL_LAUNCHES
     idx = handle.index
-    log(f"[main] build {build_s:.3f} s ({idx.n_clusters} GMM clusters, index "
-        f"{idx.memory_usage() / 1e9:.3f} GB); first scan-pallas search "
-        f"{first_s:.3f} s; K1 launches in it: {launches}")
+    log(f"[main] build {build_s:.3f} s ({idx.n_clusters} GMM clusters, L={cfg.num_tables} "
+        f"LSH tables; index {idx.memory_usage() / 1e9:.3f} GB; spans (s, synchronized): "
+        f"{spans()}); first scan-pallas search {first_s:.3f} s; K1 launches in it: {launches}")
     if launches < 1:
         fail("scan-pallas did not launch the K1 kernel")
     check_result(d, i, "scan-pallas")
@@ -575,11 +613,247 @@ def profile_search(handle, test, mode):
             f"{e.key[:90]}")
 
 
+def check_gather(label, kern, plain):
+    """A gather kernel against its plain version: bit-identical words."""
+    import torch
+
+    got = kern()
+    sync()
+    ref = plain()
+    sync()
+    if got.shape != ref.shape or got.dtype != ref.dtype or not torch.equal(got, ref):
+        fail(f"{label}: kernel output differs from its plain version")
+    err = (got.long() - ref.long()).abs().max().item() if got.numel() else 0
+    log(f"[gather] {label}: bit-identical to the plain version ({got.numel()} words)")
+    return float(err)
+
+
+def phase_gather(card):
+    """K4-K7 against their plain versions at the probe's shapes, K7 at the
+    engine's, at ragged shapes and at 12-byte rows; then both timed, each
+    iteration on its own rotated index vector (the probe's protocol)."""
+    import torch
+
+    from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.probes import gather_rate as gr
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows, W = gr.ROWS, gr.TAKE_G * gr.R
+    T = gr.L_PROBE * (gr.TAKE_SLOTS // gr.TAKE_G)  # the (T, 128) word table
+
+    def idx_in(n, count=rows):
+        return torch.randint(0, n, (count,), dtype=torch.int32, generator=gen, device=dev)
+
+    def ragged(n, count):
+        """count indices with the first and the last row and two outside"""
+        i = idx_in(n, count)
+        i[:4] = torch.tensor([0, n - 1, -1, n], dtype=torch.int32, device=dev)
+        return i
+
+    table = gr.random_words((T, W), gen, dev)
+    pages = gr.random_words((T // 8, 8, 128), gen, dev)
+    nb = gr.TAKE_SLOTS // gr.ENGINE_G
+    rec = gr.random_words((gr.ENGINE_L * nb, gr.ENGINE_G * gr.R), gen, dev)
+    flat = table.view(-1)
+    # name, kernel(i, inflight), plain(i), source rows, moved / useful bytes per index
+    cases = [
+        ("K4 gather_pages", lambda i, f=8: tg.gather_pages(pages, i, inflight=f),
+         lambda i: tg.pages_plain(pages, i), T // 8, 4096, 4096, f"pages {tuple(pages.shape)}"),
+        ("K5 gather_group8", lambda i, f=8: tg.gather_group8(table, i, inflight=f),
+         lambda i: tg.group8_plain(table, i), T // 8, 8 * W * 4, W * 4,
+         f"8-row groups of {tuple(table.shape)}"),
+        ("K6 gather_flat1d", lambda i, f=8: tg.gather_flat1d(flat, i, width=W, inflight=f),
+         lambda i: tg.flat1d_plain(flat, i, width=W), T, W * 4, W * 4,
+         f"{W}-word slices of ({flat.shape[0]},)"),
+        ("K7 gather_rows", lambda i, f=8: tg.gather_rows(rec, i, inflight=f),
+         lambda i: tg.rows_plain(rec, i), rec.shape[0], rec.shape[1] * 4, rec.shape[1] * 4,
+         f"engine records {tuple(rec.shape)} (L={gr.ENGINE_L}, G={gr.ENGINE_G})"),
+    ]
+    out = {}
+    for name, kern, plain, n_src, moved, useful, shape in cases:
+        i0 = idx_in(n_src)
+        err = 0.0
+        for f in gr.NSEMS:
+            err = max(err, check_gather(f"{name} at {rows} rows of {shape}, inflight {f}",
+                                        lambda: kern(i0, f), lambda: plain(i0)))
+        for count in (rows + 37, 1001):  # not a multiple of a CTA's rows
+            ir = ragged(n_src, count)
+            err = max(err, check_gather(f"{name} ragged: {count} rows, indices 0, last, -1, "
+                                        f"{n_src}", lambda: kern(ir), lambda: plain(ir)))
+        sets = [(i,) for i in gr.rotated(i0, n_src, 20)]
+        t_plain = [gr.time_iters(plain, sets, 3)]
+        t_kern = [gr.time_iters(kern, sets, 3), gr.time_iters(kern, sets, 3)]
+        t_plain.append(gr.time_iters(plain, sets, 3))
+        ms, plain_ms = sum(t_kern) / 2, sum(t_plain) / 2
+        log(f"[gather-time] {name} at {rows} rows of {shape}: kernel {ms:.4f} ms "
+            f"({t_kern[0]:.4f}, {t_kern[1]:.4f}; {rows * moved / ms / 1e6:.1f} GB/s moved, "
+            f"{rows * useful / ms / 1e6:.1f} useful), plain {plain_ms:.4f} ms "
+            f"({t_plain[0]:.4f}, {t_plain[1]:.4f}; {rows * moved / plain_ms / 1e6:.1f} GB/s "
+            f"moved) on {card}")
+        out[name.split()[0]] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    # the 4-byte-lane instance: 12-byte records (G = 1, R = 3)
+    small = gr.random_words((5003, 3), gen, dev)
+    ir = ragged(5003, 4099)
+    check_gather("K7 gather_rows, 12-byte rows (4-byte lanes), 4,099 rows",
+                 lambda: tg.gather_rows(small, ir), lambda: tg.rows_plain(small, ir))
+    del table, pages, rec, flat
+    return out
+
+
+def phase_gather_probe(card):
+    """The gather-rate probe's entry point as a path: counts set to 0 just
+    before it, read just after; every kernel row must be correct."""
+    from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.probes import gather_rate as gr
+
+    tg.reset_launches()
+    t0 = time.perf_counter()
+    res = gr.run(DEVICE, iters=2, reps=1)
+    sync()
+    counts = {"K4": tg.PAGES_LAUNCHES, "K5": tg.GROUP8_LAUNCHES, "K6": tg.FLAT1D_LAUNCHES,
+              "K7": tg.ROWS_LAUNCHES}
+    bad = [t for t, r in res.items() if r.get("correct") is False]
+    log(f"[gather-probe] probes.gather_rate.run (2 iterations per row, best of 1): "
+        f"{len(res)} rows in {time.perf_counter() - t0:.1f} s; launches {counts}")
+    for tag in ("torch_take_G32", "page4k_s8", "group8_s8", "flat1d_s8",
+                f"torch_engine_L{gr.ENGINE_L}_G{gr.ENGINE_G}",
+                f"k7_engine_L{gr.ENGINE_L}_G{gr.ENGINE_G}_s8"):
+        r = res[tag]
+        log(f"[gather-probe]   {tag}: {r['ms_per_iter']:.4f} ms/iter, {r['ns_per_row']:.3f} "
+            f"ns/row, {r['gbps']:.1f} GB/s moved, {r['useful_gbps']:.1f} useful on {card}")
+    if bad:
+        fail(f"gather-rate probe rows not bit-identical to the plain gather: {bad}")
+    if min(counts.values()) < 1:
+        fail(f"the gather-rate probe did not launch every kernel: {counts}")
+    return counts
+
+
+def lsh_config():
+    """bench.py's lsh_at_0.9 row with LSH_AT_09.json's chosen knobs."""
+    import clann_tpu_torch
+
+    return clann_tpu_torch.Config(
+        num_tables=128, num_clusters_factor=0.4, k=K, delta=0.95, seed=0,
+        gather_block=32, candidate_chunk=2048, filter_expand=8, lsh_engine="global",
+        dense_layout=False, pack_slot_records=False,
+        dataset_name=f"glove-{DIMS}-angular-synthetic",
+    )
+
+
+def phase_lsh_build(train, card):
+    import torch
+
+    import clann_tpu_torch
+
+    cfg = lsh_config()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    handle = clann_tpu_torch.init_with_config(train, cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    with traced() as spans:
+        handle.build()
+        sync()
+    build_s = time.perf_counter() - t0
+    idx = handle.index
+    log(f"[lsh-build] L={cfg.num_tables} G={cfg.gather_block} on {N_TRAIN} x {DIMS}: "
+        f"build {build_s:.3f} s; spans (s, synchronized): {spans()}; {idx.n_clusters} "
+        f"clusters, g_dir_iters {idx.g_dir_iters}, dir_iters {idx.dir_iters}")
+    nbytes = idx.array_bytes()
+    log(f"[lsh-build] bytes: " + ", ".join(
+        f"{f} {tuple(getattr(idx, f).shape)} {nbytes[f] / 1e6:.1f} MB"
+        for f in ("g_records", "g_sorted_hash", "sorted_hash", "sorted_idx", "sketches",
+                  "prefix_dir", "g_dir", "vectors")))
+    log(f"[lsh-build] index {idx.memory_usage() / 1e9:.3f} GB; peak device memory of the "
+        f"build {torch.cuda.max_memory_allocated() / 1e9:.3f} GB on {card}")
+    for f in ("g_records", "g_sorted_hash", "g_dir", "sketches", "sorted_hash", "prefix_dir"):
+        if getattr(idx, f) is None:
+            fail(f"the LSH build made no {f}")
+    return handle
+
+
+def phase_lsh(handle, test, gt_d, gt_i, card):
+    """mode="lsh" through the facade at each delta, gated; the loop's
+    iterations and syncs from a second call of the engine."""
+    import numpy as np
+
+    from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
+    from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.ops.global_query import LoopStats, global_search
+
+    q, gd, gi = test[:LSH_QUERIES], gt_d[:LSH_QUERIES], gt_i[:LSH_QUERIES]
+    launches = 0
+    for delta in LSH_DELTAS:
+        tg.reset_launches()
+        d, i, st = handle.search_batch(q, mode="lsh", delta=delta)
+        sync()
+        launches_d = tg.ROWS_LAUNCHES
+        launches += launches_d
+        check_result(d, i, f"lsh delta={delta}", LSH_QUERIES)
+        rec, idr = recall_values(gd, d, K)[0], recall_by_ids(gi, i, K)
+        rate, times = qps(lambda: handle.search_batch(q, mode="lsh", delta=delta),
+                          reps=3 if delta == LSH_DELTAS[0] else 1, n_queries=LSH_QUERIES)
+        ls = LoopStats()
+        global_search(handle.index, q, delta=delta, loop_stats=ls)
+        log(f"[lsh] delta={delta}: recall@10 {rec:.4f} (gate {0.8 * delta:.2f}), id-recall "
+            f"{idr:.4f}; dc/query {float(np.mean(st.distance_computations)):.1f}, "
+            f"candidates/query {float(np.mean(st.candidates)):.1f}, feasible clusters/query "
+            f"{float(np.mean(st.clusters_visited)):.1f}; K7 launches {launches_d}; "
+            f"{ls.batches} batches of 256: {ls.iterations / ls.batches:.1f} loop iterations "
+            f"and {ls.syncs / ls.batches:.2f} host syncs per batch; {rate:.1f} QPS "
+            f"(s/call of {LSH_QUERIES}: {', '.join(f'{x:.4f}' for x in times)}) on {card}")
+        if launches_d < 1:
+            fail(f"lsh delta={delta} did not launch the K7 kernel")
+        if rec < 0.8 * delta:
+            fail(f"lsh delta={delta}: recall@10 {rec:.4f} below 0.8 * delta")
+
+    # the engine is batch-invariant: one batch of 1,024 against batches of 256
+    delta = LSH_DELTAS[0]
+    _, i0, s0 = global_search(handle.index, q, delta=delta)
+    global_search(handle.index, q[:LSH_BIG_BATCH], delta=delta, batch_size=LSH_BIG_BATCH)
+    sync()
+    t0 = time.perf_counter()
+    _, i1, s1 = global_search(handle.index, q, delta=delta, batch_size=LSH_BIG_BATCH)
+    sync()
+    big_s = time.perf_counter() - t0
+    same_ids = float(np.mean(np.sort(i0, 1) == np.sort(i1, 1)))
+    same_dc = float(np.mean(s0.distance_computations == s1.distance_computations))
+    log(f"[lsh] delta={delta} batch {LSH_BIG_BATCH}: {LSH_QUERIES / big_s:.1f} QPS "
+        f"({big_s:.4f} s per call of {LSH_QUERIES}); against batch 256: same ids "
+        f"{same_ids:.5f}, same dc {same_dc:.5f} on {card}")
+    return launches
+
+
+def profile_lsh(handle, test):
+    """Device time by kernel for one 256-query batch of mode "lsh"."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q = test[:256]
+    for _ in range(2):  # the first session pays the profiler's start-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            handle.search_batch(q, mode="lsh")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    launches = sum(e.count for e in rows)
+    log(f"[profile] lsh search_batch of 256 queries: wall {wall * 1e3:.2f} ms under the "
+        f"profiler, device busy {busy:.2f} ms (idle share {max(0.0, 1 - busy / (wall * 1e3)):.3f}), "
+        f"{launches} device kernels / copies")
+    for e in rows[:15]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add torch.profiler breakdowns of one scan-pallas and one "
-                         "scan-block call")
+                    help="add torch.profiler breakdowns of one scan-pallas call, one "
+                         "scan-block call and one 256-query lsh batch")
     args = ap.parse_args()
 
     import_port()
@@ -608,6 +882,17 @@ def main():
     if args.profile:
         for mode in ("scan-pallas", "scan-block"):
             profile_search(handle, test, mode)
+    del handle
+    torch.cuda.empty_cache()
+
+    gather = phase_gather(label)
+    probe_launches = phase_gather_probe(label)
+    lsh = phase_lsh_build(train, label)
+    launches_k7 = phase_lsh(lsh, test, gt_d, gt_i, label)
+    if args.profile:
+        profile_lsh(lsh, test)
+    log(f"[main] peak device memory over the whole run, all paths "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
 
     kernels = [
         ("scan_topk_packed (K1)", "clann_tpu_torch/csrc/scan_topk.cu",
@@ -616,6 +901,14 @@ def main():
          "clann_tpu/ops/pallas/scan_topk.py:50", launches_k2, k2),
         ("block_scan_packed (K3)", "clann_tpu_torch/csrc/block_scan.cu",
          "clann_tpu/ops/pallas/block_scan.py:276", launches_k3, k3),
+        ("gather_pages (K4)", "clann_tpu_torch/csrc/gather.cu",
+         "scripts/exp_pallas_gather.py:87", probe_launches["K4"], gather["K4"]),
+        ("gather_group8 (K5)", "clann_tpu_torch/csrc/gather.cu",
+         "scripts/exp_pallas_gather.py:146", probe_launches["K5"], gather["K5"]),
+        ("gather_flat1d (K6)", "clann_tpu_torch/csrc/gather.cu",
+         "scripts/exp_pallas_gather.py:200", probe_launches["K6"], gather["K6"]),
+        ("gather_rows (K7)", "clann_tpu_torch/csrc/gather.cu",
+         "scripts/exp_gather_rate.py:154", launches_k7, gather["K7"]),
     ]
     log(json.dumps({"kernels": [{
         "name": name,

@@ -6,10 +6,13 @@ with an explicit `device`. The reference's facade is src/lib.rs:41-264.
 Ported search modes: "scan" (full dense scan), "scan-pallas" (the fused
 scan whose candidate stage is the CUDA kernel K1 on a CUDA device),
 "scan-block" (block-probed fused scan, kernel K3; n_probe = blocks per
-query) and "scan-block-adaptive" (doubling probe budget until the block
-certificate holds; n_probe = starting budget). Every other mode of the JAX
-facade raises NotImplementedError naming the ROADMAP.md slice that brings
-it; none falls back to another mode.
+query), "scan-block-adaptive" (doubling probe budget until the block
+certificate holds; n_probe = starting budget), and "lsh" / "lsh-global"
+(the delta-recall global LSH engine, whose record gather is kernel K7).
+"auto" resolves as in the JAX facade (clann_tpu/api.py:126-132): to "lsh"
+when the config builds no dense layout. Every other mode of the JAX facade
+raises NotImplementedError naming the ROADMAP.md slice that brings it;
+none falls back to another mode.
 """
 
 from __future__ import annotations
@@ -29,12 +32,9 @@ log = logging.getLogger("clann_tpu_torch")
 
 # JAX facade modes that later port slices bring (ROADMAP.md, "Port slices")
 _UNPORTED_MODES = {
-    "auto": "slice 3 (IVF dense layout; 'auto' resolves to 'dense')",
-    "dense": "slice 3 (IVF dense layout)",
-    "adaptive": "slice 3 (IVF dense layout)",
-    "lsh": "slices 4-5 (LSH build, global delta engine)",
-    "lsh-global": "slices 4-5 (LSH build, global delta engine)",
-    "lsh-clustered": "slice 6 (clustered walk)",
+    "dense": "slice 4 (IVF dense layout)",
+    "adaptive": "slice 4 (IVF dense layout)",
+    "lsh-clustered": "slice 5 (the clustered walk)",
 }
 
 
@@ -66,13 +66,15 @@ class Clann:
         if config.metrics_output == MetricsOutput.DB:
             raise NotImplementedError(
                 "metrics_output=DB: the SQLite metrics sink comes with "
-                "ROADMAP.md slice 9 (interop, h5 and CLI)"
+                "ROADMAP.md slice 10 (interop, h5 and CLI)"
             )
         self.config = config
         self.index = None
 
     def build(self) -> "Clann":
-        """Cluster the dataset (GMM geometry; see core/index.py)."""
+        """Build the index: GMM geometry, LSH tables, sketches, prefix
+        directories and the global engine's tables (core/index.py); the
+        dense IVF layout is not built yet (ROADMAP.md slice 4)."""
         from clann_tpu_torch.core.index import build_index
 
         t0 = time.perf_counter()
@@ -108,17 +110,27 @@ class Clann:
         """Batched k-NN. Returns (distances (Q, k) ascending, ids (Q, k),
         stats) as numpy arrays.
 
-        mode: "scan", "scan-pallas", "scan-block" or "scan-block-adaptive"
-        (default: config.search_mode). `n_probe`: blocks per query
-        ("scan-block") or the starting budget ("scan-block-adaptive").
-        `delta` and `filter_type` belong to modes not ported yet and are
-        accepted for signature parity.
+        mode: "scan", "scan-pallas", "scan-block", "scan-block-adaptive",
+        "lsh" / "lsh-global" (the global delta engine, with `delta` and
+        `filter_type`) or "auto" (default: config.search_mode). `n_probe`:
+        blocks per query ("scan-block") or the starting budget
+        ("scan-block-adaptive").
         """
         from clann_tpu_torch.ops.ivf import scan_search
 
-        del delta, filter_type
         index = self._require_built()
         mode = mode or self.config.search_mode
+        if mode == "auto":
+            if self.config.dense_layout:
+                # the JAX facade resolves to "dense" when the layout exists
+                raise NotImplementedError(
+                    "search mode 'auto' with config.dense_layout=True resolves to "
+                    "'dense', which is not ported yet: ROADMAP.md slice 4 (IVF "
+                    "dense layout); pass mode='lsh' or build with dense_layout=False"
+                )
+            mode = "lsh"
+        if mode == "lsh":
+            mode = "lsh-global" if index.g_records is not None else "lsh-clustered"
         if mode == "scan":
             dists, ids, stats = scan_search(index, queries, k=k)
         elif mode == "scan-pallas":
@@ -134,6 +146,11 @@ class Clann:
 
             dists, ids, stats = block_scan_search_adaptive(
                 index, queries, k=k, n_probe0=n_probe)
+        elif mode == "lsh-global":
+            from clann_tpu_torch.ops.global_query import global_search
+
+            dists, ids, stats = global_search(index, queries, k=k, delta=delta,
+                                              filter_type=filter_type)
         elif mode in _UNPORTED_MODES:
             raise NotImplementedError(
                 f"search mode {mode!r} is not ported yet: ROADMAP.md "

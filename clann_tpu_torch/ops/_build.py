@@ -118,6 +118,13 @@ def load_library() -> ctypes.CDLL:
     lib.clann_block_scan_packed.argtypes = [
         vp, vp, vp, vp, i64, i64, i32, i64, i32, i32, i32, vp]
     lib.clann_block_scan_packed.restype = i32
+    lib.clann_gather_pages.argtypes = [vp, i64, vp, i64, vp, i32, i32, vp]
+    lib.clann_gather_group8.argtypes = [vp, i64, i32, vp, i64, vp, i32, i32, vp]
+    lib.clann_gather_flat1d.argtypes = [vp, i64, i32, vp, i64, vp, i32, i32, vp]
+    lib.clann_gather_rows.argtypes = [vp, i64, i32, vp, i64, vp, i32, i32, vp]
+    for fn in (lib.clann_gather_pages, lib.clann_gather_group8, lib.clann_gather_flat1d,
+               lib.clann_gather_rows):
+        fn.restype = i32
     lib.clann_cuda_error_string.argtypes = [i32]
     lib.clann_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib

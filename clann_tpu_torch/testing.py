@@ -19,6 +19,24 @@ import numpy as np
 import torch
 
 
+def index_arrays(index) -> Dict[str, object]:
+    """Everything `core.index.index_from_arrays` takes, as numpy arrays and
+    scalars, read off an index of either package (e.g. a JAX-built one:
+    its uint32 words are carried across as int32 bit patterns)."""
+    from clann_tpu_torch.core.index import GEOMETRY_FIELDS, LSH_FIELDS, META_FIELDS
+
+    def arr(v):
+        return None if v is None else np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+
+    out: Dict[str, object] = {f: arr(getattr(index, f)) for f in GEOMETRY_FIELDS}
+    out.update({f: arr(getattr(index, f, None)) for f in LSH_FIELDS})
+    out.update({f: getattr(index, f) for f in META_FIELDS if hasattr(index, f)})
+    for f in ("hash_params", "sketch_params"):
+        p = getattr(index, f, None)
+        out[f] = None if p is None else {k: arr(v) for k, v in dict(p).items()}
+    return out
+
+
 def quant_step(pg: int) -> float:
     """Decode quantization step of the packed kernel at pg rows per bin:
     the low log2(pg) mantissa bits of a float in [2, 4) (ulp 2^-22)."""

@@ -23,10 +23,20 @@ SLICE_MODULES = [
     "clann_tpu_torch.metrics.trace",
     "clann_tpu_torch.ops._build",
     "clann_tpu_torch.ops.block_scan",
+    "clann_tpu_torch.ops.collision",
     "clann_tpu_torch.ops.distances",
+    "clann_tpu_torch.ops.gather",
+    "clann_tpu_torch.ops.global_query",
     "clann_tpu_torch.ops.gmm",
+    "clann_tpu_torch.ops.hashing",
     "clann_tpu_torch.ops.ivf",
+    "clann_tpu_torch.ops.prefixmap",
+    "clann_tpu_torch.ops.query",
     "clann_tpu_torch.ops.scan_topk",
+    "clann_tpu_torch.ops.sketches",
+    "clann_tpu_torch.ops.sources",
+    "clann_tpu_torch.probes",
+    "clann_tpu_torch.probes.gather_rate",
 ]
 
 _PROBE = """

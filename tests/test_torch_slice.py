@@ -187,12 +187,23 @@ def test_facade_single_query_search(world):
                       [[i for _, i in th]], [[d for d, _ in th]])
 
 
-@pytest.mark.parametrize("mode", [None, "auto", "dense", "lsh", "lsh-global",
-                                  "lsh-clustered", "adaptive"])
+# each mode in a configuration where it reaches a part that is not ported:
+# "auto" (and the default mode) resolve to "dense" when the config builds
+# the dense layout; "lsh" resolves to the clustered walk on an index built
+# for it; "lsh-global" with the int8 rescore refuses to build
+_UNPORTED = {
+    None: dict(dense_layout=True), "auto": dict(dense_layout=True), "dense": {},
+    "lsh": dict(lsh_engine="clustered"), "lsh-global": dict(rescore_dtype="int8"),
+    "lsh-clustered": {}, "adaptive": {},
+}
+
+
+@pytest.mark.parametrize("mode", list(_UNPORTED))
 def test_unported_modes_raise(world, mode):
     train = world[0]
-    t = clann_tpu_torch.init_with_config(train[:200], TConfig(**CFG), device="cpu").build()
+    cfg = TConfig(**{**CFG, **_UNPORTED[mode]})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        t = clann_tpu_torch.init_with_config(train[:200], cfg, device="cpu").build()
         t.search_batch(train[:3], mode=mode)
 
 
