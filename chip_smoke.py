@@ -47,6 +47,31 @@ caught):
    and 0.9, gated recall@10 >= 0.8 * delta, failing if K7 was not launched;
    recall, id-recall, dc and candidates per query, QPS, loop iterations and
    host syncs per batch; batch 256 against one batch of 1,024.
+8. dense (on the main-path index, whose default build also makes the dense
+   IVF layout): the layout's rows, seg_cap, bytes and build span; the
+   default mode ("auto" -> "dense" at auto_n_probe(R)) on 10,000 queries,
+   printed and not gated (IVF at a fixed budget promises no recall);
+   bench.py's n_probe sweep (8 ... 128 on 2,000 queries, the smallest
+   n_probe with recall >= 0.9, the stop at 48 below 0.75) and the QPS of
+   the chosen n_probe on 10,000 queries; "dense" at n_probe = R (every row,
+   an exact search) gated recall@10 >= 0.9, id-recall >= 0.8 and no dropped
+   probe.
+9. adaptive: search_batch(mode="adaptive") on 10,000 queries, run to
+   completion, gated like the exact modes.
+10. walk-build: the README quickstart's L = 50 with the reference-faithful
+   engine (lsh_engine="clustered", no dense layout, every other knob at its
+   default: slot records in blocks of 16, chunk 512, filter_expand 8) on the
+   same data: build spans, bytes of the walk's arrays, peak memory.
+11. walk: search_batch(mode="lsh") -> "lsh-clustered" on the first 512
+   queries in batches of 256 at delta 0.9, gated recall@10 >= 0.8 * delta,
+   failing if K7 was not launched; the loop's outer steps, inner
+   iterations and host syncs per batch; K7 against its plain version at the
+   walk's shape (the built slot records viewed as block rows, one batch's
+   65,536 indices, and ragged counts), bit-exact; the ball-overlap stop's
+   bound recomputed in numpy from the built index (radii, center distances),
+   which must agree with the clusters each query visited; then search_by_id
+   on 256 indexed points, which must agree with search on those vectors at
+   k + 1.
 
 It prints the kernels as one JSON line, the nvidia-smi name / power limit
 line, and last {"ok": true, "device": {...}}. Imports only torch, numpy and
@@ -75,6 +100,10 @@ K2_VALUE_TOL = 1e-5  # f32 sums of exact bf16 products in another order
 LSH_QUERIES = 2_048  # the lsh path's query count (first queries of the set)
 LSH_DELTAS = (0.95, 0.9)
 LSH_BIG_BATCH = 1_024  # compared with the engine's default batch of 256
+IVF_SWEEP = (8, 12, 16, 24, 32, 48, 64, 96, 128)  # bench.py's n_probe sweep
+IVF_SWEEP_QUERIES, IVF_BATCH = 2_000, 2_048  # bench.py's sub-sample and BATCH
+WALK_QUERIES, WALK_DELTA = 512, 0.9
+BY_ID_POINTS = 256
 DEVICE = "cuda"
 
 
@@ -83,6 +112,18 @@ def sync():
 
     if torch.device(DEVICE).type == "cuda":
         torch.cuda.synchronize()
+
+
+# device-memory peaks of the phases before each reset (reset_peak)
+PEAKS = []
+
+
+def reset_peak():
+    """Start a phase's own device-memory peak, keeping the run's."""
+    import torch
+
+    PEAKS.append(torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
 
 
 def fail(msg: str):
@@ -538,7 +579,7 @@ def phase_main_path(train, test, card):
     cuda = torch.device(DEVICE).type == "cuda"
     sync()
     if cuda:
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
     st.KERNEL_LAUNCHES = 0
     handle = clann_tpu_torch.init_with_config(train, cfg, device=DEVICE)
     t0 = time.perf_counter()
@@ -546,6 +587,9 @@ def phase_main_path(train, test, card):
         handle.build()
         sync()
     build_s = time.perf_counter() - t0
+    from clann_tpu_torch.metrics.trace import TRACER
+
+    build_spans = dict(TRACER.totals)
     t0 = time.perf_counter()
     d, i, stats = handle.search_batch(test, mode="scan-pallas")
     first_s = time.perf_counter() - t0
@@ -585,7 +629,7 @@ def phase_main_path(train, test, card):
         f"peak device memory {peak:.3f} GB")
     if rec_s < RECALL_GATE or rec_e < RECALL_GATE:
         fail("scan / exact recall below the gate")
-    return handle, gt_d, gt_i, launches
+    return handle, gt_d, gt_i, launches, build_spans
 
 
 def profile_search(handle, test, mode):
@@ -748,7 +792,7 @@ def phase_lsh_build(train, card):
 
     cfg = lsh_config()
     sync()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     handle = clann_tpu_torch.init_with_config(train, cfg, device=DEVICE)
     t0 = time.perf_counter()
     with traced() as spans:
@@ -824,16 +868,317 @@ def phase_lsh(handle, test, gt_d, gt_i, card):
     return launches
 
 
-def profile_lsh(handle, test):
-    """Device time by kernel for one 256-query batch of mode "lsh"."""
+def _qps_line(times):
+    return ", ".join(f"{x:.4f}" for x in times)
+
+
+def phase_dense(handle, test, gt_d, gt_i, build_spans, card):
+    """The dense IVF layout of the main-path index through the facade: the
+    default mode (ungated), bench.py's n_probe sweep, and every row (gated)."""
+    import numpy as np
+
+    from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
+    from clann_tpu_torch.ops.ivf import DenseSearchStats, auto_n_probe, dense_search
+
+    idx = handle.index
+    if idx.seg_vectors is None:
+        fail("the main-path build (default dense_layout) made no dense layout")
+    R, cap = idx.seg_vectors.shape[:2]
+    sizes = idx.seg_sizes.cpu().numpy()
+    log(f"[dense] layout: R={R} rows of seg_cap {cap} for {idx.n_clusters} clusters "
+        f"(largest row {int(sizes.max())}, mean {float(sizes.mean()):.0f} points, "
+        f"{float(sizes.sum()) / (R * cap):.3f} of slots real); seg_vectors "
+        f"{idx.array_bytes()['seg_vectors'] / 1e9:.3f} GB; build/dense_layout span "
+        f"{build_spans.get('build/dense_layout', float('nan')):.3f} s (synchronized)")
+
+    def report(label, d, i, st, times, gated, n_queries=N_QUERIES):
+        check_result(d, i, label, n_queries)
+        rec = recall_values(gt_d[:n_queries], d, K)[0]
+        idr = recall_by_ids(gt_i[:n_queries], i, K)
+        unc = np.asarray(st.uncertified)
+        log(f"[dense] {label}: recall@10 {rec:.4f}, id-recall {idr:.4f}"
+            f"{f' (gates {RECALL_GATE} / {ID_RECALL_GATE})' if gated else ' (no gate)'}; "
+            f"dc/query {float(np.mean(st.distance_computations)):.0f}; rows visited/query "
+            f"{float(np.mean(st.clusters_visited)):.2f}; dropped probes "
+            f"{int(st.dropped_probes)}; uncertified queries {int((unc > 0).sum())}; "
+            f"{n_queries / float(np.median(times)):.0f} QPS (median of {len(times)}, s/call "
+            f"{_qps_line(times)}) on {card}")
+        return rec, idr
+
+    # the default mode: "auto" resolves to "dense" on an index with the layout
+    n_probe = auto_n_probe(R)
+    d, i, st = handle.search_batch(test)
+    if not isinstance(st, DenseSearchStats) or st.probed_clusters.shape[1] != n_probe:
+        fail("the default mode did not resolve to dense at auto_n_probe(R)")
+    _, times = qps(lambda: handle.search_batch(test))
+    report(f"default mode (auto -> dense, n_probe {n_probe} of {R})", d, i, st, times, False)
+
+    # bench.py's IVF sweep (bench.py:393-424)
+    sub = IVF_SWEEP_QUERIES
+    chosen, r = None, 0.0
+    for p in IVF_SWEEP:
+        if p > R:
+            break
+        d_, _, st_ = dense_search(idx, test[:sub], k=K, n_probe=p, batch_size=IVF_BATCH)
+        r = recall_values(gt_d[:sub], d_, K)[0]
+        log(f"[dense] sweep n_probe={p}: recall@10 {r:.4f} dc/query "
+            f"{float(np.mean(st_.distance_computations)):.0f} on {sub} queries")
+        if r >= 0.9:
+            chosen = p
+            break
+        if p >= 48 and r < 0.75:
+            log("[dense] sweep: IVF cannot reach 0.9 at a reasonable probe depth; skipping")
+            break
+    if chosen is not None:
+        run = lambda: dense_search(idx, test, k=K, n_probe=chosen, batch_size=IVF_BATCH)
+        d, i, st = run()
+        _, times = qps(run)
+        report(f"ivf-p{chosen} (the sweep's choice)", d, i, st, times, False)
+
+    # every row: an exhaustive probe is an exact search (tests/test_ivf.py:59)
+    d, i, st = handle.search_batch(test, mode="dense", n_probe=R)
+    _, times = qps(lambda: handle.search_batch(test, mode="dense", n_probe=R), reps=3)
+    rec, idr = report(f"dense n_probe={R} (every row)", d, i, st, times, True)
+    if rec < RECALL_GATE or idr < ID_RECALL_GATE or int(st.dropped_probes) != 0:
+        fail("dense at every row: recall below the gate or dropped probes")
+
+
+def phase_adaptive(handle, test, gt_d, gt_i, card):
+    """mode="adaptive" (dense waves of 16 rows until the ball certificate
+    retires each query), run to completion, gated."""
+    import numpy as np
+
+    from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
+
+    d, i, st = handle.search_batch(test, mode="adaptive")
+    _, times = qps(lambda: handle.search_batch(test, mode="adaptive"), reps=3)
+    check_result(d, i, "adaptive")
+    rec, idr = recall_values(gt_d, d, K)[0], recall_by_ids(gt_i, i, K)
+    visited = np.asarray(st.clusters_visited)
+    log(f"[adaptive] recall@10 {rec:.4f}, id-recall {idr:.4f} (gates {RECALL_GATE} / "
+        f"{ID_RECALL_GATE}); waves run {int(np.ceil(visited.max() / 16))} (of "
+        f"{-(-handle.index.seg_centers.shape[0] // 16)}); rows visited/query "
+        f"{float(visited.mean()):.1f} (max {int(visited.max())}); dc/query "
+        f"{float(np.mean(st.distance_computations)):.0f}; uncertified "
+        f"{int(np.sum(st.uncertified))}; {N_QUERIES / float(np.median(times)):.0f} QPS "
+        f"(median of {len(times)}, s/call {_qps_line(times)}) on {card}")
+    if rec < RECALL_GATE or idr < ID_RECALL_GATE:
+        fail("adaptive recall below the gate")
+
+
+def walk_config():
+    """The README quickstart's L = 50 with the reference-faithful engine."""
+    import clann_tpu_torch
+
+    return clann_tpu_torch.Config(
+        num_tables=50, num_clusters_factor=0.4, k=K, delta=WALK_DELTA, seed=0,
+        lsh_engine="clustered", dense_layout=False,
+        dataset_name=f"glove-{DIMS}-angular-synthetic",
+    )
+
+
+def phase_walk_build(train, card):
+    import torch
+
+    import clann_tpu_torch
+
+    cfg = walk_config()
+    sync()
+    reset_peak()
+    handle = clann_tpu_torch.init_with_config(train, cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    with traced() as spans:
+        handle.build()
+        sync()
+    build_s = time.perf_counter() - t0
+    idx = handle.index
+    log(f"[walk-build] L={cfg.num_tables} clustered engine on {N_TRAIN} x {DIMS}: build "
+        f"{build_s:.3f} s; spans (s, synchronized): {spans()}; {idx.n_clusters} clusters, "
+        f"max segment {idx.max_seg_len}, dir_bits {idx.dir_bits}")
+    nbytes = idx.array_bytes()
+    log(f"[walk-build] bytes: " + ", ".join(
+        f"{f} {tuple(getattr(idx, f).shape)} {nbytes[f] / 1e6:.1f} MB"
+        for f in ("slot_records", "sorted_hash", "sorted_idx", "prefix_dir", "sketches",
+                  "vectors")))
+    log(f"[walk-build] index {idx.memory_usage() / 1e9:.3f} GB; peak device memory of the "
+        f"build {torch.cuda.max_memory_allocated() / 1e9:.3f} GB on {card}")
+    if idx.slot_records is None or idx.prefix_dir is None or idx.g_records is not None:
+        fail("the clustered build made no slot records / prefix directory, or global tables")
+    return handle
+
+
+def phase_walk(handle, test, gt_d, gt_i, card):
+    """mode="lsh" on a clustered build (the walk) through the facade, gated;
+    its loop counts from a second call; then search_by_id."""
+    import numpy as np
+    import torch
+
+    from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
+    from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.ops.query import LoopStats, search
+
+    q, gd, gi = test[:WALK_QUERIES], gt_d[:WALK_QUERIES], gt_i[:WALK_QUERIES]
+    tg.reset_launches()
+    t0 = time.perf_counter()
+    d, i, st = handle.search_batch(q, mode="lsh", delta=WALK_DELTA)
+    sync()
+    first_s = time.perf_counter() - t0
+    launches = tg.ROWS_LAUNCHES
+    check_result(d, i, "walk", WALK_QUERIES)
+    rec, idr = recall_values(gd, d, K)[0], recall_by_ids(gi, i, K)
+    ls = LoopStats()
+    sync()
+    t0 = time.perf_counter()
+    _, i2, _ = search(handle.index, q, delta=WALK_DELTA, loop_stats=ls)
+    sync()
+    walk_s = time.perf_counter() - t0
+    nb = ls.batches
+    log(f"[walk] delta={WALK_DELTA}: recall@10 {rec:.4f} (gate {0.8 * WALK_DELTA:.2f}), "
+        f"id-recall {idr:.4f}; dc/query {float(np.mean(st.distance_computations)):.1f}, "
+        f"candidates/query {float(np.mean(st.candidates)):.1f}, clusters visited/query "
+        f"{float(np.mean(st.clusters_visited)):.2f} (max {int(np.max(st.clusters_visited))}); "
+        f"K7 launches {launches}; {nb} batches of 256: {ls.outer_steps / nb:.1f} outer steps, "
+        f"{ls.iterations / nb:.1f} inner iterations and {ls.syncs / nb:.1f} host syncs per "
+        f"batch; {walk_s / nb:.3f} s per batch, "
+        f"{WALK_QUERIES / walk_s:.1f} QPS (first call {first_s:.3f} s, "
+        f"{WALK_QUERIES / first_s:.1f} QPS) on {card}")
+    if launches < 1:
+        fail("the walk did not launch the K7 kernel")
+    if rec < 0.8 * WALK_DELTA:
+        fail(f"walk: recall@10 {rec:.4f} below 0.8 * delta")
+    if not np.array_equal(i, i2):
+        fail("the walk is not deterministic across two calls")
+    check_walk_gather(handle.index, card)
+    walk_ball_readings(handle.index, q, d, gd, np.asarray(st.clusters_visited))
+
+    # search_by_id: k results, never the point itself, and search at k + 1
+    pts = np.arange(BY_ID_POINTS, dtype=np.int64) * (N_TRAIN // BY_ID_POINTS)
+    t0 = time.perf_counter()
+    bd, bi, _ = handle.search_by_id(pts)
+    by_id_s = time.perf_counter() - t0
+    check_result(bd, bi, "search_by_id", BY_ID_POINTS)
+    vec = handle.index.vectors[torch.as_tensor(pts, device=handle.index.device)]
+    sd, si, _ = search(handle.index, vec, k=K + 1, delta=WALK_DELTA)
+    agree = all(np.array_equal(bi[r], si[r][si[r] != pts[r]][:K]) for r in range(len(pts)))
+    log(f"[walk] search_by_id on {BY_ID_POINTS} indexed points: {by_id_s:.3f} s; own id in a "
+        f"row: {int((bi == pts[:, None]).sum())}; equal to search at k+1 without the point: "
+        f"{agree}")
+    if (bi == pts[:, None]).any() or not agree:
+        fail("search_by_id returned a point's own id or disagrees with search at k + 1")
+    return launches
+
+
+def check_walk_gather(idx, card):
+    """K7 against its plain version at the walk's shape: the built
+    slot_records viewed as (L * nb, G * R) block rows (the walk's rec_view),
+    one 256-query batch's 256 * WB indices, and ragged counts with indices 0,
+    last, -1 and n; then both timed on rotated index vectors."""
+    import torch
+
+    from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.probes import gather_rate as gr
+
+    cfg = idx.config
+    L, n_pad, R = idx.slot_records.shape
+    G = cfg.gather_block
+    view = idx.slot_records.view(L * (n_pad // G), G * R)
+    n_src = view.shape[0]
+    rows = 256 * max(1, cfg.candidate_chunk * cfg.filter_expand // G)
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    i0 = torch.randint(0, n_src, (rows,), dtype=torch.int32, generator=gen, device=DEVICE)
+    shape = f"slot records {tuple(view.shape)} (L={L}, G={G}, {G * R * 4}-byte rows)"
+    kern = lambda i: tg.gather_rows(view, i)
+    plain = lambda i: tg.rows_plain(view, i)
+    check_gather(f"K7 gather_rows at the walk's {rows} rows of {shape}",
+                 lambda: kern(i0), lambda: plain(i0))
+    for count in (rows + 37, 1001):
+        ir = torch.randint(0, n_src, (count,), dtype=torch.int32, generator=gen, device=DEVICE)
+        ir[:4] = torch.tensor([0, n_src - 1, -1, n_src], dtype=torch.int32, device=DEVICE)
+        check_gather(f"K7 gather_rows at the walk's shape, ragged: {count} rows, indices 0, "
+                     f"last, -1, {n_src}", lambda: kern(ir), lambda: plain(ir))
+    sets = [(i,) for i in gr.rotated(i0, n_src, 20)]
+    ms, plain_ms = gr.time_iters(kern, sets, 3), gr.time_iters(plain, sets, 3)
+    log(f"[gather-time] K7 gather_rows at the walk's {rows} rows of {shape}: kernel "
+        f"{ms:.4f} ms ({rows * G * R * 4 / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms on "
+        f"{card}")
+
+
+def walk_ball_readings(idx, q, d, gt_d, visited):
+    """The walk's ball-overlap stop (index.rs:342-361) against a numpy
+    recomputation from the built index. It fires at a rank only where the
+    cluster's bound center_dist - radius exceeds the queue's k-th distance
+    at that time, which is never below the final k-th distance, nor the
+    true one. So a query whose largest bound over all clusters is at most
+    its final k-th distance must visit every cluster, and a query that
+    stopped at rank r must have that cluster's bound above it. Radii are
+    recomputed in f64 from each point's distance to its cluster's center."""
+    import numpy as np
+    import torch
+
+    from clann_tpu_torch.ops.distances import exact_dot, l2_normalize
+
+    tol = 1e-4  # f32 (the walk) against f64 (here)
+    C = idx.n_clusters
+    x = idx.vectors.cpu().numpy()
+    a = idx.assignment.cpu().numpy().astype(np.int64)
+    cen = idx.centers.cpu().numpy().astype(np.float64)
+    dist = np.empty(len(x))
+    for s in range(0, len(x), 1 << 18):
+        xs = x[s : s + (1 << 18)].astype(np.float64)
+        dist[s : s + len(xs)] = np.clip(1.0 - np.einsum("nd,nd->n", xs, cen[a[s : s + len(xs)]]),
+                                        0.0, 2.0)
+    radii_np = np.zeros(C)
+    np.maximum.at(radii_np, a, dist)
+    radii = idx.radii.cpu().numpy()
+    qn = q.astype(np.float64) / np.linalg.norm(q.astype(np.float64), axis=1, keepdims=True)
+    bound = np.clip(1.0 - qn @ cen.T, 0.0, 2.0) - radii_np[None, :]  # (Q, C)
+    kth_walk, kth_true = d[:, K - 1].astype(np.float64), gt_d[:, K - 1].astype(np.float64)
+    slack = bound.max(axis=1) - kth_walk
+    slack_true = bound.max(axis=1) - kth_true
+
+    def qs(v):
+        return "/".join(f"{x:.4f}" for x in np.quantile(v, [0.0, 0.5, 0.9, 1.0]))
+
+    log(f"[walk] radii (min/median/90%/max): port {qs(radii)}, numpy {qs(radii_np)}, max "
+        f"|diff| {float(np.abs(radii - radii_np).max()):.2e}; k-th distance {qs(kth_walk)} "
+        f"(true {qs(kth_true)}); largest ball bound center_dist - radius over the {C} "
+        f"clusters minus the final k-th distance {qs(slack)} (against the true k-th "
+        f"{qs(slack_true)}); queries whose bound can fire at some rank: "
+        f"{int((slack > -tol).sum())} of {len(q)}")
+    if float(np.abs(radii - radii_np).max()) > tol:
+        fail("the walk index's radii differ from their numpy recomputation")
+    # the walk's own cluster order (the f32 center distances, stable)
+    qt = l2_normalize(torch.as_tensor(q, dtype=torch.float32, device=idx.device))
+    order = torch.argsort(torch.clamp(1.0 - exact_dot(qt, idx.centers.T), 0.0, 2.0), dim=1,
+                          stable=True).cpu().numpy()
+    must_visit_all = slack <= -tol
+    stopped = np.flatnonzero(visited < C)
+    fired = np.array([bound[r, order[r, visited[r]]] > kth_walk[r] - tol for r in stopped],
+                     bool)
+    ranks = sorted(visited[stopped].tolist())
+    log(f"[walk] numpy witness: {int(must_visit_all.sum())} queries cannot stop (largest "
+        f"bound below the final k-th distance), of which {int((visited[must_visit_all] == C).sum())} "
+        f"visited all {C} clusters; {len(stopped)} stopped early (at ranks "
+        f"{ranks[:20]}{' ...' if len(ranks) > 20 else ''}), {int(fired.sum())} of them where "
+        f"the numpy bound of that rank's cluster exceeds the final k-th distance")
+    if (visited[must_visit_all] != C).any() or not fired.all():
+        fail("the walk's ball-overlap stops disagree with the numpy recomputation")
+
+
+def profile_lsh(handle, test, label="lsh", sessions=2, host_ops=True):
+    """Device time by kernel for one 256-query batch of mode "lsh" (the
+    global engine or the walk, whichever the index was built for). The
+    first of two sessions pays the profiler's start-up; `host_ops=False`
+    records device events only (the walk's batch launches ~10^6 ops)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     q = test[:256]
-    for _ in range(2):  # the first session pays the profiler's start-up
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    for _ in range(sessions):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             handle.search_batch(q, mode="lsh")
             torch.cuda.synchronize()
@@ -842,7 +1187,7 @@ def profile_lsh(handle, test):
     rows.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in rows) / 1e3
     launches = sum(e.count for e in rows)
-    log(f"[profile] lsh search_batch of 256 queries: wall {wall * 1e3:.2f} ms under the "
+    log(f"[profile] {label} search_batch of 256 queries: wall {wall * 1e3:.2f} ms under the "
         f"profiler, device busy {busy:.2f} ms (idle share {max(0.0, 1 - busy / (wall * 1e3)):.3f}), "
         f"{launches} device kernels / copies")
     for e in rows[:15]:
@@ -853,7 +1198,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="add torch.profiler breakdowns of one scan-pallas call, one "
-                         "scan-block call and one 256-query lsh batch")
+                         "scan-block call, one dense call and one 256-query batch of "
+                         "the lsh engine and of the walk")
     args = ap.parse_args()
 
     import_port()
@@ -873,14 +1219,16 @@ def main():
     k1 = phase_kernel(train, test, label)
     k2 = phase_k2(train, test, label)
     phase_k3_ragged()
-    handle, gt_d, gt_i, launches_k1 = phase_main_path(train, test, label)
+    handle, gt_d, gt_i, launches_k1, build_spans = phase_main_path(train, test, label)
     launches_k2 = phase_pallas_scan_topk(train, test, gt_d, gt_i, label)
     k3 = phase_k3_bench(handle.index, test, label)
     launches_k3 = phase_block_modes(handle, test, gt_d, gt_i, label)
+    phase_dense(handle, test, gt_d, gt_i, build_spans, label)
+    phase_adaptive(handle, test, gt_d, gt_i, label)
     log(f"[main] peak device memory over the whole run "
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     if args.profile:
-        for mode in ("scan-pallas", "scan-block"):
+        for mode in ("scan-pallas", "scan-block", "dense"):
             profile_search(handle, test, mode)
     del handle
     torch.cuda.empty_cache()
@@ -888,11 +1236,19 @@ def main():
     gather = phase_gather(label)
     probe_launches = phase_gather_probe(label)
     lsh = phase_lsh_build(train, label)
-    launches_k7 = phase_lsh(lsh, test, gt_d, gt_i, label)
+    launches_lsh = phase_lsh(lsh, test, gt_d, gt_i, label)
     if args.profile:
         profile_lsh(lsh, test)
+    del lsh
+    torch.cuda.empty_cache()
+    walk = phase_walk_build(train, label)
+    launches_walk = phase_walk(walk, test, gt_d, gt_i, label)
+    if args.profile:
+        profile_lsh(walk, test, "walk (lsh -> lsh-clustered)", sessions=1, host_ops=False)
+    launches_k7 = launches_lsh + launches_walk
+    log(f"[main] K7 launches: {launches_k7} = lsh {launches_lsh} + walk {launches_walk}")
     log(f"[main] peak device memory over the whole run, all paths "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        f"{max(PEAKS + [torch.cuda.max_memory_allocated()]) / 1e9:.3f} GB")
 
     kernels = [
         ("scan_topk_packed (K1)", "clann_tpu_torch/csrc/scan_topk.cu",

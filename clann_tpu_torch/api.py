@@ -1,18 +1,21 @@
 """Public API facade (PyTorch port of ``clann_tpu.api``).
 
-`init` / `init_with_config` / `build` / `search` and `Clann.search_batch`,
-with an explicit `device`. The reference's facade is src/lib.rs:41-264.
+`init` / `init_with_config` / `build` / `search`, `Clann.search_batch` and
+`Clann.search_by_id`, with an explicit `device`. The reference's facade is
+src/lib.rs:41-264.
 
-Ported search modes: "scan" (full dense scan), "scan-pallas" (the fused
-scan whose candidate stage is the CUDA kernel K1 on a CUDA device),
-"scan-block" (block-probed fused scan, kernel K3; n_probe = blocks per
-query), "scan-block-adaptive" (doubling probe budget until the block
-certificate holds; n_probe = starting budget), and "lsh" / "lsh-global"
-(the delta-recall global LSH engine, whose record gather is kernel K7).
-"auto" resolves as in the JAX facade (clann_tpu/api.py:126-132): to "lsh"
-when the config builds no dense layout. Every other mode of the JAX facade
-raises NotImplementedError naming the ROADMAP.md slice that brings it;
-none falls back to another mode.
+Search modes, every mode of the JAX facade (clann_tpu/api.py:134-166):
+"dense" (IVF probing of the dense layout), "adaptive" (dense probing in
+waves until the ball certificate retires each query), "scan" (full dense
+scan), "scan-pallas" (the fused scan whose candidate stage is the CUDA
+kernel K1 on a CUDA device), "scan-block" (block-probed fused scan, kernel
+K3; n_probe = blocks per query), "scan-block-adaptive" (doubling probe
+budget until the block certificate holds; n_probe = starting budget),
+"lsh-global" (the global delta engine), "lsh-clustered" (the
+reference-faithful clustered walk), "lsh" (the global engine where the
+build made its tables, else the walk; both gather records with kernel K7)
+and "auto" (config.search_mode's default: "dense" when the built index has
+the dense layout, else "lsh"). No mode falls back to another.
 """
 
 from __future__ import annotations
@@ -29,14 +32,6 @@ from clann_tpu_torch.data.metricdata import MetricData, make_metric_data
 from clann_tpu_torch.errors import DataError
 
 log = logging.getLogger("clann_tpu_torch")
-
-# JAX facade modes that later port slices bring (ROADMAP.md, "Port slices")
-_UNPORTED_MODES = {
-    "dense": "slice 4 (IVF dense layout)",
-    "adaptive": "slice 4 (IVF dense layout)",
-    "lsh-clustered": "slice 5 (the clustered walk)",
-}
-
 
 def resolve_device(device) -> torch.device:
     """torch.device for `device`; a CUDA device must exist (no CPU fallback)."""
@@ -73,8 +68,9 @@ class Clann:
 
     def build(self) -> "Clann":
         """Build the index: GMM geometry, LSH tables, sketches, prefix
-        directories and the global engine's tables (core/index.py); the
-        dense IVF layout is not built yet (ROADMAP.md slice 4)."""
+        directories, the slot records or the global engine's tables
+        (config.lsh_engine) and the dense IVF layout (config.dense_layout)
+        (core/index.py)."""
         from clann_tpu_torch.core.index import build_index
 
         t0 = time.perf_counter()
@@ -110,28 +106,25 @@ class Clann:
         """Batched k-NN. Returns (distances (Q, k) ascending, ids (Q, k),
         stats) as numpy arrays.
 
-        mode: "scan", "scan-pallas", "scan-block", "scan-block-adaptive",
-        "lsh" / "lsh-global" (the global delta engine, with `delta` and
-        `filter_type`) or "auto" (default: config.search_mode). `n_probe`:
+        mode: "dense", "adaptive", "scan", "scan-pallas", "scan-block",
+        "scan-block-adaptive", "lsh" / "lsh-global" / "lsh-clustered" (the
+        delta engines, with `delta` and `filter_type`) or "auto" (default:
+        config.search_mode; "dense" when the built index has the dense
+        layout, else "lsh"). `n_probe`: segment rows per query ("dense"),
         blocks per query ("scan-block") or the starting budget
         ("scan-block-adaptive").
         """
-        from clann_tpu_torch.ops.ivf import scan_search
+        from clann_tpu_torch.ops.ivf import adaptive_dense_search, dense_search, scan_search
 
         index = self._require_built()
         mode = mode or self.config.search_mode
         if mode == "auto":
-            if self.config.dense_layout:
-                # the JAX facade resolves to "dense" when the layout exists
-                raise NotImplementedError(
-                    "search mode 'auto' with config.dense_layout=True resolves to "
-                    "'dense', which is not ported yet: ROADMAP.md slice 4 (IVF "
-                    "dense layout); pass mode='lsh' or build with dense_layout=False"
-                )
-            mode = "lsh"
+            mode = "dense" if index.seg_vectors is not None else "lsh"
         if mode == "lsh":
             mode = "lsh-global" if index.g_records is not None else "lsh-clustered"
-        if mode == "scan":
+        if mode == "dense":
+            dists, ids, stats = dense_search(index, queries, k=k, n_probe=n_probe)
+        elif mode == "scan":
             dists, ids, stats = scan_search(index, queries, k=k)
         elif mode == "scan-pallas":
             dists, ids, stats = scan_search(index, queries, k=k,
@@ -146,19 +139,31 @@ class Clann:
 
             dists, ids, stats = block_scan_search_adaptive(
                 index, queries, k=k, n_probe0=n_probe)
+        elif mode == "adaptive":
+            dists, ids, stats = adaptive_dense_search(index, queries, k=k)
         elif mode == "lsh-global":
             from clann_tpu_torch.ops.global_query import global_search
 
             dists, ids, stats = global_search(index, queries, k=k, delta=delta,
                                               filter_type=filter_type)
-        elif mode in _UNPORTED_MODES:
-            raise NotImplementedError(
-                f"search mode {mode!r} is not ported yet: ROADMAP.md "
-                f"{_UNPORTED_MODES[mode]}"
-            )
+        elif mode == "lsh-clustered":
+            from clann_tpu_torch.ops.query import search as walk_search
+
+            dists, ids, stats = walk_search(index, queries, k=k, delta=delta,
+                                            filter_type=filter_type)
         else:
             raise DataError(f"unknown search mode {mode!r}")
         return dists, ids, stats
+
+    def search_by_id(self, point_ids, k: Optional[int] = None,
+                     exclude_self: bool = True):
+        """k-NN of already-indexed points through the clustered walk
+        (collection.hpp:341-356 search_from_index). Returns (distances,
+        ids, stats)."""
+        from clann_tpu_torch.ops.query import search_by_id
+
+        return search_by_id(self._require_built(), point_ids, k=k,
+                            exclude_self=exclude_self)
 
 
 def init(data, metric: str = "angular", device="cuda") -> Clann:

@@ -8,9 +8,11 @@ pass (filterer.hpp:76-97), the per-table segmented sort
 the global engine's hash-sorted tables with [id, sketch, cluster] records
 (ops/global_query.py).
 
-Not built yet (ROADMAP.md): the dense IVF layout (`config.dense_layout`;
-the port builds no layout, and the facade's "auto" mode says so), and the
-int8 shadow of the vectors (`rescore_dtype="int8"` raises).
+With `config.dense_layout` (the default) the build also makes the dense IVF
+layout (`build_dense_layout`): every cluster split into rows of at most
+`config.dense_seg_cap` points, padded, for the batched probing of
+ops/ivf.py. Not built yet (ROADMAP.md): the int8 shadow of the vectors
+(`rescore_dtype="int8"` raises).
 
 Random draws: the JAX package splits `jax.random.PRNGKey(config.seed)`
 into a hash key and a sketch key. The port seeds two `torch.Generator`s
@@ -60,6 +62,21 @@ LSH_FIELDS = {
     "g_records": torch.int32,
     "g_dir": torch.int32,
 }
+# the dense IVF layout (None where not built) and its dtypes in the port
+DENSE_FIELDS = {
+    "seg_vectors": torch.float32,
+    "seg_ids": torch.int32,
+    "seg_centers": torch.float32,
+    "seg_radii": torch.float32,
+    "seg_sizes": torch.int32,
+    "seg_cluster": torch.int32,
+}
+# the arrays memory_usage counts: JAX's list (clann_tpu/core/index.py:
+# 184-204), which leaves out the collision tables and the dense layout
+_MEMORY_FIELDS = GEOMETRY_FIELDS + (
+    "sorted_hash", "sorted_idx", "sketches", "slot_records", "prefix_dir",
+    "g_sorted_hash", "g_records", "g_dir",
+)
 # static metadata (python scalars), JAX's names and defaults
 META_FIELDS = {
     "sim_eps": 5e-3, "max_seg_len": 0, "dir_bits": 0, "dir_iters": 0,
@@ -89,6 +106,9 @@ class ClusteredIndex:
     sketch_params: Any = None  # dict of the sketch family's tensors
     probs_table: Optional[torch.Tensor] = None  # (D+2, B) f32 collision probs
     maxdiff_table: Optional[torch.Tensor] = None  # (B,) int32 sketch thresholds
+    # per-cluster hash functions of a faithful reference import (JAX's
+    # io/interop.py); no port path sets them yet (ROADMAP slice 10)
+    pc_hash_params: Any = None
     # --- packed per-(table, slot) [id, sketch words] records of the
     # clustered walk (config.pack_slot_records) ---
     slot_records: Optional[torch.Tensor] = None  # (L, n_pad, 1+W) int32
@@ -99,6 +119,15 @@ class ClusteredIndex:
     g_sorted_hash: Optional[torch.Tensor] = None  # (L, n) int32
     g_records: Optional[torch.Tensor] = None  # (L, n_pad, 2+W) int32
     g_dir: Optional[torch.Tensor] = None  # (L, 1, 2^global_dir_bits+1) int32
+    # --- dense IVF layout (config.dense_layout): each cluster split into
+    # rows of <= dense_seg_cap points; a row inherits its owner's center
+    # and radius ---
+    seg_vectors: Optional[torch.Tensor] = None  # (R, seg_cap, d) f32, 0 pad
+    seg_ids: Optional[torch.Tensor] = None  # (R, seg_cap) int32, -1 pad
+    seg_centers: Optional[torch.Tensor] = None  # (R, d) owner centers
+    seg_radii: Optional[torch.Tensor] = None  # (R,) owner radii
+    seg_sizes: Optional[torch.Tensor] = None  # (R,) real points per row
+    seg_cluster: Optional[torch.Tensor] = None  # (R,) owner cluster id
     # --- static metadata ---
     config: Config = None
     metric: str = "angular"
@@ -141,24 +170,27 @@ class ClusteredIndex:
     def device(self) -> torch.device:
         return self.vectors.device
 
-    def _tensors(self):
-        for f in GEOMETRY_FIELDS + tuple(LSH_FIELDS):
+    def _tensors(self, fields):
+        for f in fields:
             t = getattr(self, f)
             if t is not None:
                 yield f, t
-        for params in (self.hash_params, self.sketch_params):
-            for k, t in (params or {}).items():
-                yield k, t
+        for name in ("hash_params", "sketch_params"):
+            for k, t in (getattr(self, name) or {}).items():
+                yield f"{name}.{k}", t
 
     def memory_usage(self) -> int:
         """Index bytes: dataset, geometry, tables, sketches, records,
-        directories and hash parameters (derived caches excluded;
-        reference: collection.hpp:249-254)."""
-        return int(sum(t.numel() * t.element_size() for _, t in self._tensors()))
+        directories and hash parameters — the JAX package's count, which
+        leaves out the collision tables and the dense layout (reference:
+        collection.hpp:249-254)."""
+        return int(sum(t.numel() * t.element_size()
+                       for _, t in self._tensors(_MEMORY_FIELDS)))
 
     def array_bytes(self) -> Dict[str, int]:
         """Bytes of each array field that is built."""
-        return {f: int(t.numel() * t.element_size()) for f, t in self._tensors()}
+        fields = GEOMETRY_FIELDS + tuple(LSH_FIELDS) + tuple(DENSE_FIELDS)
+        return {f: int(t.numel() * t.element_size()) for f, t in self._tensors(fields)}
 
     def rebuild_objects(self):
         """(source, filterer) driver objects bound to the stored params."""
@@ -177,6 +209,43 @@ class ClusteredIndex:
         filterer = SketchFilterer(self.dims, cfg.num_sketches, cfg.sketch_bits)
         filterer.params = self.sketch_params
         return source, filterer
+
+
+def build_dense_layout(xn: torch.Tensor, cluster_order_ids: torch.Tensor, starts,
+                       centers_vec: torch.Tensor, radii, seg_cap: int) -> dict:
+    """Row-chunked dense segments: every cluster split into rows of at most
+    `seg_cap` points (an empty cluster keeps one empty row).
+
+    cluster_order_ids: (n,) global ids grouped by cluster (any table's
+    sorted_idx; the segments partition it identically); starts: (C+1,)
+    cluster boundaries. The row bookkeeping is integer work on the host;
+    the padded (R, seg_cap, d) gather runs on xn's device. Returns the
+    seg_* fields of ClusteredIndex (the JAX package's values, bit for bit).
+    """
+    dev = xn.device
+    starts = np.asarray(starts, np.int64)
+    sizes = np.diff(starts)
+    n_rows = np.maximum(1, -(-sizes // seg_cap))
+    seg_cluster = np.repeat(np.arange(len(sizes)), n_rows)
+    first_row = np.repeat(np.cumsum(n_rows) - n_rows, n_rows)
+    lo = starts[seg_cluster] + (np.arange(len(seg_cluster)) - first_row) * seg_cap
+    seg_sizes = np.minimum(lo + seg_cap, starts[seg_cluster + 1]) - lo
+    col = torch.arange(seg_cap, device=dev)
+    real = col[None, :] < torch.as_tensor(seg_sizes, device=dev)[:, None]  # (R, seg_cap)
+    pos = torch.as_tensor(lo, device=dev)[:, None] + col[None, :]
+    order = cluster_order_ids.to(device=dev, dtype=torch.int64)
+    ids = torch.where(real, order[torch.clamp(pos, max=order.shape[0] - 1)], -1)
+    vec = xn[torch.clamp(ids, min=0)]  # (R, seg_cap, d)
+    vec.masked_fill_(~real[:, :, None], 0.0)
+    owner = torch.as_tensor(seg_cluster, device=dev)
+    return {
+        "seg_vectors": vec.to(torch.float32),
+        "seg_ids": ids.to(torch.int32),
+        "seg_centers": centers_vec[owner],
+        "seg_radii": as_device_f32(radii, dev)[owner],
+        "seg_sizes": torch.as_tensor(seg_sizes.astype(np.int32), device=dev),
+        "seg_cluster": owner.to(torch.int32),
+    }
 
 
 def derive_probs_tables(family, config: Config):
@@ -402,6 +471,15 @@ def _assemble_index(xn, hashes_T, sketches, assignment: np.ndarray,
             )
             g_dir_iters = _iters(int(torch.max(g_dir[:, :, 1:] - g_dir[:, :, :-1])))
 
+    # 5d. dense IVF layout, rows in the order of table 0's segments
+    cid = torch.as_tensor(centers_idx.astype(np.int64), device=dev)
+    dense = {}
+    if config.dense_layout:
+        with TRACER.span("build/dense_layout"):
+            dense = build_dense_layout(xn, sorted_idx[0], starts, xn[cid], radii,
+                                       config.dense_seg_cap)
+            TRACER.enabled and _sync(dense["seg_vectors"])
+
     if family is None:
         family = make_hash_family(
             config.hash_family, xn.shape[1],
@@ -411,7 +489,6 @@ def _assemble_index(xn, hashes_T, sketches, assignment: np.ndarray,
         )
     with TRACER.span("build/probs_tables"):  # host numpy (cached on disk)
         probs, maxdiff = derive_probs_tables(family, config)
-    cid = torch.as_tensor(centers_idx.astype(np.int64), device=dev)
 
     return ClusteredIndex(
         vectors=xn,
@@ -437,6 +514,7 @@ def _assemble_index(xn, hashes_T, sketches, assignment: np.ndarray,
         g_sorted_hash=g_sorted_hash,
         g_records=g_records,
         g_dir=g_dir,
+        **dense,
         config=config,
         metric=metric,
         sim_eps=probs.sim_eps,
@@ -468,7 +546,7 @@ def index_from_arrays(arrays: Dict[str, Any], config: Config, device="cuda",
     """A ClusteredIndex on `device` from numpy arrays.
 
     `arrays` holds GEOMETRY_FIELDS and, optionally, any of LSH_FIELDS,
-    "hash_params" / "sketch_params" (dicts of numpy arrays) and the
+    DENSE_FIELDS, "hash_params" / "sketch_params" (dicts of numpy arrays) and the
     META_FIELDS scalars, e.g. taken whole from an index built by the JAX
     package (uint32 words are carried as int32 bit patterns), so both
     packages can search the same index.
@@ -480,7 +558,7 @@ def index_from_arrays(arrays: Dict[str, Any], config: Config, device="cuda",
                  "centers": torch.float32, "center_ids": torch.int32,
                  "radii": torch.float32, "brute": torch.bool, "assignment": torch.int32}
     kw = {f: _as_tensor(arrays[f], geo_types[f], device) for f in GEOMETRY_FIELDS}
-    for f, dt in LSH_FIELDS.items():
+    for f, dt in {**LSH_FIELDS, **DENSE_FIELDS}.items():
         if arrays.get(f) is not None:
             kw[f] = _as_tensor(arrays[f], dt, device)
     for f, default in META_FIELDS.items():

@@ -34,7 +34,6 @@ entry point and not ported yet (ROADMAP.md).
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -51,6 +50,8 @@ from clann_tpu_torch.ops.prefixmap import (
     stream_block_map,
 )
 from clann_tpu_torch.ops.query import (
+    SYNC_EVERY,
+    LoopStats,
     SearchStats,
     _compact_take,
     _exact_rescore_topk,
@@ -60,21 +61,6 @@ from clann_tpu_torch.ops.query import (
     probs_lookup,
 )
 from clann_tpu_torch.ops.sketches import popcount32
-
-# body steps between two host reads of the loop's stop flag
-SYNC_EVERY = 4
-
-
-@dataclasses.dataclass
-class LoopStats:
-    """What the adaptive loops of a search did (accumulated over calls):
-    batches run, body iterations, and host syncs (the stream-map sizing
-    pull and the loop's stop-flag pulls; the results pull of each batch is
-    not counted)."""
-
-    batches: int = 0
-    iterations: int = 0
-    syncs: int = 0
 
 
 def _entry_depth(index, min_depth: int) -> int:

@@ -1,10 +1,21 @@
-"""Full dense scans over the index vectors (PyTorch port of the scan half
-of ``clann_tpu.ops.ivf``).
+"""Dense scans and dense IVF probing (PyTorch port of ``clann_tpu.ops.ivf``).
 
 `scan_search` answers a batch of queries with either the plain blocked scan
 (ops/distances._dense_scan_impl, or the certified exact scan) or the fused
 kernel path (ops/scan_topk.fused_scan_topk_e2e, whose candidate stage is the
 hand-written CUDA kernel K1 on a CUDA device).
+
+`dense_search` and `adaptive_dense_search` probe the dense layout
+(core/index.build_dense_layout): the rows nearest each query by center
+distance are inverted to row-major query lists, scored with one batched
+f32 product per group of rows (the JAX package's einsum at
+Precision.HIGHEST; no Pallas kernel there, and none here), reduced to a
+top-k per (row, query slot), scattered back and merged. The ball-overlap
+certificate (index.rs:342-361) counts, per query, the unprobed rows that
+could still hold a better neighbour. Where JAX is free to order things
+(its unstable sort of the probe list, its quicksort argsort of the rows),
+the port sorts stably; the TPU's `approx_max_k` is an exact top-k here,
+as it is in JAX on the CPU.
 
 The plan (`pallas_scan_plan`) and the routing threshold
 (`PALLAS_SCAN_MIN_N`) are the JAX package's, kept verbatim: `block_n` and
@@ -24,7 +35,10 @@ from clann_tpu_torch.ops.distances import (
     _certified_scan_impl,
     _dense_scan_impl,
     as_device_f32,
+    exact_dot,
+    l2_normalize,
 )
+from clann_tpu_torch.ops.query import topk_stable
 
 
 class DenseSearchStats(NamedTuple):
@@ -33,8 +47,13 @@ class DenseSearchStats(NamedTuple):
     clusters_visited: np.ndarray  # (Q,) int32
     dropped_probes: np.int32  # () — always 0 for a full scan
     uncertified: np.ndarray  # (Q,) int32 — 1 where the certificate failed
-    probed_clusters: Optional[np.ndarray] = None
-    probed_counts: Optional[np.ndarray] = None
+    probed_clusters: Optional[np.ndarray] = None  # (Q, P) owner cluster ids
+    probed_counts: Optional[np.ndarray] = None  # (Q, P) points scanned
+
+
+def auto_n_probe(n_rows: int) -> int:
+    """Default probe budget (in segment rows): ~1.5*sqrt(R), in [8, R]."""
+    return int(min(n_rows, max(8, round(np.sqrt(n_rows) * 1.5))))
 
 
 # Routing threshold of the JAX package (its measured crossover on a TPU v5e,
@@ -297,4 +316,270 @@ def scan_search(
         return None, ids, stats
     dots = torch.cat(outs_s).cpu().numpy()
     dists = np.where(ids >= 0, np.clip(1.0 - dots, 0.0, 2.0), np.inf)
+    return dists, ids, stats
+
+
+def _dedup_topk_np(cat_s: np.ndarray, cat_i: np.ndarray, k: int):
+    """Host-side per-row top-k with id dedup (best sim per id kept).
+
+    cat_s/cat_i: (Q, M) candidate sims/ids, -1 = empty; the adaptive wave
+    merge, where re-probed rows (last-wave padding) can surface an id twice."""
+    o = np.argsort(-cat_s, axis=1, kind="stable")
+    s = np.take_along_axis(cat_s, o, axis=1)
+    i = np.take_along_axis(cat_i, o, axis=1)
+    # group equal ids (stable keeps sim-desc order within a group), mask
+    # every occurrence after the first, then restore sim order
+    o2 = np.argsort(i, axis=1, kind="stable")
+    i2 = np.take_along_axis(i, o2, axis=1)
+    dup2 = np.zeros_like(i2, bool)
+    dup2[:, 1:] = (i2[:, 1:] == i2[:, :-1]) & (i2[:, 1:] >= 0)
+    dup = np.zeros_like(dup2)
+    np.put_along_axis(dup, o2, dup2, axis=1)
+    s = np.where(dup, -1.0, s)
+    i = np.where(dup, -1, i)
+    o3 = np.argsort(-s, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(s, o3, axis=1), np.take_along_axis(i, o3, axis=1)
+
+
+def auto_probe_cap(n_queries: int, n_probe: int, n_clusters: int) -> int:
+    """Slot capacity per row: 4x the average load, padded to 8."""
+    avg = n_queries * n_probe / max(1, n_clusters)
+    cap = int(max(8, min(n_queries, 4 * avg)))
+    return (cap + 7) // 8 * 8
+
+
+# f32 scores per group of rows in ivf_search_batch_impl (the JAX budget)
+SCORE_BUDGET = 1 << 30
+
+
+def ivf_search_batch_impl(index, queries_n: torch.Tensor, *, k: int, n_probe: int,
+                          probe_cap: int, probe_rows: Optional[torch.Tensor] = None):
+    """Dense probe search of one batch of normalized queries.
+
+    Returns (sims desc (Q, k), global ids (Q, k) int32, DenseSearchStats of
+    tensors). probe_rows: explicit (Q, P) segment rows to probe (the
+    adaptive waves); else the n_probe rows nearest by center distance.
+    Every top-k here is exact (JAX's `approx_max_k` is exact on the CPU).
+    """
+    Q, d = queries_n.shape
+    dev = queries_n.device
+    C = index.seg_centers.shape[0]  # segment ROWS
+    S_max = index.seg_vectors.shape[1]
+    cap = probe_cap
+    seg_sizes = index.seg_sizes
+
+    # 1. rank rows per query (index.rs:592-616; rows of one cluster share a
+    # center, exact ties that lax.top_k breaks toward the lower row)
+    center_dist = torch.clamp(1.0 - exact_dot(queries_n, index.seg_centers.T), 0.0, 2.0)
+    if probe_rows is None:
+        P = min(n_probe, C)
+        probe = topk_stable(-center_dist, P)[1]
+    else:
+        probe = probe_rows.to(device=dev, dtype=torch.int64)
+        P = probe.shape[1]
+
+    # 2. invert to row-major padded query lists: a stable sort keeps each
+    # row's queries ascending (JAX's sort leaves that order open; it
+    # decides only which probes a full row drops)
+    sc, flat = torch.sort(probe.reshape(-1), stable=True)
+    sq, sp = torch.div(flat, P, rounding_mode="floor"), flat % P
+    crange = torch.arange(C, device=dev)
+    cl_start = torch.searchsorted(sc, crange, side="left")
+    counts = torch.searchsorted(sc, crange, side="right") - cl_start  # probes per row
+    jj = torch.arange(cap, device=dev)
+    take = torch.clamp(cl_start[:, None] + jj[None, :], 0, Q * P - 1)
+    slot_valid = jj[None, :] < counts[:, None]  # (C, cap)
+    qidx = torch.where(slot_valid, sq[take], Q)  # Q == dump row
+    pidx = torch.where(slot_valid, sp[take], 0)
+    dropped = torch.sum(torch.clamp(counts - cap, min=0))
+
+    # 3+4. score groups of rows (a fixed budget of f32 scores per group),
+    # each reduced at once to a top-k per (row, slot)
+    kk = min(k, S_max)
+    qpad = torch.cat([queries_n, queries_n.new_zeros((1, d))])
+    col = torch.arange(S_max, device=dev)
+    group = max(1, min(C, SCORE_BUDGET // max(1, cap * S_max * 4)))
+    top_s = torch.empty((C, cap, kk), dtype=torch.float32, device=dev)
+    top_i = torch.empty((C, cap, kk), dtype=torch.int32, device=dev)
+    for g0 in range(0, C, group):
+        rows = slice(g0, min(C, g0 + group))
+        qv = qpad[qidx[rows]]  # (group, cap, d); the dump row scores zeros
+        dots = torch.bmm(qv, index.seg_vectors[rows].transpose(1, 2))  # (group, cap, S_max)
+        sims = torch.clamp((dots + 1.0) * 0.5, 0.0, 1.0)  # cosine.hpp:19-23
+        ok = slot_valid[rows][:, :, None] & (col[None, :] < seg_sizes[rows][:, None])[:, None, :]
+        ts, tj = torch.topk(torch.where(ok, sims, -1.0), kk, dim=2)
+        top_s[rows] = ts
+        top_i[rows] = torch.gather(index.seg_ids[rows][:, None, :].expand(-1, cap, -1), 2, tj)
+    if kk < k:
+        top_s = torch.nn.functional.pad(top_s, (0, k - kk), value=-1.0)
+        top_i = torch.nn.functional.pad(top_i, (0, k - kk), value=-1)
+    out_s = torch.full((Q + 1, P, k), -1.0, dtype=torch.float32, device=dev)
+    out_i = torch.full((Q + 1, P, k), -1, dtype=torch.int32, device=dev)
+    out_s.index_put_((qidx, pidx), top_s)
+    out_i.index_put_((qidx, pidx), top_i)
+    final_s, sel = topk_stable(out_s[:Q].reshape(Q, P * k), k)
+    final_i = torch.gather(out_i[:Q].reshape(Q, P * k), 1, sel)
+    final_i = torch.where((final_s < 0) | (final_i < 0), -1, final_i)
+    final_s = torch.clamp(final_s, min=0.0)
+
+    # stats + ball-overlap certificate (index.rs:342-361, per row with the
+    # owner cluster's radius). probed_ok: the (query, probe) pairs actually
+    # scanned — a probe dropped by a full row certifies nothing
+    probed_ok = torch.zeros((Q + 1, P), dtype=torch.bool, device=dev)
+    probed_ok.index_put_((qidx, pidx), torch.ones_like(qidx, dtype=torch.bool))
+    probed_ok = probed_ok[:Q]
+    probed_sizes = seg_sizes[probe] * probed_ok  # (Q, P)
+    kth_dist = torch.where(final_i[:, k - 1] >= 0, 2.0 * (1.0 - final_s[:, k - 1]), torch.inf)
+    overlapping = (center_dist - index.seg_radii[None, :]) <= kth_dist[:, None]  # (Q, C)
+    is_probed = torch.zeros((Q, C), dtype=torch.int32, device=dev).scatter_add_(
+        1, probe, probed_ok.to(torch.int32)) > 0
+    uncertified = torch.sum(overlapping & ~is_probed & (seg_sizes[None, :] > 0), dim=1)
+    stats = DenseSearchStats(
+        distance_computations=probed_sizes.sum(dim=1, dtype=torch.int32),
+        candidates=probed_sizes.sum(dim=1, dtype=torch.int32),
+        clusters_visited=probed_ok.sum(dim=1, dtype=torch.int32),
+        dropped_probes=dropped.to(torch.int32),
+        uncertified=uncertified.to(torch.int32),
+        probed_clusters=index.seg_cluster[probe],
+        probed_counts=probed_sizes.to(torch.int32),
+    )
+    return final_s, final_i, stats
+
+
+def _require_layout(index) -> None:
+    if index.seg_vectors is None:
+        raise ValueError(
+            "index was built without the dense layout "
+            "(config.dense_layout=False); use the lsh search path"
+        )
+
+
+def _queries(index, queries) -> torch.Tensor:
+    q = as_device_f32(queries, index.device)
+    return l2_normalize(q[None, :] if q.dim() == 1 else q)
+
+
+def adaptive_dense_search(index, queries, k: Optional[int] = None, wave: int = 16,
+                          max_waves: Optional[int] = None,
+                          probe_cap: Optional[int] = None):
+    """Adaptive dense probing: waves of `wave` segment rows, in center-
+    distance order, until the ball-overlap certificate retires each query
+    (index.rs:331-439 with its non-metric caveat, index.rs:342-361). Run to
+    completion it is exact up to that caveat. A wave whose capacity
+    overflows is rerun at twice the capacity (up to Q, which cannot drop).
+
+    Returns numpy (distances ascending, ids, DenseSearchStats).
+    """
+    _require_layout(index)
+    cfg = index.config
+    k = cfg.k if k is None else k
+    R = int(index.seg_centers.shape[0])
+    # a wave never exceeds the row count, which keeps the last wave's
+    # padding (drawn from wave 0) disjoint from the wave itself
+    wave = min(wave, R)
+    max_waves = max_waves or -(-R // wave)
+    qn = _queries(index, queries)
+    Q = qn.shape[0]
+    cap = probe_cap or cfg.probe_cap or auto_probe_cap(Q, wave, R)
+
+    center_dist = torch.clamp(1.0 - exact_dot(qn, index.seg_centers.T), 0.0, 2.0).cpu().numpy()
+    # stable: rows of a split cluster tie exactly (JAX's quicksort orders
+    # them arbitrarily)
+    order = np.argsort(center_dist, axis=1, kind="stable").astype(np.int64)  # (Q, R)
+    radii = index.seg_radii.cpu().numpy()
+    seg_sizes = index.seg_sizes.cpu().numpy()
+
+    top_s = np.zeros((Q, k), np.float32)
+    top_i = np.full((Q, k), -1, np.int32)
+    done = np.zeros(Q, bool)
+    dc = np.zeros(Q, np.int64)
+    visited = np.zeros(Q, np.int32)
+    for w in range(max_waves):
+        lo = w * wave
+        hi = min(lo + wave, R)
+        probe_w = order[:, lo:hi]
+        n_real_w = probe_w.shape[1]
+        if n_real_w < wave:
+            # pad with DISTINCT already-probed rows (wave 0 is full):
+            # re-probing them is idempotent under the id-dedup merge
+            probe_w = np.concatenate([probe_w, order[:, : wave - n_real_w]], axis=1)
+        probe_t = torch.as_tensor(probe_w, device=index.device)
+        cap_w = cap
+        while True:
+            sims, ids, wst = ivf_search_batch_impl(index, qn, k=k, n_probe=wave,
+                                                   probe_cap=cap_w, probe_rows=probe_t)
+            if cap_w >= Q or int(wst.dropped_probes) == 0:
+                break
+            cap_w = min(Q, 2 * cap_w)
+        sims, ids = sims.cpu().numpy(), ids.cpu().numpy()
+        active = ~done
+        cat_s = np.concatenate([top_s, np.where(active[:, None], sims, -1)], 1)
+        cat_i = np.concatenate([top_i, np.where(active[:, None], ids, -1)], 1)
+        top_s, top_i = _dedup_topk_np(cat_s, cat_i, k)
+        dc += np.where(active, seg_sizes[probe_w[:, :n_real_w]].sum(axis=1), 0)
+        visited += np.where(active, hi - lo, 0).astype(np.int32)
+        # certificate: can the next unvisited row improve the k-th?
+        if hi >= R:
+            done[:] = True
+        else:
+            nxt = order[:, hi]
+            kth_dist = np.where(top_i[:, k - 1] >= 0, 2.0 * (1.0 - top_s[:, k - 1]), np.inf)
+            done |= center_dist[np.arange(Q), nxt] - radii[nxt] > kth_dist
+        if done.all():
+            break
+
+    dists = np.where(top_i >= 0, 2.0 * (1.0 - top_s), np.inf)
+    stats = DenseSearchStats(
+        distance_computations=dc.astype(np.int32),
+        candidates=dc.astype(np.int32),
+        clusters_visited=visited,
+        dropped_probes=np.int32(0),
+        uncertified=(~done).astype(np.int32),
+    )
+    return dists, top_i, stats
+
+
+def dense_search(index, queries, k: Optional[int] = None, n_probe: Optional[int] = None,
+                 probe_cap: Optional[int] = None, batch_size: int = 2048):
+    """Dense IVF search of a query set in batches of `batch_size`.
+
+    Returns numpy (distances ascending, ids, DenseSearchStats). n_probe
+    defaults to config.n_probe or auto_n_probe(R); probe_cap to
+    config.probe_cap or auto_probe_cap per batch. A short last batch (of a
+    set larger than one batch) repeats its last query up to batch_size, as
+    zero rows would tie at every center and crowd the first rows' slots.
+    """
+    _require_layout(index)
+    cfg = index.config
+    k = cfg.k if k is None else k
+    C = index.seg_centers.shape[0]  # segment rows
+    if n_probe is None:
+        n_probe = cfg.n_probe or auto_n_probe(C)
+    qn = _queries(index, queries)
+
+    out_s, out_i, out_st = [], [], []
+    for start in range(0, qn.shape[0], batch_size):
+        block = qn[start : start + batch_size]
+        pad = 0
+        if block.shape[0] < batch_size and qn.shape[0] > batch_size:
+            pad = batch_size - block.shape[0]
+            block = torch.cat([block, block[-1:].expand(pad, -1)])
+        cap = probe_cap or cfg.probe_cap or auto_probe_cap(block.shape[0], min(n_probe, C), C)
+        sims, ids, stats = ivf_search_batch_impl(index, block, k=k, n_probe=n_probe,
+                                                 probe_cap=cap)
+        keep = block.shape[0] - pad
+        out_s.append(sims[:keep].cpu().numpy())
+        out_i.append(ids[:keep].cpu().numpy())
+        out_st.append(stats)
+
+    sims = np.concatenate(out_s, axis=0)
+    ids = np.concatenate(out_i, axis=0)
+    # dropped_probes counts the batches' pad rows too, as JAX's does
+    stats = DenseSearchStats(**{
+        f: np.sum([int(st.dropped_probes) for st in out_st]) if f == "dropped_probes"
+        else np.concatenate([getattr(st, f)[:keep].cpu().numpy()
+                             for st, keep in zip(out_st, map(len, out_i))])
+        for f in DenseSearchStats._fields})
+    dists = 2.0 * (1.0 - sims)
+    dists = np.where(ids < 0, np.inf, dists)
     return dists, ids, stats

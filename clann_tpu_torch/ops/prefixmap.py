@@ -1,8 +1,7 @@
 """Sorted-hash table layout and prefix-range computation (PyTorch port).
 
-Port of the parts of ``clann_tpu.ops.prefixmap`` that the LSH build and the
-global engine use (the replacement of the reference PrefixMap,
-libpuffinn/include/puffinn/prefixmap.hpp):
+Port of ``clann_tpu.ops.prefixmap`` (the replacement of the reference
+PrefixMap, libpuffinn/include/puffinn/prefixmap.hpp):
 
 - `sorted_hash (L, n)`: per-table hashes sorted ascending within each
   cluster segment, `sorted_idx (L, n)` the global point id at each slot,
@@ -12,7 +11,10 @@ libpuffinn/include/puffinn/prefixmap.hpp):
 - the whole peeling walk (prefixmap.hpp:267-304) is materialized up front
   as a stream of one-sided ranges (`candidate_stream`), cut into G-slot
   blocks (`block_stream`), and mapped to (table, block, lane mask) per
-  stream position (`blocked_window`, `stream_block_map`).
+  stream position (`blocked_window`, `stream_block_map`);
+- `revealed_range` is the single-depth peel step that `candidate_stream`
+  vectorizes, and `chunk_stream_direct` the clustered walk's lazy window of
+  a few levels, every bound a direct directory answer.
 
 Hashes are int32 (values below 2^24); search keys are int64, because the
 depth-0 upper key is 0xFFFFFFFF as in the JAX package. Lane masks are
@@ -20,7 +22,7 @@ depth-0 upper key is 0xFFFFFFFF as in the JAX package. Lane masks are
 
 Two JAX mechanisms are not carried over and return the same values: the
 MXU one-hot directory lookups (`config.dir_onehot`, JAX's f32 directory
-dispatch) become plain gathers, and `window_range_index`'s scatter and
+dispatch, `_dir_rows_onehot` / `_dir_select_onehot`) become plain gathers, and `window_range_index`'s scatter and
 dense variants (`config.window_index_dense`) are one searchsorted. The
 JAX `while_loop` of the binary search stops once every search converged;
 here it runs its `n_iters` iterations, which gives the same answer (a
@@ -187,6 +189,107 @@ def depth_bounds(
     lo = masked_binary_search(sorted_hash, t_ids, prefix, slo, shi, n_iters)
     hi = masked_binary_search(sorted_hash, t_ids, upper, slo, shi, n_iters)
     return lo, hi
+
+
+def revealed_range(
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    query_hashes: torch.Tensor,
+    depth: torch.Tensor,
+    max_hashbits: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The one-sided range newly revealed when entering `depth`.
+
+    lo, hi: (Q, L, D+1) from depth_bounds; depth: (Q,) in [1, D], where D
+    means the exact-match range [lo_D, hi_D). Returns (start, size) (Q, L)
+    int32. The peeled bit (index D - (d+1)) picks the direction
+    (prefixmap.hpp:272-279): 0 extends upward, 1 downward.
+    """
+    D = max_hashbits
+    dd = depth.to(torch.int64)[:, None].expand(-1, lo.shape[1])  # (Q, L)
+
+    def at(a, i):
+        return torch.gather(a, 2, i[:, :, None])[:, :, 0]
+
+    d1 = torch.clamp(dd + 1, max=D)
+    lo_d, hi_d, lo_d1, hi_d1 = at(lo, dd), at(hi, dd), at(lo, d1), at(hi, d1)
+    # the JAX package's uint32 (D - (d+1)) % 32: 31 at d == D
+    shift = torch.remainder(D - (dd + 1), 32)
+    bit = (query_hashes.to(torch.int64) >> shift) & 1
+    exact = dd == D
+    start = torch.where(exact, lo_d, torch.where(bit == 0, hi_d1, lo_d))
+    end = torch.where(exact, hi_d, torch.where(bit == 0, hi_d, lo_d1))
+    return start.to(torch.int32), torch.clamp(end - start, min=0).to(torch.int32)
+
+
+def _shl_u32(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """uint32 x << s in int64: masked to 32 bits, 0 for s >= 32 (XLA's
+    shift semantics)."""
+    return torch.where(s >= 32, 0, (x << torch.clamp(s, max=31)) & _U32)
+
+
+def _shr_u32(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """uint32 x >> s in int64 (x in [0, 2^32)): 0 for s >= 32."""
+    return torch.where(s >= 32, 0, x >> torch.clamp(s, max=31))
+
+
+def chunk_stream_direct(
+    query_hashes: torch.Tensor,
+    d_top,
+    entry_first,
+    lc: int,
+    max_hashbits: int,
+    dir_bits: int,
+    min_depth: int,
+    d_entry: int,
+    *,
+    cdir: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Peel-level ranges for ONE window of `lc` depth levels (the lazy walk,
+    config.lsh_level_chunk).
+
+    query_hashes (QG, L); d_top: the window's deepest level (an int or a
+    0-d tensor); every level lies in [min_depth, d_entry], d_entry <=
+    dir_bits, so each bound is a direct answer of the search's own
+    directory row cdir (L, QG, P+1) (prefix_dir[:, cluster, :]). entry_first:
+    level 0 is the walk's entry range [lo(d_top), hi(d_top)) instead of a
+    one-sided spill. Returns (starts, sizes) (QG, lc*L) int32, level-major
+    (slot j = level j // L, table j % L), as candidate_stream lays out one
+    member; levels below min_depth have size 0.
+    """
+    QG, L = query_hashes.shape
+    D = max_hashbits
+    dev = query_hashes.device
+    P = cdir.shape[2] - 1
+    jj = torch.arange(lc + 1, dtype=torch.int64, device=dev)  # bound levels, deepest first
+    dep = torch.clamp(d_top + 1 - jj, min_depth, d_entry)  # (lc+1,)
+    shifts = D - dep
+    qh = query_hashes.to(torch.int64)[:, :, None] & _U32
+    prefix = _shl_u32(_shr_u32(qh, shifts), shifts)  # (QG, L, lc+1)
+    upper = (prefix + _shl_u32(torch.ones_like(shifts), shifts)) & _U32
+
+    def positions(keys):
+        return torch.clamp(keys >> (D - dir_bits), max=P)
+
+    p_both = torch.cat([positions(prefix), positions(upper)], dim=2)  # (QG, L, 2(lc+1))
+    t_ids = torch.arange(L, device=dev)[None, :, None]
+    q_ids = torch.arange(QG, device=dev)[:, None, None]
+    both = cdir.reshape(-1)[(t_ids * QG + q_ids) * (P + 1) + p_both]
+    lo, hi = both[:, :, : lc + 1], both[:, :, lc + 1 :]
+
+    # level j (depth d_top - j) uses bounds jj = j+1 (its own depth) and
+    # jj = j (depth + 1); the peeled bit picks the spill side
+    lo_d, hi_d = lo[:, :, 1:], hi[:, :, 1:]
+    lo_d1, hi_d1 = lo[:, :, :lc], hi[:, :, :lc]
+    bit = _shr_u32(qh, shifts[None, None, :lc]) & 1
+    is_entry = (jj[:lc] == 0) & torch.as_tensor(entry_first, device=dev)
+    start = torch.where(is_entry, lo_d, torch.where(bit == 0, hi_d1, lo_d))
+    end = torch.where(is_entry, hi_d, torch.where(bit == 0, hi_d, lo_d1))
+    level_ok = (d_top - jj[:lc]) >= min_depth
+    sizes = torch.where(level_ok, torch.clamp(end - start, min=0), 0)
+    starts = start.transpose(1, 2).reshape(QG, lc * L)
+    sizes = sizes.transpose(1, 2).reshape(QG, lc * L)
+    return starts.to(torch.int32), sizes.to(torch.int32)
 
 
 def count_leq(sorted_rows: torch.Tensor, values: torch.Tensor) -> torch.Tensor:

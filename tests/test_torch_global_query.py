@@ -189,17 +189,41 @@ def test_facade_lsh_modes(world, jax_search):
     assert len(h.search(ds.test[0])) == 10
 
 
-def test_facade_auto_with_dense_layout_raises(world):
+def _facades_with_layout_configured(world):
+    """Port and JAX handles whose config sets dense_layout on an index
+    built without the layout."""
     ds = world["ds"]
-    h = clann_tpu_torch.init_with_config(ds.train, TConfig(**{**world["cfg"],
-                                                              "dense_layout": True}),
-                                         device="cpu")
+    cfg = {**world["cfg"], "dense_layout": True}
+    h = clann_tpu_torch.init_with_config(ds.train, TConfig(**cfg), device="cpu")
     h.index = world["tidx"]
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        h.search_batch(ds.test, mode="auto")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        h.index = dataclasses.replace(world["tidx"], g_records=None)
-        h.search_batch(ds.test, mode="lsh")
+    j = clann_tpu.init_with_config(ds.train, JConfig(**cfg))
+    j.index = world["jidx"]
+    return h, j
+
+
+def test_facade_auto_with_dense_layout_raises(world):
+    """dense_layout set in the config but no layout built: "dense", the mode
+    "auto" would take from the config alone, raises."""
+    h, _ = _facades_with_layout_configured(world)
+    with pytest.raises(ValueError, match="dense layout"):
+        h.search_batch(world["ds"].test, mode="dense")
+
+
+def test_facade_auto_resolves_on_the_index(world):
+    """"auto" resolves on the built index, not on the config (as JAX's
+    facade does): with dense_layout set but no layout built it is "lsh",
+    the global engine; and "lsh" on an index without global tables is the
+    clustered walk (here without slot records, G = 1)."""
+    ds = world["ds"]
+    h, j = _facades_with_layout_configured(world)
+    d, i, st = h.search_batch(ds.test, mode="auto")
+    jd, ji, jst = j.search_batch(ds.test, mode="auto")
+    _assert_same((jd, ji, {f: np.asarray(getattr(jst, f)) for f in jst._fields}), d, i, st)
+    h.index = dataclasses.replace(world["tidx"], g_records=None)
+    j.index = world["jidx"].replace(g_records=None)
+    d, i, st = h.search_batch(ds.test, mode="lsh")
+    jd, ji, jst = j.search_batch(ds.test, mode="lsh")
+    _assert_same((jd, ji, {f: np.asarray(getattr(jst, f)) for f in jst._fields}), d, i, st)
 
 
 def test_recall_on_the_carried_index(world):

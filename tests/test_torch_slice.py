@@ -188,13 +188,15 @@ def test_facade_single_query_search(world):
 
 
 # each mode in a configuration where it reaches a part that is not ported:
-# "auto" (and the default mode) resolve to "dense" when the config builds
-# the dense layout; "lsh" resolves to the clustered walk on an index built
-# for it; "lsh-global" with the int8 rescore refuses to build
+# the int8 rescore (ROADMAP.md slice 7) refuses to build, whatever the mode;
+# the clustered walk ("lsh" on a clustered build, "lsh-clustered") refuses
+# an index with per-cluster hash functions (a faithful reference import,
+# slice 10)
+_INT8 = dict(rescore_dtype="int8")
 _UNPORTED = {
-    None: dict(dense_layout=True), "auto": dict(dense_layout=True), "dense": {},
-    "lsh": dict(lsh_engine="clustered"), "lsh-global": dict(rescore_dtype="int8"),
-    "lsh-clustered": {}, "adaptive": {},
+    None: _INT8, "auto": _INT8, "dense": dict(_INT8, dense_layout=True),
+    "lsh": dict(lsh_engine="clustered"), "lsh-global": _INT8,
+    "lsh-clustered": dict(lsh_engine="clustered"), "adaptive": dict(_INT8, dense_layout=True),
 }
 
 
@@ -204,6 +206,7 @@ def test_unported_modes_raise(world, mode):
     cfg = TConfig(**{**CFG, **_UNPORTED[mode]})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         t = clann_tpu_torch.init_with_config(train[:200], cfg, device="cpu").build()
+        t.index.pc_hash_params = dict(t.index.hash_params)
         t.search_batch(train[:3], mode=mode)
 
 
