@@ -11,14 +11,20 @@ caught):
    power limit and turns TF32 off for float32 matmuls and cuDNN.
 2. build: compiles clann_tpu_torch/csrc/*.cu with nvcc (one process per
    source, in parallel) into build/kernels/ and prints ptxas' register /
-   shared-memory / spill summary.
+   shared-memory / spill summary (failing if ptxas serialised a wgmma),
+   then checks with cuobjdump -sass that every packed scan kernel (K1, K3)
+   issues HGMMA and K2's kernel does not.
 3. kernels vs plain, each against its plain PyTorch version on the card, at
    the main paths' shapes and at small ragged ones, then CUDA-event times of
-   both at the main paths' shapes:
+   both at the main paths' shapes, beside the kernel's bound (the larger of
+   its FLOP at 989 TFLOP/s and its bytes at 3.35 TB/s) and its library
+   yardstick (K1, K2: a cuBLAS bf16 torch.matmul of the same product;
+   K4-K7: one torch.index_select of the same rows; K3: none):
    K1 (packed scan; 1,183,514 x 100 -> dpad 128, block_n 32768, 64 bins,
    2,048 queries), K2 (unpacked scan; pallas_scan_topk's block_n 16384,
    128 bins, 2,048 queries), K3 (block scan; ragged shapes here, the bench
-   layout with 4,096 queries at B = 9 after the build).
+   layout with 4,096 queries at B = 9 and at all 37 blocks after the
+   build).
 4. main paths on the glove-100-angular-shaped synthetic set of bench.py
    (1,183,514 x 100 train, 10,000 queries, clustered_unit_vectors with 1024
    modes, spread 0.7), exact ground truth on the card, then
@@ -73,8 +79,10 @@ caught):
    on 256 indexed points, which must agree with search on those vectors at
    k + 1.
 
-It prints the kernels as one JSON line, the nvidia-smi name / power limit
-line, and last {"ok": true, "device": {...}}. Imports only torch, numpy and
+It prints the kernels as one JSON line (launches on the main paths, error
+against the plain version, ms, plain_ms, bound_ms / bound_by, library_ms),
+the nvidia-smi name / power limit line, and last {"ok": true, "device":
+{...}}. Imports only torch, numpy and
 the clann_tpu_torch package beside this file.
 """
 
@@ -97,6 +105,11 @@ BLOCK_QUERIES = 4_096  # one block-scan batch (block_scan_search's batch_q)
 RECALL_GATE, ID_RECALL_GATE = 0.9, 0.8  # bench.py's gates
 SAME_WINNER_GATE = 0.99
 K2_VALUE_TOL = 1e-5  # f32 sums of exact bf16 products in another order
+# one H100 SXM's published dense peaks (NVIDIA's data sheet, at 700 W): the
+# least time a kernel's work could take is the larger of its operations over
+# PEAK_BF16_FLOPS and its bytes (each input read once, each output written
+# once) over PEAK_BYTES_PER_S
+PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 LSH_QUERIES = 2_048  # the lsh path's query count (first queries of the set)
 LSH_DELTAS = (0.95, 0.9)
 LSH_BIG_BATCH = 1_024  # compared with the engine's default batch of 256
@@ -177,6 +190,40 @@ def phase_build():
         log(f"[build] {line}")
     if not _build.PTXAS_INFO:
         log("[build] library was already built; no ptxas summary this run")
+    if any("serialized" in line for line in _build.PTXAS_INFO):
+        fail("ptxas serialised the wgmma of a packed scan kernel")
+    check_sass(path)
+
+
+def check_sass(lib_path):
+    """cuobjdump -sass of the built library: every instance of the packed
+    scan kernel (K1, K3) must issue HGMMA (wgmma) and K2's kernel must not."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        log("[build] cuobjdump not found: SASS not checked")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = part.split("\n", 1)[0].strip()
+        src = "block_scan.cu" if "block_scan_cu" in name else (
+            "scan_topk.cu" if "scan_topk_cu" in name else "gather.cu")
+        kind = ("packed_scan_kernel" if "packed_scan_kernel" in name else
+                "scan_kernel" if "scan_kernel" in name else "gather_kernel")
+        key = f"{kind} ({src})"
+        n = len(re.findall(r"\bHGMMA\.", part))
+        counts.setdefault(key, []).append(n)
+    for key, ns in sorted(counts.items()):
+        log(f"[build] SASS {key}: {len(ns)} instance(s), HGMMA per instance {ns}")
+    packed = [n for k, ns in counts.items() if k.startswith("packed_scan_kernel") for n in ns]
+    k2 = counts.get("scan_kernel (scan_topk.cu)", [])
+    if len(packed) < 2 or min(packed) == 0 or not k2 or max(k2) > 0:
+        fail("the packed scan kernels (K1, K3) must contain HGMMA and K2's kernel none")
 
 
 def _norm(x):
@@ -240,6 +287,12 @@ def traced():
         TRACER.enabled = False
 
 
+def bound(flop, nbytes):
+    """(least ms on the card, "operations" or "bytes") for the work."""
+    t_ops, t_bytes = flop / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def time_cuda(fn, reps):
     """Mean ms per call over `reps` calls, by CUDA events (after a warm-up)."""
     import torch
@@ -276,12 +329,16 @@ def phase_kernel(train, test, card):
     bench = compare_kernel(base, qp, per_bin, True, "main path")
 
     # small ragged shapes: n_real not a multiple of per_bin, q_pad not a
-    # multiple of the kernel's 128-query tile, dpad 128 and 256, both shifts
+    # multiple of the kernel's 256-query group, dpad 64 to 256 (every
+    # instance of the resident loop: the register operand at 64 and 128,
+    # shared memory at 192 and 256), both shifts
     rng_rows = 3001
-    for per_bin_s, biased, d in ((1, False, 37), (4, True, 37), (16, False, 130),
-                                 (64, True, 37), (2048, True, 37)):
+    for per_bin_s, biased, d, dpad in ((1, False, 37, 128), (4, True, 37, 128),
+                                       (16, False, 130, 256), (64, True, 37, 128),
+                                       (2048, True, 37, 128), (16, True, 37, 64),
+                                       (512, False, 130, 192)):
         v = _norm(torch.from_numpy(random_unit_vectors(rng_rows, d, seed=per_bin_s)).to(dev))
-        b = make_pallas_base(v, 4096)
+        b = make_pallas_base(v, 4096)[:, :dpad].contiguous()
         if not biased:
             b[:rng_rows, d] = 0.0
         q = st.pad_queries(_norm(torch.from_numpy(random_unit_vectors(77, d, seed=7)).to(dev)),
@@ -300,11 +357,28 @@ def phase_kernel(train, test, card):
         lambda: st.scan_candidates_packed(base, qp, per_bin=per_bin, biased=True),
         lambda: st.packed_candidates_plain(base, qp, per_bin=per_bin, biased=True))
     flop = 2.0 * base.shape[0] * base.shape[1] * qp.shape[0]
+    out_bytes = 4.0 * (base.shape[0] // per_bin) * qp.shape[0]
+    b_ms, b_by = bound(flop, 2.0 * (base.numel() + qp.numel()) + out_bytes)
+    lib_ms = library_gemm_ms(base, qp)
     log(f"[kernel-time] K1 at base {tuple(base.shape)} x queries {tuple(qp.shape)}: "
         f"kernel {ms:.3f} ms ({t_kern[0]:.3f}, {t_kern[1]:.3f}; "
-        f"{flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms "
-        f"({t_plain[0]:.3f}, {t_plain[1]:.3f}) on {card}")
-    return {"max_abs_err": bench["max_abs_err"], "ms": ms, "plain_ms": plain_ms}
+        f"{flop / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the {b_ms:.3f} ms bound by "
+        f"{b_by}), plain {plain_ms:.3f} ms ({t_plain[0]:.3f}, {t_plain[1]:.3f}), library "
+        f"{lib_ms:.3f} ms (cuBLAS bf16 torch.matmul, GEMM only: writes the "
+        f"{2.0 * base.shape[0] * qp.shape[0] / 1e9:.2f} GB of scores the kernel never "
+        f"writes) on {card}")
+    return {"max_abs_err": bench["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def library_gemm_ms(base, qp):
+    """ms of one cuBLAS bf16 torch.matmul of the same product (every score
+    written as bf16), the scan kernels' library yardstick."""
+    import torch
+
+    ms = time_cuda(lambda: torch.matmul(base, qp.T), 5)
+    torch.cuda.empty_cache()
+    return ms
 
 
 def time_pair(kern, plain, reps_kern=20, reps_plain=3):
@@ -382,29 +456,38 @@ def phase_k2(train, test, card):
         lambda: st.scan_candidates(base, qp, per_bin=per_bin),
         lambda: st.candidates_plain(base, qp, per_bin=per_bin))
     flop = 2.0 * base.shape[0] * base.shape[1] * qp.shape[0]
+    out_bytes = 8.0 * (base.shape[0] // per_bin) * qp.shape[0]  # vals and ids
+    b_ms, b_by = bound(flop, 2.0 * (base.numel() + qp.numel()) + out_bytes)
+    lib_ms = library_gemm_ms(base, qp)
     log(f"[kernel-time] K2 at base {tuple(base.shape)} x queries {tuple(qp.shape)}: "
-        f"kernel {ms:.3f} ms ({tk[0]:.3f}, {tk[1]:.3f}; {flop / ms / 1e9:.1f} TFLOP/s), "
-        f"plain {plain_ms:.3f} ms ({tp[0]:.3f}, {tp[1]:.3f}) on {card}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        f"kernel {ms:.3f} ms ({tk[0]:.3f}, {tk[1]:.3f}; {flop / ms / 1e9:.1f} TFLOP/s, "
+        f"{b_ms / ms:.3f} of the {b_ms:.3f} ms bound by {b_by}), plain {plain_ms:.3f} ms "
+        f"({tp[0]:.3f}, {tp[1]:.3f}), library {lib_ms:.3f} ms (cuBLAS bf16 torch.matmul, "
+        f"GEMM only) on {card}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
 
 
 def k3_operands(layout, queries, B, q_tile):
     """K3's operands for `queries` at budget B, made by the block path's
-    own ranking and pair bookkeeping."""
+    own ranking and pair bookkeeping: (tile_block, qg, tile_live)."""
     from clann_tpu_torch.ops import block_scan as bs
 
     qn = _norm(queries)
     wants, _ = bs.rank_blocks(layout, qn, B)
-    _, tile_block, qg = bs.pair_tiles(wants, qn, n_blocks=layout.n_blocks,
-                                      q_tile=q_tile, dpad=layout.base_bf16.shape[1])
-    return tile_block, qg
+    _, tile_block, qg, tile_live = bs.pair_tiles(
+        wants, qn, n_blocks=layout.n_blocks, q_tile=q_tile, dpad=layout.base_bf16.shape[1])
+    return tile_block, qg, tile_live
 
 
-def compare_k3(layout, tile_block, qg, q_tile, per_bin, label):
+def compare_k3(layout, tile_block, qg, tile_live, q_tile, per_bin, label):
+    """K3 (skipping the groups of dead slots that tile_live names) against
+    its plain version, which computes every slot."""
     from clann_tpu_torch.ops import block_scan as bs
 
     kw = dict(block_n=layout.block_n, q_tile=q_tile, per_bin=per_bin)
-    got = bs.block_scan_candidates_packed(layout.base_bf16, qg, tile_block, **kw)
+    got = bs.block_scan_candidates_packed(layout.base_bf16, qg, tile_block,
+                                          tile_live=tile_live, **kw)
     sync()
     ref = bs.block_candidates_plain(layout.base_bf16, qg, tile_block, **kw)
     sync()
@@ -429,11 +512,12 @@ def phase_k3_ragged():
         assign = rng.integers(0, 7, size=3001)
         lay = bs.build_block_layout(v, assign, block_n, device=dev)
         q = torch.from_numpy(random_unit_vectors(77, d, seed=7)).to(dev)
-        tile_block, qg = k3_operands(lay, q, B, q_tile)
+        tile_block, qg, tile_live = k3_operands(lay, q, B, q_tile)
         # two more tiles of live queries, on block ids outside the base
         tile_block = torch.cat([tile_block, tile_block.new_tensor([-1, lay.n_blocks + 3])])
+        tile_live = torch.cat([tile_live, tile_live.new_tensor([q_tile, q_tile])])
         qg = torch.cat([qg, qg[:q_tile], qg[:q_tile]])
-        compare_k3(lay, tile_block, qg, q_tile, per_bin,
+        compare_k3(lay, tile_block, qg, tile_live, q_tile, per_bin,
                    f"K3 ragged n_real=3001 n_pad={lay.base_bf16.shape[0]} d={d} "
                    f"dpad={lay.base_bf16.shape[1]} block_n={block_n} per_bin={per_bin} "
                    f"B={B} q_tile={q_tile} T={tile_block.shape[0]}")
@@ -441,7 +525,18 @@ def phase_k3_ragged():
 
 def phase_k3_bench(index, test, card):
     """K3 against its plain version at the bench shape: the index's block
-    layout, 4,096 queries at the auto budget; then both timed."""
+    layout, 4,096 queries at the auto budget and at every block; then both
+    timed at each."""
+    from clann_tpu_torch.ops import block_scan as bs
+    from clann_tpu_torch.ops.ivf import pallas_scan_plan
+
+    layout = bs.get_block_layout(index, pallas_scan_plan(N_TRAIN, K, d=DIMS)[0])
+    at_auto = k3_bench_at(layout, test, bs.auto_block_probe(layout.n_blocks), card)
+    k3_bench_at(layout, test, layout.n_blocks, card)
+    return at_auto  # the kernel line reports the auto budget
+
+
+def k3_bench_at(layout, test, B, card):
     import torch
 
     from clann_tpu_torch.ops import block_scan as bs
@@ -449,24 +544,32 @@ def phase_k3_bench(index, test, card):
 
     block_n, num_bins, _, q_tile = pallas_scan_plan(N_TRAIN, K, d=DIMS)
     per_bin = block_n // num_bins
-    layout = bs.get_block_layout(index, block_n)
-    B = bs.auto_block_probe(layout.n_blocks)
-    tile_block, qg = k3_operands(
+    tile_block, qg, tile_live = k3_operands(
         layout, torch.from_numpy(test[:BLOCK_QUERIES]).to(DEVICE), B, q_tile)
+    T, dpad = tile_block.shape[0], qg.shape[1]
+    live = int(tile_live.sum())
     label = (f"K3 main path: {layout.n_blocks} blocks of {block_n}, B={B}, "
-             f"{BLOCK_QUERIES} queries -> T={tile_block.shape[0]} tiles of {q_tile}, "
-             f"per_bin {per_bin}")
-    agree = compare_k3(layout, tile_block, qg, q_tile, per_bin, label)
+             f"{BLOCK_QUERIES} queries -> T={T} tiles of {q_tile}, per_bin {per_bin}")
+    agree = compare_k3(layout, tile_block, qg, tile_live, q_tile, per_bin, label)
     kw = dict(block_n=block_n, q_tile=q_tile, per_bin=per_bin)
     ms, plain_ms, tk, tp = time_pair(
-        lambda: bs.block_scan_candidates_packed(layout.base_bf16, qg, tile_block, **kw),
+        lambda: bs.block_scan_candidates_packed(layout.base_bf16, qg, tile_block,
+                                                tile_live=tile_live, **kw),
         lambda: bs.block_candidates_plain(layout.base_bf16, qg, tile_block, **kw))
-    flop = 2.0 * block_n * qg.shape[1] * qg.shape[0]
-    log(f"[kernel-time] K3 at {tile_block.shape[0]} tiles x ({block_n} rows x {q_tile} "
-        f"slots x dpad {qg.shape[1]}): kernel {ms:.3f} ms ({tk[0]:.3f}, {tk[1]:.3f}; "
-        f"{flop / ms / 1e9:.1f} TFLOP/s incl. dead slots), plain {plain_ms:.3f} ms "
-        f"({tp[0]:.3f}, {tp[1]:.3f}) on {card}")
-    return {"max_abs_err": agree["max_abs_err"], "ms": ms, "plain_ms": plain_ms}
+    # the work these inputs need: the live slots against their blocks, each
+    # block with a live slot read once, the live query rows, every winner
+    flop = 2.0 * live * block_n * dpad
+    blocks = int(torch.unique(tile_block[tile_live > 0]).numel())
+    nbytes = (2.0 * blocks * block_n * dpad + 2.0 * live * dpad
+              + 4.0 * T * (block_n // per_bin) * q_tile + 8.0 * T)
+    b_ms, b_by = bound(flop, nbytes)
+    log(f"[kernel-time] K3 at B={B}: {T} tiles x ({block_n} rows x {q_tile} slots x dpad "
+        f"{dpad}), {live} live slots of {T * q_tile}: kernel {ms:.3f} ms ({tk[0]:.3f}, "
+        f"{tk[1]:.3f}; {flop / ms / 1e9:.1f} TFLOP/s over live slots, {b_ms / ms:.3f} of the "
+        f"{b_ms:.3f} ms bound by {b_by}), plain {plain_ms:.3f} ms ({tp[0]:.3f}, {tp[1]:.3f}), "
+        f"library none on {card}")
+    return {"max_abs_err": agree["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def check_result(d, i, label, n_queries=N_QUERIES):
@@ -700,22 +803,25 @@ def phase_gather(card):
     nb = gr.TAKE_SLOTS // gr.ENGINE_G
     rec = gr.random_words((gr.ENGINE_L * nb, gr.ENGINE_G * gr.R), gen, dev)
     flat = table.view(-1)
-    # name, kernel(i, inflight), plain(i), source rows, moved / useful bytes per index
+    # name, kernel(i, inflight), plain(i), source rows, moved / useful bytes
+    # per index, the source as the 2-D rows one index picks (for the library
+    # yardstick, one torch.index_select)
     cases = [
         ("K4 gather_pages", lambda i, f=8: tg.gather_pages(pages, i, inflight=f),
-         lambda i: tg.pages_plain(pages, i), T // 8, 4096, 4096, f"pages {tuple(pages.shape)}"),
+         lambda i: tg.pages_plain(pages, i), T // 8, 4096, 4096, f"pages {tuple(pages.shape)}",
+         pages.view(pages.shape[0], -1)),
         ("K5 gather_group8", lambda i, f=8: tg.gather_group8(table, i, inflight=f),
          lambda i: tg.group8_plain(table, i), T // 8, 8 * W * 4, W * 4,
-         f"8-row groups of {tuple(table.shape)}"),
+         f"8-row groups of {tuple(table.shape)}", table[: 8 * (T // 8)].reshape(T // 8, 8 * W)),
         ("K6 gather_flat1d", lambda i, f=8: tg.gather_flat1d(flat, i, width=W, inflight=f),
          lambda i: tg.flat1d_plain(flat, i, width=W), T, W * 4, W * 4,
-         f"{W}-word slices of ({flat.shape[0]},)"),
+         f"{W}-word slices of ({flat.shape[0]},)", flat.view(-1, W)),
         ("K7 gather_rows", lambda i, f=8: tg.gather_rows(rec, i, inflight=f),
          lambda i: tg.rows_plain(rec, i), rec.shape[0], rec.shape[1] * 4, rec.shape[1] * 4,
-         f"engine records {tuple(rec.shape)} (L={gr.ENGINE_L}, G={gr.ENGINE_G})"),
+         f"engine records {tuple(rec.shape)} (L={gr.ENGINE_L}, G={gr.ENGINE_G})", rec),
     ]
     out = {}
-    for name, kern, plain, n_src, moved, useful, shape in cases:
+    for name, kern, plain, n_src, moved, useful, shape, src2d in cases:
         i0 = idx_in(n_src)
         err = 0.0
         for f in gr.NSEMS:
@@ -730,12 +836,17 @@ def phase_gather(card):
         t_kern = [gr.time_iters(kern, sets, 3), gr.time_iters(kern, sets, 3)]
         t_plain.append(gr.time_iters(plain, sets, 3))
         ms, plain_ms = sum(t_kern) / 2, sum(t_plain) / 2
+        lib_ms = gr.time_iters(lambda i: torch.index_select(src2d, 0, i), sets, 3)
+        # each picked row read once and written once, and the indices
+        b_ms, b_by = bound(0.0, rows * (2.0 * moved + 4))
         log(f"[gather-time] {name} at {rows} rows of {shape}: kernel {ms:.4f} ms "
             f"({t_kern[0]:.4f}, {t_kern[1]:.4f}; {rows * moved / ms / 1e6:.1f} GB/s moved, "
-            f"{rows * useful / ms / 1e6:.1f} useful), plain {plain_ms:.4f} ms "
-            f"({t_plain[0]:.4f}, {t_plain[1]:.4f}; {rows * moved / plain_ms / 1e6:.1f} GB/s "
-            f"moved) on {card}")
-        out[name.split()[0]] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            f"{rows * useful / ms / 1e6:.1f} useful; {b_ms / ms:.3f} of the {b_ms:.4f} ms "
+            f"bound by {b_by}), plain {plain_ms:.4f} ms ({t_plain[0]:.4f}, {t_plain[1]:.4f}; "
+            f"{rows * moved / plain_ms / 1e6:.1f} GB/s moved), library {lib_ms:.4f} ms (one "
+            f"torch.index_select of the same rows) on {card}")
+        out[name.split()[0]] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
     # the 4-byte-lane instance: 12-byte records (G = 1, R = 3)
     small = gr.random_words((5003, 3), gen, dev)
     ir = ragged(5003, 4099)
@@ -1098,9 +1209,12 @@ def check_walk_gather(idx, card):
                      f"last, -1, {n_src}", lambda: kern(ir), lambda: plain(ir))
     sets = [(i,) for i in gr.rotated(i0, n_src, 20)]
     ms, plain_ms = gr.time_iters(kern, sets, 3), gr.time_iters(plain, sets, 3)
+    lib_ms = gr.time_iters(lambda i: torch.index_select(view, 0, i), sets, 3)
+    b_ms, b_by = bound(0.0, rows * (2.0 * G * R * 4 + 4))
     log(f"[gather-time] K7 gather_rows at the walk's {rows} rows of {shape}: kernel "
-        f"{ms:.4f} ms ({rows * G * R * 4 / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms on "
-        f"{card}")
+        f"{ms:.4f} ms ({rows * G * R * 4 / ms / 1e6:.1f} GB/s; {b_ms / ms:.3f} of the "
+        f"{b_ms:.4f} ms bound by {b_by}), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+        f"(one torch.index_select of the same rows) on {card}")
 
 
 def walk_ball_readings(idx, q, d, gt_d, visited):
@@ -1252,9 +1366,9 @@ def main():
 
     kernels = [
         ("scan_topk_packed (K1)", "clann_tpu_torch/csrc/scan_topk.cu",
-         "clann_tpu/ops/pallas/scan_topk.py:83", launches_k1, k1),
+         "clann_tpu/ops/pallas/scan_topk.py:209", launches_k1, k1),
         ("scan_candidates (K2)", "clann_tpu_torch/csrc/scan_topk.cu",
-         "clann_tpu/ops/pallas/scan_topk.py:50", launches_k2, k2),
+         "clann_tpu/ops/pallas/scan_topk.py:287", launches_k2, k2),
         ("block_scan_packed (K3)", "clann_tpu_torch/csrc/block_scan.cu",
          "clann_tpu/ops/pallas/block_scan.py:276", launches_k3, k3),
         ("gather_pages (K4)", "clann_tpu_torch/csrc/gather.cu",
@@ -1275,6 +1389,9 @@ def main():
         "max_abs_err": m["max_abs_err"],
         "ms": m["ms"],
         "plain_ms": m["plain_ms"],
+        "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"],
+        "library_ms": m["library_ms"],
     } for name, source, replaces, launches, m in kernels]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

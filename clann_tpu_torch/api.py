@@ -61,7 +61,7 @@ class Clann:
         if config.metrics_output == MetricsOutput.DB:
             raise NotImplementedError(
                 "metrics_output=DB: the SQLite metrics sink comes with "
-                "ROADMAP.md slice 10 (interop, h5 and CLI)"
+                "ROADMAP.md slice 13 (interop, h5 and CLI)"
             )
         self.config = config
         self.index = None

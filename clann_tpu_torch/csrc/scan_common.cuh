@@ -1,31 +1,19 @@
-// Shared main loop of the scan kernels K1, K2 and K3 (sm_90a).
+// mma.sync main loop of the unpacked scan kernel K2 (sm_90a).
 //
-// Every kernel of this family scores bf16 base rows against bf16 queries
-// with f32 accumulation and reduces the scores of each bin (per_bin
-// consecutive base rows) to one winner per query, without writing a score to
-// device memory. They differ only in what a score becomes (the epilogue's
-// key) and where the winners go:
+// K2 scores bf16 base rows against bf16 queries with f32 accumulation and
+// reduces the scores of each bin (per_bin consecutive base rows) to one
+// winner per query, the f32 max and the lowest row reaching it, without
+// writing a score to device memory. (K1 and K3, the packed kernels, run on
+// the Hopper loop of scan_hopper.cuh; K2 moves there next.)
 //
-//   K1 (scan_topk.cu, PackedEpi)  packed int32 max, (n_bins, q) layout
-//   K3 (block_scan.cu, PackedEpi) K1 on tiles: tile t's queries against the
-//                                 base block tile_block[t]
-//   K2 (scan_topk.cu, ArgmaxEpi)  f32 max + lowest arg row, (q, n_bins)
-//
-// A launch covers n_tiles independent sub-problems ("tiles"). Tile t reads
-// the queries [t * tile_q, (t + 1) * tile_q) and the base rows starting at
-// tile_block[t] * tile_rows (at row 0 when tile_block is null), and writes
-// its own (tile_rows / per_bin) x tile_q slab of winners. K1 and K2 are one
-// tile spanning the whole base and query set.
-//
-// Design (first version: simple and right, no wgmma or TMA yet):
-// - One CTA owns max(per_bin, 128) consecutive rows of a tile (whole bins)
-//   and 128 of its queries, and loops over its rows in 128-row chunks. The
-//   bin winners stay in shared memory for the CTA's life: no global
-//   atomics, no output initialisation, no second pass.
-// - CTAs are numbered query group fastest, then row group, then tile, so
-//   the CTAs resident at one time stream the same base rows (the same base
-//   block for K3, whose tiles are sorted by block) and the base is read from
-//   DRAM about once and then served from L2.
+// Design (simple and right, no wgmma or TMA):
+// - One CTA owns max(per_bin, 128) consecutive rows (whole bins) and 128
+//   queries, and loops over its rows in 128-row chunks. The bin winners
+//   stay in shared memory for the CTA's life: no global atomics, no output
+//   initialisation, no second pass.
+// - CTAs are numbered query group fastest, then row group, so the CTAs
+//   resident at one time stream the same base rows and the base is read
+//   from DRAM about once and then served from L2.
 // - Operands move global -> shared with 16-byte cp.async in a two-stage
 //   pipeline (K slices of 64); the product runs on mma.sync m16n8k16 (bf16
 //   in, f32 accumulate). Shared rows are padded by 8 bf16 so that the
@@ -64,19 +52,16 @@ constexpr int STAGE_ELEMS = (BM + BN) * LDS;
 constexpr size_t OPERAND_SMEM = size_t(STAGES) * STAGE_ELEMS * sizeof(__nv_bfloat16);
 constexpr int MAX_PER_BIN = 16384;
 
-// What one launch scans (see the file comment for tiles).
+// What one launch scans.
 struct ScanShape {
   const __nv_bfloat16* base;     // (n_pad, dpad)
-  const __nv_bfloat16* queries;  // (n_tiles * tile_q, dpad)
-  const int32_t* tile_block;     // (n_tiles,) base block of each tile, or null
+  const __nv_bfloat16* queries;  // (q_pad, dpad)
   long long n_pad;
-  long long tile_rows;           // base rows per tile (n_pad for one tile)
-  int tile_q;                    // queries per tile
+  int q_pad;
   int dpad;
   int per_bin;
   int rows_per_cta;              // max(per_bin, BM): whole bins, whole chunks
-  int row_groups;                // CTAs along a tile's rows
-  int q_groups;                  // CTAs along a tile's queries
+  int q_groups;                  // CTAs along the queries
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
@@ -126,38 +111,14 @@ __device__ __forceinline__ void load_stage(__nv_bfloat16* s_a, __nv_bfloat16* s_
   }
 }
 
-// K1 / K3 epilogue: key = (bitcast<int32>(score + shift) & ~(per_bin-1)) |
-// row_in_bin, max-reduced; out is (n_tiles * tile_bins, tile_q) int32.
-struct PackedEpi {
-  using Key = int;
-  static constexpr int kMinBlocks = 2;
-  static constexpr bool kQueryMajorStore = false;
-  int32_t* out;
-  float shift;  // 0 when the bias column carries the +3.0, else 3.0
-  int keep;     // ~(per_bin - 1)
-
-  __device__ __forceinline__ Key empty() const { return INT_MIN; }
-  __device__ __forceinline__ Key make(float acc, int sub) const {
-    return (__float_as_int(acc + shift) & keep) | sub;
-  }
-  __device__ __forceinline__ static Key kmax(Key a, Key b) { return max(a, b); }
-  __device__ __forceinline__ static void atomic_max(Key* p, Key v) { atomicMax(p, v); }
-  __device__ __forceinline__ void store(long long tile, long long bin, int q, long long tile_bins,
-                                        int tile_q, Key k) const {
-    out[(tile * tile_bins + bin) * tile_q + q] = k;
-  }
-};
-
 // K2 epilogue: per bin the f32 max of the unshifted score and the lowest
 // row reaching it. key = order-preserving image of the float bits (high
 // word) | per_bin - 1 - row_in_bin (low word), so one unsigned max picks the
 // largest score and, among equal scores, the lowest row. -0.0 is folded into
-// +0.0 first (they compare equal as floats). vals / ids are (q, tile_bins)
-// with ids = bin * per_bin + row_in_bin (one tile: rows of the whole base).
+// +0.0 first (they compare equal as floats). vals / ids are
+// (q_pad, n_pad / per_bin) with ids = bin * per_bin + row_in_bin.
 struct ArgmaxEpi {
   using Key = unsigned long long;
-  static constexpr int kMinBlocks = 2;
-  static constexpr bool kQueryMajorStore = true;
   float* vals;
   int32_t* ids;
   int per_bin;
@@ -170,20 +131,17 @@ struct ArgmaxEpi {
   }
   __device__ __forceinline__ static Key kmax(Key a, Key b) { return a > b ? a : b; }
   __device__ __forceinline__ static void atomic_max(Key* p, Key v) { atomicMax(p, v); }
-  __device__ __forceinline__ void store(long long tile, long long bin, int q, long long tile_bins,
-                                        int tile_q, Key k) const {
-    (void)tile;
-    (void)tile_q;
+  __device__ __forceinline__ void store(long long bin, int q, long long n_bins, Key k) const {
     uint32_t b = static_cast<uint32_t>(k >> 32);
     b = (b & 0x80000000u) ? (b & 0x7FFFFFFFu) : ~b;
-    const long long at = static_cast<long long>(q) * tile_bins + bin;
+    const long long at = static_cast<long long>(q) * n_bins + bin;
     vals[at] = __uint_as_float(b);
     ids[at] = static_cast<int32_t>(bin * per_bin + (per_bin - 1 - static_cast<int>(k & 0xFFFFFFFFull)));
   }
 };
 
 template <class Epi>
-__global__ void __launch_bounds__(THREADS, Epi::kMinBlocks)
+__global__ void __launch_bounds__(THREADS, 2)
 scan_kernel(const ScanShape sh, const Epi epi) {
   using Key = typename Epi::Key;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -192,28 +150,16 @@ scan_kernel(const ScanShape sh, const Epi epi) {
 
   const long long cta = blockIdx.x;
   const int q0 = static_cast<int>(cta % sh.q_groups) * BN;
-  const long long rest = cta / sh.q_groups;
-  const long long row0 = (rest % sh.row_groups) * sh.rows_per_cta;  // in the tile
-  const long long tile = rest / sh.row_groups;
+  const long long row0 = (cta / sh.q_groups) * sh.rows_per_cta;
   const int per_bin = sh.per_bin;
   const int bins_local = sh.rows_per_cta / per_bin;
-  const long long tile_bins = sh.tile_rows / per_bin;
+  const long long n_bins = sh.n_pad / per_bin;
 
-  // The tile's first base row; base rows outside [0, n_pad) and outside the
-  // tile read as 0 (a block id out of range yields winners of zero rows,
-  // never a read out of bounds).
-  const long long blk = sh.tile_block ? static_cast<long long>(sh.tile_block[tile]) : 0;
-  const long long tile_row0 = blk * sh.tile_rows;
-  long long rows_left = 0;
-  if (blk >= 0 && tile_row0 < sh.n_pad) {
-    const long long tile_end = min(sh.tile_rows, sh.n_pad - tile_row0);
-    rows_left = tile_end - row0;
-  }
-  const __nv_bfloat16* base_c =
-      sh.base + (rows_left > 0 ? (tile_row0 + row0) * static_cast<long long>(sh.dpad) : 0);
-  const __nv_bfloat16* queries_c =
-      sh.queries + (tile * sh.tile_q + q0) * static_cast<long long>(sh.dpad);
-  const int q_left = sh.tile_q - q0;
+  // base rows past n_pad and queries past q_pad read as 0
+  const long long rows_left = sh.n_pad - row0;
+  const __nv_bfloat16* base_c = sh.base + row0 * static_cast<long long>(sh.dpad);
+  const __nv_bfloat16* queries_c = sh.queries + static_cast<long long>(q0) * sh.dpad;
+  const int q_left = sh.q_pad - q0;
 
   for (int i = threadIdx.x; i < bins_local * BN; i += THREADS) s_best[i] = epi.empty();
 
@@ -350,41 +296,36 @@ scan_kernel(const ScanShape sh, const Epi epi) {
 
   const long long bin0 = row0 / per_bin;
   for (int i = threadIdx.x; i < bins_local * BN; i += THREADS) {
-    // K2 writes (q, bin): walk bins fastest so neighbouring threads write
-    // neighbouring addresses; K1 / K3 write (bin, q): walk queries fastest
-    const int lb = Epi::kQueryMajorStore ? i % bins_local : i / BN;
-    const int lq = Epi::kQueryMajorStore ? i / bins_local : i % BN;
+    // (q, bin) output: walk bins fastest so neighbouring threads write
+    // neighbouring addresses
+    const int lb = i % bins_local;
+    const int lq = i / bins_local;
     const long long bin = bin0 + lb;
     const int q = q0 + lq;
-    if (bin < tile_bins && q < sh.tile_q) epi.store(tile, bin, q, tile_bins, sh.tile_q, s_best[lb * BN + lq]);
+    if (bin < n_bins && q < sh.q_pad) epi.store(bin, q, n_bins, s_best[lb * BN + lq]);
   }
 }
 
-// Shape of a launch of n_tiles tiles; false if the arguments are not ones
-// the kernel takes (dpad a multiple of BK, per_bin a power of two, tile_rows
-// a multiple of per_bin, non-negative sizes, a grid that fits).
+// Shape of a launch; false if the arguments are not ones the kernel takes
+// (dpad a multiple of BK, per_bin a power of two dividing n_pad, non-negative
+// sizes, a grid that fits).
 inline bool make_shape(ScanShape& sh, long long& grid, const void* base, const void* queries,
-                       const void* tile_block, long long n_pad, long long tile_rows, int tile_q,
-                       long long n_tiles, int dpad, int per_bin, int max_per_bin) {
-  if (dpad <= 0 || dpad % BK != 0 || per_bin < 1 || per_bin > max_per_bin ||
-      (per_bin & (per_bin - 1)) != 0 || n_pad < 0 || tile_rows < 0 || tile_q < 0 ||
-      n_tiles < 0 || tile_rows % per_bin != 0)
+                       long long n_pad, int q_pad, int dpad, int per_bin) {
+  if (dpad <= 0 || dpad % BK != 0 || per_bin < 1 || per_bin > MAX_PER_BIN ||
+      (per_bin & (per_bin - 1)) != 0 || n_pad < 0 || q_pad < 0 || n_pad % per_bin != 0)
     return false;
   sh.base = static_cast<const __nv_bfloat16*>(base);
   sh.queries = static_cast<const __nv_bfloat16*>(queries);
-  sh.tile_block = static_cast<const int32_t*>(tile_block);
   sh.n_pad = n_pad;
-  sh.tile_rows = tile_rows;
-  sh.tile_q = tile_q;
+  sh.q_pad = q_pad;
   sh.dpad = dpad;
   sh.per_bin = per_bin;
   sh.rows_per_cta = per_bin > BM ? per_bin : BM;
-  const long long row_groups = (tile_rows + sh.rows_per_cta - 1) / sh.rows_per_cta;
-  const long long q_groups = (tile_q + BN - 1) / BN;
+  const long long row_groups = (n_pad + sh.rows_per_cta - 1) / sh.rows_per_cta;
+  const long long q_groups = (q_pad + BN - 1) / BN;
   if (row_groups > INT_MAX || q_groups > INT_MAX) return false;
-  sh.row_groups = static_cast<int>(row_groups);
   sh.q_groups = static_cast<int>(q_groups);
-  grid = n_tiles * row_groups * q_groups;
+  grid = row_groups * q_groups;
   return grid <= INT_MAX;
 }
 

@@ -1,5 +1,5 @@
 // Dense fused-scan candidate kernels K1 (packed) and K2 (value + argmax)
-// for NVIDIA Hopper (sm_90a). The main loop both share is in scan_common.cuh.
+// for NVIDIA Hopper (sm_90a).
 //
 // K1 replaces clann_tpu/ops/pallas/scan_topk.py::_scan_kernel_packed, the
 // TPU kernel behind the scan-pallas query path. For every query q and every
@@ -15,25 +15,28 @@
 // the product already holds score + 3.0 and lands in [2, 4), where the f32
 // bit pattern orders like the float) and 3.0 otherwise. Output layout is
 // the JAX kernel's (n_pad / per_bin, q_pad) int32; the decode and the
-// cross-bin top-k stay in PyTorch (clann_tpu_torch/ops/scan_topk.py).
+// cross-bin top-k stay in PyTorch (clann_tpu_torch/ops/scan_topk.py). Its
+// main loop (persistent, warp-specialised, TMA + wgmma) is in
+// scan_hopper.cuh, shared with K3.
 //
 // K2 replaces clann_tpu/ops/pallas/scan_topk.py::_scan_kernel, the unpacked
 // kernel behind pallas_scan_topk. Per (query, bin) it writes the f32 max of
 // the unshifted dot and the lowest row reaching it, in the JAX layout:
 // vals (q_pad, n_pad / per_bin) f32 and ids (q_pad, n_pad / per_bin) int32,
 // ids = bin * per_bin + row_in_bin (JAX's blk*block_n + bin*per_bin + arg).
+// It runs on the mma.sync loop of scan_common.cuh.
 //
 // What bounds them on the card: at the glove-100 bench shape (n_pad =
-// 1,212,416 rows, dpad = 128, 10,240 queries) the product is
-// 2 * 1,212,416 * 128 * 10,240 ~= 3.2 TFLOP (~3.2 ms at the 989 TFLOP/s
-// bf16 dense peak) plus 1.24e10 keyed scores in the epilogue, while the
-// base is 310 MB of bf16. The work is tensor-core and epilogue-ALU bound,
-// not bound by device memory, as long as a base tile is read from DRAM once
-// and then served from L2 to every query tile. What the design does about
-// it is in scan_common.cuh. K2's key is 64 bits wide (value and row), so
-// its epilogue moves twice K1's bits through shuffles and shared atomics.
+// 1,212,416 rows, dpad = 128, 2,048 queries per launch) the product is
+// 6.4e11 FLOP (0.64 ms at the 989 TFLOP/s bf16 dense peak) plus 2.5e9
+// keyed scores in the epilogue, while the base is 310 MB of bf16 (0.09 ms
+// at 3.35 TB/s). The work is tensor-core bound as long as a base tile is
+// read from DRAM once and then served from L2 to every query group. K2's
+// key is 64 bits wide (value and row), so its epilogue moves twice K1's
+// bits through shuffles and shared atomics.
 
 #include "scan_common.cuh"
+#include "scan_hopper.cuh"
 
 extern "C" {
 
@@ -44,16 +47,22 @@ extern "C" {
 int clann_scan_topk_packed(const void* base, const void* queries, void* out, long long n_pad,
                            int q_pad, int dpad, int per_bin, int biased, int device,
                            void* stream) {
-  clann::ScanShape sh;
-  long long grid = 0;
-  if (!clann::make_shape(sh, grid, base, queries, nullptr, n_pad, n_pad, q_pad, 1, dpad, per_bin,
-                         clann::MAX_PER_BIN))
-    return static_cast<int>(cudaErrorInvalidValue);
-  clann::PackedEpi epi;
-  epi.out = static_cast<int32_t*>(out);
-  epi.shift = biased ? 0.f : 3.f;
-  epi.keep = ~(per_bin - 1);
-  return clann::launch_scan(sh, grid, epi, device, stream);
+  clann::hopper::Launch L;
+  L.base = base;
+  L.queries = queries;
+  L.tile_block = nullptr;
+  L.tile_live = nullptr;
+  L.out = static_cast<int32_t*>(out);
+  L.n_pad = n_pad;
+  L.tile_rows = n_pad;
+  L.n_tiles = 1;
+  L.tile_q = q_pad;
+  L.dpad = dpad;
+  L.per_bin = per_bin;
+  L.min_item_rows = 512;  // the grid keeps its query groups: fine items balance best
+  if (n_pad == 0) return 0;
+  return biased ? clann::hopper::launch_packed<true>(L, device, stream)
+                : clann::hopper::launch_packed<false>(L, device, stream);
 }
 
 // Launches K2 on `stream` of CUDA device `device`. base: (n_pad, dpad) bf16,
@@ -65,8 +74,7 @@ int clann_scan_candidates(const void* base, const void* queries, void* vals, voi
                           void* stream) {
   clann::ScanShape sh;
   long long grid = 0;
-  if (!clann::make_shape(sh, grid, base, queries, nullptr, n_pad, n_pad, q_pad, 1, dpad, per_bin,
-                         clann::MAX_PER_BIN) ||
+  if (!clann::make_shape(sh, grid, base, queries, n_pad, q_pad, dpad, per_bin) ||
       n_pad > INT_MAX)  // ids are int32 rows
     return static_cast<int>(cudaErrorInvalidValue);
   clann::ArgmaxEpi epi;

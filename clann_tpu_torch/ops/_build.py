@@ -35,8 +35,9 @@ NVCC_FLAGS = [
 
 _LIB: Optional[ctypes.CDLL] = None
 # nvcc's -Xptxas -v summary of the last build made by this process
-# (registers, shared memory, spills per kernel); empty when the library
-# was already built.
+# (registers, shared memory, spills per kernel, and ptxas' warnings, e.g. a
+# serialised wgmma or an ignored setmaxnreg); empty when the library was
+# already built.
 PTXAS_INFO: List[str] = []
 
 
@@ -96,8 +97,8 @@ def build() -> Path:
             o.unlink(missing_ok=True)
     PTXAS_INFO[:] = [
         ln.strip() for ln in "".join(logs).splitlines()
-        if "spill" in ln or ("ptxas info" in ln and (
-            "Used" in ln or "Compiling entry" in ln))
+        if "spill" in ln or "warning" in ln or "Performance" in ln or (
+            "ptxas info" in ln and ("Used" in ln or "Compiling entry" in ln))
     ]
     print("\n".join(PTXAS_INFO), flush=True)
     os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
@@ -116,7 +117,7 @@ def load_library() -> ctypes.CDLL:
     lib.clann_scan_candidates.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32, vp]
     lib.clann_scan_candidates.restype = i32
     lib.clann_block_scan_packed.argtypes = [
-        vp, vp, vp, vp, i64, i64, i32, i64, i32, i32, i32, vp]
+        vp, vp, vp, vp, vp, i64, i64, i32, i64, i32, i32, i32, vp]
     lib.clann_block_scan_packed.restype = i32
     lib.clann_gather_pages.argtypes = [vp, i64, vp, i64, vp, i32, i32, vp]
     lib.clann_gather_group8.argtypes = [vp, i64, i32, vp, i64, vp, i32, i32, vp]

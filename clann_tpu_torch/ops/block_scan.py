@@ -35,6 +35,7 @@ from clann_tpu_torch.ops.scan_topk import (
     _INVALID,
     _check_cuda_operands,
     _check_operands,
+    _check_tma_rows,
     packed_candidates_plain,
 )
 
@@ -50,6 +51,15 @@ LAYOUT_FIELDS = ("base_bf16", "base_f32", "gids", "centroids", "radii", "reps",
 # int >= 0x40000000; dead slots and pad rows carry bias 0 and pack below
 # 2^14. The floor at bitcast(1.0) keeps every real score and drops the rest.
 _VALID_FLOOR = 0x3F800000
+
+
+def dead_slot_winner(per_bin: int) -> int:
+    """The packed winner of a slot or a block that scores 0 on every row (a
+    dead slot's query row, bias included, is zero; so is every row of a
+    block outside the base): (bitcast(0.0) & ~(per_bin - 1)) | (per_bin -
+    1). K3 writes it for the work it skips, and the plain version computes
+    it there."""
+    return per_bin - 1
 
 
 @dataclasses.dataclass(eq=False)
@@ -168,6 +178,7 @@ def block_scan_candidates_packed(
     block_n: int,
     q_tile: int,
     per_bin: int,
+    tile_live: Optional[torch.Tensor] = None,  # (T,) int32 live slots per tile
 ) -> torch.Tensor:
     """K3: packed bin winners of tile t's q_tile slots against base block
     tile_block[t], (T * block_n // per_bin, q_tile) int32 (always biased:
@@ -175,18 +186,29 @@ def block_scan_candidates_packed(
 
     CUDA tensors launch the hand-written kernel on the current stream (and
     raise on anything it does not take); CPU tensors run
-    block_candidates_plain. A block id outside [0, n_pad // block_n) scans
-    no rows (its winners are those of zero rows).
+    block_candidates_plain. A block id outside [0, ceil(n_pad / block_n))
+    scans no rows (its winners are those of zero rows). `tile_live` (from
+    pair_tiles) says that only the first tile_live[t] slots of tile t are
+    live, the rest having all-zero query rows: the kernel then skips the
+    groups of 256 slots that hold no live one and writes their winners,
+    dead_slot_winner(per_bin), without scanning. The result is the same
+    with or without it.
     """
     global KERNEL_LAUNCHES
 
     _check_block_args(base_bf16, queries_bf16, tile_block, block_n, q_tile, per_bin)
+    if tile_live is not None and (
+            tile_live.dtype != torch.int32 or tile_live.shape != tile_block.shape
+            or tile_live.device != tile_block.device):
+        raise ValueError("tile_live must be an int32 tensor shaped and placed like tile_block")
+    n_blocks = -(-base_bf16.shape[0] // block_n)
+    _check_tma_rows(n_blocks * block_n, queries_bf16.shape[0])
     if base_bf16.device.type == "cpu":
         return block_candidates_plain(base_bf16, queries_bf16, tile_block,
                                       block_n=block_n, q_tile=q_tile, per_bin=per_bin)
     _check_cuda_operands(base_bf16, queries_bf16)
-    if not tile_block.is_contiguous():
-        raise ValueError("tile_block must be contiguous")
+    if not tile_block.is_contiguous() or not (tile_live is None or tile_live.is_contiguous()):
+        raise ValueError("tile_block and tile_live must be contiguous")
     n_pad, dpad = base_bf16.shape
     n_tiles = tile_block.shape[0]
 
@@ -200,6 +222,7 @@ def block_scan_candidates_packed(
         return out  # nothing to launch (and nothing counted)
     code = lib.clann_block_scan_packed(
         base_bf16.data_ptr(), queries_bf16.data_ptr(), tile_block.data_ptr(),
+        None if tile_live is None else tile_live.data_ptr(),
         out.data_ptr(), n_pad, block_n, q_tile, n_tiles, dpad, per_bin,
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -275,8 +298,11 @@ def pair_tiles(wants: torch.Tensor, qn: torch.Tensor, *, n_blocks: int,
     to a multiple of q_tile and cut into tiles; T = Q * B // q_tile +
     n_blocks bounds the tile count. Returns (ipos (Q, B) int64: the padded
     slot of each pair; tile_block (T,) int32: each tile's block, tiles past
-    the last run on block 0 (clipped); qg (T * q_tile, dpad) bf16: each
-    slot's query, bias column 3.0 on live slots and 0 on dead ones).
+    the last run on the last block, n_blocks - 1 (clipped); qg (T * q_tile,
+    dpad) bf16: each slot's query, bias column 3.0 on live slots and all
+    zeros on dead ones; tile_live (T,) int32: each tile's live slots, which
+    are a prefix of the tile because a run packs its pairs at its start,
+    and 0 past the last run).
     """
     Q, B = wants.shape
     d = qn.shape[1]
@@ -297,9 +323,12 @@ def pair_tiles(wants: torch.Tensor, qn: torch.Tensor, *, n_blocks: int,
     slot_q = torch.full((T * q_tile,), -1, dtype=torch.int64, device=dev)
     slot_q[ppos] = sq
     tile_starts = torch.arange(T, device=dev) * q_tile
-    tile_block = torch.clamp(
-        torch.searchsorted(pstarts, tile_starts, right=True) - 1, 0, n_blocks - 1
-    ).to(torch.int32)
+    tile_blk = torch.clamp(
+        torch.searchsorted(pstarts, tile_starts, right=True) - 1, 0, n_blocks - 1)
+    tile_block = tile_blk.to(torch.int32)
+    # the run of tile_blk holds its live slots at [pstarts, pstarts + counts)
+    tile_live = torch.clamp(pstarts[tile_blk] + counts[tile_blk] - tile_starts, 0,
+                            q_tile).to(torch.int32)
 
     live = slot_q >= 0
     qrows = qn[torch.clamp(slot_q, 0, Q - 1)].to(torch.bfloat16)
@@ -308,7 +337,7 @@ def pair_tiles(wants: torch.Tensor, qn: torch.Tensor, *, n_blocks: int,
     qg[:, d] = live.to(torch.bfloat16) * 3.0
     ipos = torch.empty(PB, dtype=torch.int64, device=dev)
     ipos[order] = ppos
-    return ipos.view(Q, B), tile_block, qg
+    return ipos.view(Q, B), tile_block, qg, tile_live
 
 
 def block_scan_topk_e2e(
@@ -337,11 +366,11 @@ def block_scan_topk_e2e(
 
     qn = _normalize_queries(queries_f32)
     wants, ub = rank_blocks(layout, qn, B)
-    ipos, tile_block, qg = pair_tiles(wants, qn, n_blocks=n_blocks,
-                                      q_tile=q_tile, dpad=dpad)
+    ipos, tile_block, qg, tile_live = pair_tiles(wants, qn, n_blocks=n_blocks,
+                                                 q_tile=q_tile, dpad=dpad)
     packed = block_scan_candidates_packed(
         layout.base_bf16, qg, tile_block, block_n=block_n, q_tile=q_tile,
-        per_bin=per_bin,
+        per_bin=per_bin, tile_live=tile_live,
     )
 
     # decode the per-pair winners back to query-major (Q, B * nb)

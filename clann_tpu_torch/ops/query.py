@@ -124,7 +124,7 @@ def _score_candidates(index, queries_n, queries_q8, safe_ids):
     to `rescore_dtype="int8"`, which the port does not build yet."""
     if queries_q8 is not None:
         raise NotImplementedError(
-            "int8 candidate scoring: ROADMAP.md slice 7 (int8 rescore)")
+            "int8 candidate scoring: ROADMAP.md slice 10 (int8 rescore)")
     vecs = index.vectors[safe_ids.to(torch.int64)]  # (Q, CB, d)
     dots = torch.bmm(vecs, queries_n[:, :, None]).squeeze(2)
     return torch.clamp((dots + 1.0) * 0.5, 0.0, 1.0)
@@ -521,7 +521,7 @@ def search(index, queries, k: int = None, delta: float = None, batch_size: int =
     if index.pc_hash_params is not None:
         raise NotImplementedError(
             "per-cluster hash functions (a faithful reference import): ROADMAP.md "
-            "slice 10 (interop, h5 and CLI)")
+            "slice 13 (interop, h5 and CLI)")
     cfg = index.config
     k = cfg.k if k is None else k
     delta = cfg.delta if delta is None else delta

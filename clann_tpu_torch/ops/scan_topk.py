@@ -91,6 +91,22 @@ def _check_cuda_operands(base_bf16, queries_bf16):
         raise ValueError("base and queries must be 16-byte aligned")
 
 
+# The packed kernels address base and query rows with TMA, whose
+# coordinates are int32: every row a launch can reach, plus one tile past it,
+# must stay below 2**31.
+_TMA_ROW_LIMIT = (1 << 31) - 1
+_TMA_BASE_TILE, _TMA_QUERY_GROUP = 64, 256
+
+
+def _check_tma_rows(base_rows: int, query_rows: int) -> None:
+    """What the packed kernels' TMA coordinates take (checked on every
+    device, so that a call never depends on where its tensors lie)."""
+    if base_rows + _TMA_BASE_TILE > _TMA_ROW_LIMIT:
+        raise ValueError(f"{base_rows} base rows exceed the kernel's int32 TMA rows")
+    if query_rows + _TMA_QUERY_GROUP > _TMA_ROW_LIMIT:
+        raise ValueError(f"{query_rows} query rows exceed the kernel's int32 TMA rows")
+
+
 def scan_candidates_packed(
     base_bf16: torch.Tensor,  # (n_pad, dpad) bf16
     queries_bf16: torch.Tensor,  # (q_pad, dpad) bf16
@@ -105,11 +121,13 @@ def scan_candidates_packed(
     CUDA tensors launch the hand-written kernel on the current stream (and
     raise on anything it does not take); CPU tensors run
     packed_candidates_plain. `group_r > 1` and `acc_bf16` are options of the
-    plain version only.
+    plain version only. Rows are limited by the kernel's int32 TMA
+    coordinates (below 2**31 - 64 base rows, 2**31 - 256 query rows).
     """
     global KERNEL_LAUNCHES
 
     _check_packed_args(base_bf16, queries_bf16, per_bin, group_r)
+    _check_tma_rows(base_bf16.shape[0], queries_bf16.shape[0])
     if base_bf16.device.type == "cpu":
         return packed_candidates_plain(
             base_bf16, queries_bf16, per_bin=per_bin, biased=biased,

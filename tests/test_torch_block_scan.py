@@ -160,8 +160,8 @@ def test_auto_block_probe_is_the_jax_rule(n):
 def _operands(lay, qn, B, q_tile=Q_TILE):
     qt = tbs._normalize_queries(torch.from_numpy(qn))
     wants, _ = tbs.rank_blocks(lay, qt, B)
-    ipos, tile_block, qg = tbs.pair_tiles(wants, qt, n_blocks=lay.n_blocks,
-                                          q_tile=q_tile, dpad=lay.base_bf16.shape[1])
+    ipos, tile_block, qg, _ = tbs.pair_tiles(wants, qt, n_blocks=lay.n_blocks,
+                                             q_tile=q_tile, dpad=lay.base_bf16.shape[1])
     return qt, wants, ipos, tile_block, qg
 
 
@@ -232,6 +232,54 @@ def test_pair_tiles_bookkeeping(small_world, B):
     np.testing.assert_array_equal(g[slots, :32], np.broadcast_to(qb[:, None, :], (Q, B, 32)))
 
 
+@pytest.mark.parametrize("Q,B,q_tile", [(150, 1, Q_TILE), (150, 3, Q_TILE), (150, 16, Q_TILE),
+                                        (77, 2, 32), (200, 5, 128)])
+def test_pair_tiles_tile_live_counts_live_slots(small_world, Q, B, q_tile):
+    """tile_live[t] is the count of tile t's live slots (slot_q >= 0, the
+    slots some pair owns), and they are the tile's first tile_live[t]."""
+    _, qn, _, _, lay, _, _ = small_world
+    qt = tbs._normalize_queries(torch.from_numpy(qn[:Q]))
+    wants, _ = tbs.rank_blocks(lay, qt, B)
+    ipos, tile_block, qg, tile_live = tbs.pair_tiles(
+        wants, qt, n_blocks=lay.n_blocks, q_tile=q_tile, dpad=lay.base_bf16.shape[1])
+    T = tile_block.shape[0]
+    assert tile_live.dtype == torch.int32 and tile_live.shape == (T,)
+    live = np.zeros(T * q_tile, bool)
+    live[ipos.numpy().ravel()] = True
+    per_tile = live.reshape(T, q_tile)
+    np.testing.assert_array_equal(tile_live.numpy(), per_tile.sum(axis=1))
+    prefix = np.arange(q_tile)[None, :] < tile_live.numpy()[:, None]
+    np.testing.assert_array_equal(per_tile, prefix)
+    # the bias column agrees: 3.0 exactly on live slots
+    np.testing.assert_array_equal(qg.float().numpy()[:, 32] == 3.0, live)
+    assert tile_live.numpy()[-1] == 0  # the bound T leaves tiles past the last run
+
+
+@pytest.mark.parametrize("num_bins", [512, 128, 16, 1])
+def test_k3_plain_gives_dead_slots_the_skipped_winner(small_world, num_bins):
+    """Every dead slot's winner in the plain version is the constant the
+    kernel writes for the groups of slots it skips, and so is every winner
+    of a block outside the base."""
+    _, qn, _, _, lay, _, _ = small_world
+    per_bin = BLOCK_N // num_bins
+    qt = tbs._normalize_queries(torch.from_numpy(qn[:90]))
+    wants, _ = tbs.rank_blocks(lay, qt, 3)
+    _, tile_block, qg, tile_live = tbs.pair_tiles(
+        wants, qt, n_blocks=lay.n_blocks, q_tile=Q_TILE, dpad=lay.base_bf16.shape[1])
+    tile_block = torch.cat([tile_block, tile_block.new_tensor([-1, lay.n_blocks])])
+    tile_live = torch.cat([tile_live, tile_live.new_tensor([Q_TILE, Q_TILE])])
+    qg = torch.cat([qg, qg[:Q_TILE], qg[:Q_TILE]])
+    out = tbs.block_scan_candidates_packed(lay.base_bf16, qg, tile_block, block_n=BLOCK_N,
+                                           q_tile=Q_TILE, per_bin=per_bin, tile_live=tile_live)
+    out = out.numpy().reshape(tile_block.shape[0], num_bins, Q_TILE)
+    slot = np.arange(Q_TILE)[None, None, :]
+    dead = np.broadcast_to(slot >= tile_live.numpy()[:, None, None], out.shape).copy()
+    dead[-2:] = True  # blocks -1 and n_blocks hold no rows
+    assert dead.any() and (~dead).any()
+    assert (out[dead] == tbs.dead_slot_winner(per_bin)).all()
+    assert (out[~dead] >= tbs._VALID_FLOOR).all()
+
+
 def test_k3_plain_reads_out_of_range_blocks_as_zero(small_world):
     _, qn, _, _, lay, _, _ = small_world
     _, _, _, _, qg = _operands(lay, qn[:64], 1)
@@ -251,13 +299,26 @@ def test_k3_wrapper_keeps_cpu_off_the_counter(small_world):
     assert tbs.KERNEL_LAUNCHES == before
 
 
-@pytest.mark.parametrize("case", ["dtype", "table_dtype", "tiles", "per_bin", "device"])
+@pytest.mark.parametrize("case", ["dtype", "table_dtype", "tiles", "per_bin", "device",
+                                  "live_dtype", "live_shape", "tma_base_rows",
+                                  "tma_query_rows"])
 def test_k3_wrapper_rejects_bad_input(case):
     b = torch.zeros((1024, 128), dtype=torch.bfloat16)
     q = torch.zeros((2 * Q_TILE, 128), dtype=torch.bfloat16)
     tb = torch.zeros(2, dtype=torch.int32)
     kw = dict(block_n=BLOCK_N, q_tile=Q_TILE, per_bin=4)
-    if case == "dtype":
+    if case == "live_dtype":
+        kw["tile_live"] = torch.zeros(2, dtype=torch.int64)
+    elif case == "live_shape":
+        kw["tile_live"] = torch.zeros(3, dtype=torch.int32)
+    elif case == "tma_base_rows":  # TMA row coordinates are int32
+        b = torch.empty(((1 << 31) - 256, 128), dtype=torch.bfloat16, device="meta")
+        q, tb = q.to("meta"), tb.to("meta")
+    elif case == "tma_query_rows":
+        kw["q_tile"] = 1 << 30
+        q = torch.empty((2 << 30, 128), dtype=torch.bfloat16, device="meta")
+        b, tb = b.to("meta"), tb.to("meta")
+    elif case == "dtype":
         q = q.float()
     elif case == "table_dtype":
         tb = tb.long()
@@ -267,7 +328,7 @@ def test_k3_wrapper_rejects_bad_input(case):
         kw["per_bin"] = 6
     else:  # neither CPU nor CUDA: no silent plain-version fallback
         b, q, tb = b.to("meta"), q.to("meta"), tb.to("meta")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="TMA" if case.startswith("tma") else None):
         tbs.block_scan_candidates_packed(b, q, tb, **kw)
 
 

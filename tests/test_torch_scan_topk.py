@@ -172,7 +172,7 @@ def test_wrapper_keeps_cpu_off_the_counter():
 
 
 @pytest.mark.parametrize("case", ["dtype", "dpad", "per_bin", "ragged",
-                                  "group", "device"])
+                                  "group", "device", "tma_base_rows", "tma_query_rows"])
 def test_wrapper_rejects_bad_input(case):
     b = torch.zeros((512, DPAD), dtype=torch.bfloat16)
     q = torch.zeros((32, DPAD), dtype=torch.bfloat16)
@@ -187,9 +187,15 @@ def test_wrapper_rejects_bad_input(case):
         b = b[:500]
     elif case == "group":
         kw["group_r"] = 32
+    elif case == "tma_base_rows":  # TMA row coordinates are int32
+        b = torch.empty(((1 << 31) - 48, DPAD), dtype=torch.bfloat16, device="meta")
+        q = q.to("meta")
+    elif case == "tma_query_rows":
+        q = torch.empty(((1 << 31) - 128, DPAD), dtype=torch.bfloat16, device="meta")
+        b = b.to("meta")
     else:  # neither CPU nor CUDA: no silent plain-version fallback
         b, q = b.to("meta"), q.to("meta")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="TMA" if case.startswith("tma") else None):
         tst.scan_candidates_packed(b, q, **kw)
 
 
