@@ -12,8 +12,10 @@ caught):
 2. build: compiles clann_tpu_torch/csrc/*.cu with nvcc (one process per
    source, in parallel) into build/kernels/ and prints ptxas' register /
    shared-memory / spill summary (failing if ptxas serialised a wgmma),
-   then checks with cuobjdump -sass that every packed scan kernel (K1, K3)
-   issues HGMMA and K2's kernel does not.
+   then checks with cuobjdump -sass that every instance of the scan
+   kernels K1, K2 and K3 (one Hopper loop, hopper_scan_kernel; K2's found
+   by its ArgmaxKey epilogue) issues HGMMA and no HMMA, and that no other
+   (mma.sync) scan kernel is in the library.
 3. kernels vs plain, each against its plain PyTorch version on the card, at
    the main paths' shapes and at small ragged ones, then CUDA-event times of
    both at the main paths' shapes, beside the kernel's bound (the larger of
@@ -22,7 +24,10 @@ caught):
    K4-K7: one torch.index_select of the same rows; K3: none):
    K1 (packed scan; 1,183,514 x 100 -> dpad 128, block_n 32768, 64 bins,
    2,048 queries), K2 (unpacked scan; pallas_scan_topk's block_n 16384,
-   128 bins, 2,048 queries), K3 (block scan; ragged shapes here, the bench
+   128 bins, 2,048 queries, and timed again at its own batch of 4,096;
+   its ragged shapes include exact-integer operands with negative and
+   +-0.0 scores and exact ties, held to identical rows and values), K3
+   (block scan; ragged shapes here, the bench
    layout with 4,096 queries at B = 9 and at all 37 blocks after the
    build).
 4. main paths on the glove-100-angular-shaped synthetic set of bench.py
@@ -196,8 +201,10 @@ def phase_build():
 
 
 def check_sass(lib_path):
-    """cuobjdump -sass of the built library: every instance of the packed
-    scan kernel (K1, K3) must issue HGMMA (wgmma) and K2's kernel must not."""
+    """cuobjdump -sass of the built library: every instance of the scan
+    kernels K1, K2 and K3 (hopper_scan_kernel: K2's by its ArgmaxKey
+    epilogue, K3's by its source) must issue HGMMA (wgmma) and no HMMA
+    (mma.sync), and no other scan kernel may be in the library."""
     import re
     import shutil
 
@@ -211,19 +218,24 @@ def check_sass(lib_path):
     counts = {}
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         name = part.split("\n", 1)[0].strip()
-        src = "block_scan.cu" if "block_scan_cu" in name else (
-            "scan_topk.cu" if "scan_topk_cu" in name else "gather.cu")
-        kind = ("packed_scan_kernel" if "packed_scan_kernel" in name else
-                "scan_kernel" if "scan_kernel" in name else "gather_kernel")
-        key = f"{kind} ({src})"
-        n = len(re.findall(r"\bHGMMA\.", part))
-        counts.setdefault(key, []).append(n)
+        if "hopper_scan_kernel" in name:
+            key = ("K2 hopper_scan_kernel<ArgmaxKey>" if "ArgmaxKey" in name else
+                   "K3 hopper_scan_kernel<PackedKey> (block_scan.cu)" if "block_scan_cu" in name
+                   else "K1 hopper_scan_kernel<PackedKey> (scan_topk.cu)")
+        elif "scan_kernel" in name:
+            key = f"other scan kernel {name}"
+        else:
+            key = "gather_kernel"
+        counts.setdefault(key, []).append((len(re.findall(r"\bHGMMA\.", part)),
+                                           len(re.findall(r"\bHMMA\.", part))))
     for key, ns in sorted(counts.items()):
-        log(f"[build] SASS {key}: {len(ns)} instance(s), HGMMA per instance {ns}")
-    packed = [n for k, ns in counts.items() if k.startswith("packed_scan_kernel") for n in ns]
-    k2 = counts.get("scan_kernel (scan_topk.cu)", [])
-    if len(packed) < 2 or min(packed) == 0 or not k2 or max(k2) > 0:
-        fail("the packed scan kernels (K1, K3) must contain HGMMA and K2's kernel none")
+        log(f"[build] SASS {key}: {len(ns)} instance(s), (HGMMA, HMMA) per instance {ns}")
+    scans = {k: ns for k, ns in counts.items() if k[:2] in ("K1", "K2", "K3")}
+    if (len(scans) != 3 or any(k.startswith("other") for k in counts)
+            or min(g for ns in scans.values() for g, _ in ns) == 0
+            or max(h for ns in scans.values() for _, h in ns) > 0):
+        fail("every instance of K1, K2 and K3 must issue HGMMA and no HMMA, and no "
+             "other (mma.sync) scan kernel may remain")
 
 
 def _norm(x):
@@ -392,10 +404,11 @@ def time_pair(kern, plain, reps_kern=20, reps_plain=3):
     return float(np.mean(t_kern)), float(np.mean(t_plain)), t_kern, t_plain
 
 
-def compare_candidates(base, qp, per_bin, label):
+def compare_candidates(base, qp, per_bin, label, exact=False):
     """K2 vs its plain version on the same device tensors: the share of
     (query, bin) winners naming the same row, and the largest value
-    difference."""
+    difference. `exact`: operands whose scores every summation order gives
+    exactly, so rows and values must be identical."""
     import torch
 
     from clann_tpu_torch.ops import scan_topk as st
@@ -409,16 +422,48 @@ def compare_candidates(base, qp, per_bin, label):
              f"plain {tuple(rv.shape)}")
     same = (ids == ri).float().mean().item()
     err = (vals - rv).abs().max().item() if vals.numel() else 0.0
+    gate = (1.0, 0.0) if exact else (SAME_WINNER_GATE, K2_VALUE_TOL)
     log(f"[kernel-vs-plain] {label}: same row {same:.6f}, max |value diff| {err:.3e} "
-        f"(tolerance: same row >= {SAME_WINNER_GATE}, |diff| <= {K2_VALUE_TOL})")
-    if not same >= SAME_WINNER_GATE or not err <= K2_VALUE_TOL:
+        f"(tolerance: same row >= {gate[0]}, |diff| <= {gate[1]})")
+    if not same >= gate[0] or not err <= gate[1]:
         fail(f"{label}: K2 disagrees with its plain version")
     return err
 
 
+def signed_tie_operands(n, d, dpad, n_q, seed):
+    """K2 operands whose scores are exact in f32 in any summation order
+    (entries multiples of 1/4 in [-3/4, 3/4], so every partial sum is a
+    multiple of 1/16 below 2^4): exact ties (rows 3i + 1 copy rows 3i),
+    negative maxima (the first half of the rows has no negative entry,
+    every third query no positive one), and a row of -0.0 at row 5 and one
+    of +0.0 at row 9 of every third 64-row group (scores of -0.0 against
+    the queries with no negative entry, every fourth)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    b = np.zeros((n, dpad), np.float32)
+    b[:, :d] = rng.integers(-3, 4, size=(n, d)) / 4.0
+    b[: n // 2] = np.abs(b[: n // 2])
+    b[1::3] = b[0::3][: len(b[1::3])]
+    q = np.zeros((n_q, dpad), np.float32)
+    q[:, :d] = rng.integers(-3, 4, size=(n_q, d)) / 4.0
+    q[0::3] = -np.abs(q[0::3])
+    q[1::4] = np.abs(q[1::4])
+    for g in range(0, n, 192):
+        b[g + 5] = -0.0
+        b[g + 9] = 0.0
+    dev = torch.device(DEVICE)
+    return (torch.from_numpy(b).to(dev, torch.bfloat16),
+            torch.from_numpy(q).to(dev, torch.bfloat16))
+
+
 def phase_k2(train, test, card):
     """K2 against its plain version at pallas_scan_topk's defaults on the
-    bench data and at small ragged shapes; then both timed."""
+    bench data, at small ragged shapes and on exact-integer operands with
+    negative, tied and +-0.0 scores (identical rows and values); then both
+    timed at 2,048 queries (the kernels line) and at the path's batch of
+    4,096."""
     import torch
 
     from clann_tpu_torch.data.synthetic import random_unit_vectors
@@ -451,6 +496,27 @@ def phase_k2(train, test, card):
                                           block_n=4096, q_tile=32)
         if int(ti.max()) >= 3001 or not bool(torch.isfinite(tv[ti >= 0]).all()):
             fail("K2: decoded candidates past n_real or non-finite")
+    # negative maxima, exact ties and +-0.0 scores: the kernel's integer
+    # ordering (lowest row on ties, -0.0 == +0.0) against the plain argmax
+    b, q = signed_tie_operands(4096, 37, 128, 77, seed=5)
+    for per_bin_s in (1, 4, 16, 128, 2048):
+        compare_candidates(b, q, per_bin_s, f"K2 negative / tied / +-0 scores n_pad=4096 d=37 "
+                                            f"dpad=128 q_pad=77 per_bin={per_bin_s}", exact=True)
+
+    out = k2_time(base, qp, per_bin, card)
+    qp4 = st.pad_queries(_norm(torch.from_numpy(test[:BLOCK_QUERIES]).to(dev)), dpad,
+                         q_tile, biased=False)
+    compare_candidates(base, qp4, per_bin, f"K2 at pallas_scan_topk's batch: queries "
+                                           f"{tuple(qp4.shape)}, per_bin {per_bin}")
+    k2_time(base, qp4, per_bin, card)
+    out["max_abs_err"] = err
+    return out
+
+
+def k2_time(base, qp, per_bin, card):
+    """K2 and its plain version timed in turns, beside its bound and the
+    cuBLAS GEMM of the same product."""
+    from clann_tpu_torch.ops import scan_topk as st
 
     ms, plain_ms, tk, tp = time_pair(
         lambda: st.scan_candidates(base, qp, per_bin=per_bin),
@@ -464,8 +530,8 @@ def phase_k2(train, test, card):
         f"{b_ms / ms:.3f} of the {b_ms:.3f} ms bound by {b_by}), plain {plain_ms:.3f} ms "
         f"({tp[0]:.3f}, {tp[1]:.3f}), library {lib_ms:.3f} ms (cuBLAS bf16 torch.matmul, "
         f"GEMM only) on {card}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms}
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
 
 
 def k3_operands(layout, queries, B, q_tile):

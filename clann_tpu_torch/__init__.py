@@ -1,13 +1,18 @@
 """clann_tpu_torch — the PyTorch / CUDA port of clann_tpu.
 
 A second package beside the JAX one (which stays the reference the port is
-tested against). It imports torch and never jax. Ported so far: the index
-build (GMM geometry, LSH hash tables, sketches, prefix directories and the
-global engine's tables), the dense scan modes "scan" and "scan-pallas", the
-block-probed modes "scan-block" and "scan-block-adaptive", and the global
-delta-recall LSH engine ("lsh", "lsh-global"). Their kernels are written by
-hand in CUDA for sm_90a (csrc/), built with nvcc on first use: K1-K3 for the
-scans, K4-K7 for row gathers (K7 is the LSH engine's record gather).
+tested against). It imports torch and never jax. Ported so far: the whole
+index build (GMM geometry, LSH hash tables, sketches, prefix directories,
+the global engine's tables, the clustered walk's slot records and the dense
+IVF layout) and every search mode of the JAX facade: "auto" (the default),
+"dense", "adaptive", "scan", "scan-pallas", "scan-block",
+"scan-block-adaptive", "lsh", "lsh-global" and "lsh-clustered", plus
+`Clann.search_by_id` and `ops.scan_topk.pallas_scan_topk`. Their kernels
+are written by hand in CUDA for sm_90a (csrc/), built with nvcc on first
+use: the dense scans K1-K3 share one Hopper main loop (TMA + wgmma,
+csrc/scan_hopper.cuh), and K4-K7 are row gathers (K7 is the LSH engines'
+record gather). Entry points run on the card unless the caller asks for
+the CPU.
 
 Public facade mirrors the reference API (reference: src/lib.rs:41-264).
 """

@@ -30,18 +30,9 @@ import torch
 from clann_tpu_torch.config import Config, MetricsOutput
 from clann_tpu_torch.data.metricdata import MetricData, make_metric_data
 from clann_tpu_torch.errors import DataError
+from clann_tpu_torch.ops.distances import resolve_device
 
 log = logging.getLogger("clann_tpu_torch")
-
-def resolve_device(device) -> torch.device:
-    """torch.device for `device`; a CUDA device must exist (no CPU fallback)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(dev)!r} requested but torch.cuda.is_available() "
-            "is False; pass device='cpu' to run on the CPU"
-        )
-    return dev
 
 
 class Clann:

@@ -51,6 +51,7 @@ int clann_block_scan_packed(const void* base, const void* queries, const void* t
   L.tile_block = static_cast<const int32_t*>(tile_block);
   L.tile_live = static_cast<const int32_t*>(tile_live);
   L.out = static_cast<int32_t*>(out);
+  L.vals = nullptr;
   L.n_pad = n_pad;
   L.tile_rows = block_n;
   L.n_tiles = n_tiles;
@@ -58,7 +59,7 @@ int clann_block_scan_packed(const void* base, const void* queries, const void* t
   L.dpad = dpad;
   L.per_bin = per_bin;
   L.min_item_rows = 2048;  // a query group reload per item: coarser items amortise it
-  return clann::hopper::launch_packed<true>(L, device, stream);
+  return clann::hopper::launch_scan<clann::hopper::PackedKey<true>>(L, device, stream);
 }
 
 }  // extern "C"

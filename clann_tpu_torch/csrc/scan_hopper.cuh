@@ -1,23 +1,32 @@
-// Hopper main loop of the packed scan kernels K1 and K3 (sm_90a).
+// Hopper main loop of the dense scan kernels K1, K2 and K3 (sm_90a).
 //
-// Both kernels score bf16 base rows against bf16 queries with f32
+// All three score bf16 base rows against bf16 queries with f32
 // accumulation and reduce each bin (per_bin consecutive base rows) to one
-// packed int32 winner per query, without writing a score to device memory:
+// winner per query, without writing a score to device memory. The epilogue
+// policy (a template parameter) says what the winner is:
 //
-//   key = (bitcast<int32>(score [+ 3.0 unless biased]) & ~(per_bin - 1))
-//         | row_in_bin,   winner = max key over the bin
+// - PackedKey (K1, K3): one int32,
+//     key = (bitcast<int32>(score [+ 3.0 unless biased]) & ~(per_bin - 1))
+//           | row_in_bin,   winner = max key over the bin;
+// - ArgmaxKey (K2): the exact f32 max of the score and the lowest row
+//   reaching it (-0.0 counted as +0.0), carried as two int32 registers:
+//   the order-preserving integer image of the float and the row.
 //
 // A launch covers n_tiles independent tiles. Tile t holds the queries
 // [t * tile_q, (t + 1) * tile_q) and scans the tile_rows base rows starting
-// at tile_block[t] * tile_rows (row 0 when tile_block is null: K1 is one
-// tile over the whole base). Its winners go to rows [t * tile_bins,
-// (t + 1) * tile_bins) of the (n_tiles * tile_bins, tile_q) output.
+// at tile_block[t] * tile_rows (row 0 when tile_block is null: K1 and K2
+// are one tile over the whole base). PackedKey writes tile t's winners to
+// rows [t * tile_bins, (t + 1) * tile_bins) of the (n_tiles * tile_bins,
+// tile_q) output; ArgmaxKey (one tile) writes query-major (tile_q,
+// tile_bins) values and rows.
 //
 // What bounds it: at the main path's shape (1,212,416 rows x dpad 128 x
 // 2,048 queries) the product is 6.4e11 FLOP, 0.64 ms at the bf16 dense peak,
-// against 0.1 ms of DRAM traffic; after the product, two integer operations
-// per score (mask-or, max) form and reduce the keys. So the design keeps the
-// tensor cores fed and hides the key arithmetic behind them:
+// against 0.1 ms of DRAM traffic; after the product, about two integer
+// operations per score (mask-or, max) form and reduce K1's keys, and two
+// and a half K2's winners (max, then compare and select for the lowest
+// row). So the design keeps the tensor cores fed and hides the key
+// arithmetic behind them (K2's epilogue, on the int32 pipe, only partly):
 //
 // - Persistent grid: one CTA per SM walks a static list of work items
 //   (tile, query group of 256, item_rows base rows). Items are numbered
@@ -40,13 +49,17 @@
 //   asks for all of the SM's shared-memory bandwidth); beyond, both come
 //   from shared memory. The accumulators are double-buffered: the product
 //   of the next tile runs on the tensor cores while the same warps turn the
-//   previous tile into keys.
+//   previous tile into winners.
 // - In the accumulator layout a thread holds, for each of its 4 queries,
 //   16 of a tile's 64 rows (pairs of neighbours), and the 4 lanes of a quad
 //   hold all 64. So a bin max is a register max over the thread's columns,
 //   kept across the tiles of a bin, plus two shuffles in the quad at the
 //   bin's end. `biased` is a
-//   template parameter: the main paths add nothing per score.
+//   template parameter: the main paths add nothing per score. K2 walks a
+//   thread's columns in ascending row order and replaces its winner only on
+//   a strictly greater value, so ties keep the lower row; the quad
+//   shuffles compare (value, then row). All of it is integer arithmetic on
+//   the accumulators' bits: no float compare or move touches them.
 // - K3 skips dead work: an item whose query group holds no live slot (live
 //   slots are a prefix of each tile, tile_live[t] of them), whose block is
 //   outside the base, or whose rows all lie past n_pad, loads and computes
@@ -82,7 +95,8 @@ constexpr int STREAM_STAGES = 5;
 constexpr int MAX_PER_BIN = 16384;
 
 struct Params {
-  int32_t* out;
+  int32_t* out;               // packed keys (K1, K3) or rows (K2)
+  int32_t* vals;              // K2: the f32 values' bits; else null
   const int32_t* tile_block;  // (n_tiles,) or null (one tile at row 0)
   const int32_t* tile_live;   // (n_tiles,) live slots per tile, or null (all live)
   long long n_pad;
@@ -299,35 +313,148 @@ struct Ring {
   }
 };
 
+// A bin's winner so far: the key (PackedKey; r unused) or the
+// order-preserving image of the score and its row in the bin (ArgmaxKey).
+struct Win {
+  int v;
+  int r;
+};
+
 // The score's bits, shifted by +3.0 unless the bias column carries it.
 template <bool BIASED>
 __device__ __forceinline__ int key_bits(uint32_t v) {
   return BIASED ? static_cast<int>(v) : __float_as_int(__uint_as_float(v) + 3.0f);
 }
 
-__device__ __forceinline__ void put(const Params& p, const Item& it, int bin, int q_loc, int key) {
+// Epilogue of K1 and K3: the row rides in the low bits of one int32 key,
+// so every reduction is a max.
+template <bool BIASED>
+struct PackedKey {
+  static constexpr bool kRow = false;
+  __device__ static __forceinline__ Win make(uint32_t acc, int sub, int keep) {
+    return {(key_bits<BIASED>(acc) & keep) | sub, 0};
+  }
+  // the winners of one tile's columns (rows sub + 8j + e) in each slot (h, s)
+  __device__ static __forceinline__ void tile(const Acc& acc, int sub, int keep,
+                                              Win (&tw)[2][2]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        int k = INT_MIN;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) k = max(k, make(acc[h][4 * j + 2 * s + e], sub + 8 * j + e, keep).v);
+        tw[h][s] = {k, 0};
+      }
+  }
+  // x comes after w in row order (within a thread) / anywhere (across lanes)
+  __device__ static __forceinline__ void scan(Win& w, Win x) { w.v = max(w.v, x.v); }
+  __device__ static __forceinline__ void merge(Win& w, Win x) { w.v = max(w.v, x.v); }
+  // what zero scores give (an item that scans nothing)
+  __device__ static __forceinline__ Win zero(int per_bin) {
+    return {(key_bits<BIASED>(0u) & ~(per_bin - 1)) | (per_bin - 1), 0};
+  }
+  __device__ static __forceinline__ void put(const Params& p, const Item& it, int bin, int q,
+                                             Win w) {
+    p.out[(static_cast<long long>(it.tile) * p.tile_bins + bin) * p.tile_q + q] = w.v;
+  }
+};
+
+// Epilogue of K2: the exact max and the lowest row reaching it. The value
+// is carried as an int32 that orders like the float, -0.0 and +0.0 both 0:
+// m = bits & 0x7FFFFFFF, image = m for a positive sign, -m for a negative.
+struct ArgmaxKey {
+  static constexpr bool kRow = true;
+  __device__ static __forceinline__ int image(uint32_t acc) {
+    const int b = static_cast<int>(acc);
+    const int s = b >> 31;
+    return ((b & 0x7FFFFFFF) ^ s) - s;
+  }
+  __device__ static __forceinline__ Win make(uint32_t acc, int sub, int) { return {image(acc), sub}; }
+  // The tile's winner per slot, compared on the images (IMAGE) or on the raw
+  // bits: as int32 they order the positive floats and put every other value
+  // below them, one operation less per score. The max first (three-input
+  // integer max), then the lowest column reaching it, scanned from the top.
+  template <bool IMAGE>
+  __device__ static __forceinline__ void tile_scan(const Acc& acc, int sub, Win (&tw)[2][2]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        int x[16];  // column c = 2j + e: row sub + 8j + e
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+          const uint32_t a = acc[h][4 * (c >> 1) + 2 * s + (c & 1)];
+          x[c] = IMAGE ? image(a) : static_cast<int>(a);
+        }
+        int m = x[0];
+#pragma unroll
+        for (int c = 1; c < 16; ++c) m = max(m, x[c]);
+        int r = 8 * 7 + 1;
+#pragma unroll
+        for (int c = 14; c >= 0; --c)
+          if (x[c] == m) r = 8 * (c >> 1) + (c & 1);
+        tw[h][s] = {m, sub + r};
+      }
+  }
+  // Nearly every tile of real data has a positive winner in every slot:
+  // then the raw bits are the images and suffice; a warp with any other
+  // winner redoes the tile on the images.
+  __device__ static __forceinline__ void tile(const Acc& acc, int sub, int, Win (&tw)[2][2]) {
+    tile_scan<false>(acc, sub, tw);
+    const bool pos = tw[0][0].v > 0 && tw[0][1].v > 0 && tw[1][0].v > 0 && tw[1][1].v > 0;
+    if (!__all_sync(0xffffffffu, pos)) tile_scan<true>(acc, sub, tw);
+  }
+  // rows ascend within a thread: only a strictly greater value replaces
+  __device__ static __forceinline__ void scan(Win& w, Win x) {
+    if (x.v > w.v) w = x;
+  }
+  __device__ static __forceinline__ void merge(Win& w, Win x) {
+    if (x.v > w.v || (x.v == w.v && x.r < w.r)) w = x;
+  }
+  __device__ static __forceinline__ Win zero(int) { return {0, 0}; }
+  // query-major (tile_q, tile_bins) values (f32 bits) and global rows (one
+  // tile at block 0)
+  __device__ static __forceinline__ void put(const Params& p, const Item& it, int bin, int q,
+                                             Win w) {
+    const long long at = (static_cast<long long>(it.tile) * p.tile_q + q) * p.tile_bins + bin;
+    p.vals[at] = w.v >= 0 ? w.v : (-w.v | INT_MIN);
+    p.out[at] = (bin << p.bin_shift) + w.r;
+  }
+};
+
+template <class E>
+__device__ __forceinline__ Win shfl_xor(Win w, int mask) {
+  return {__shfl_xor_sync(0xffffffffu, w.v, mask),
+          E::kRow ? __shfl_xor_sync(0xffffffffu, w.r, mask) : 0};
+}
+
+template <class E>
+__device__ __forceinline__ void put(const Params& p, const Item& it, int bin, int q_loc, Win w) {
   const int q = it.qg * QG + q_loc;
-  if (q < p.tile_q && bin < p.tile_bins)
-    p.out[(static_cast<long long>(it.tile) * p.tile_bins + bin) * p.tile_q + q] = key;
+  if (q < p.tile_q && bin < p.tile_bins) E::put(p, it, bin, q, w);
 }
 
 // The winners of an item that scans nothing: every score is 0.
-template <bool BIASED>
+template <class E>
 __device__ void write_dead(const Params& p, const Item& it, int wg) {
-  const int key = (key_bits<BIASED>(0u) & ~(p.per_bin - 1)) | (p.per_bin - 1);
+  const Win w = E::zero(p.per_bin);
   const int bin0 = it.row0 >> p.bin_shift;
   const int nb = (it.rows + p.per_bin - 1) >> p.bin_shift;
-  for (int i = threadIdx.x % 128; i < nb * 128; i += 128) put(p, it, bin0 + i / 128, wg * 128 + i % 128, key);
+  for (int i = threadIdx.x % 128; i < nb * 128; i += 128)
+    put<E>(p, it, bin0 + i / 128, wg * 128 + i % 128, w);
 }
 
 // Turns one accumulated tile (rows r0 .. r0 + 63 of the item's tile-of-rows
-// for this warpgroup's 128 queries) into keys and writes every bin that
+// for this warpgroup's 128 queries) into winners and writes every bin that
 // ends in it. acc[h][4j + 2s + e] holds query wg*128 + 64h + 16w + lane/4 +
-// 8s against row r0 + 8j + 2(lane%4) + e. run[h][s] carries the max of a bin
-// across tiles when per_bin >= 64.
-template <bool BIASED>
+// 8s against row r0 + 8j + 2(lane%4) + e. run[h][s] carries the winner of a
+// bin across tiles when per_bin >= 64.
+template <class E>
 __device__ __forceinline__ void epilogue(const Acc& acc, const Params& p, const Item& it,
-                                         int t, int wg, int (&run)[2][2]) {
+                                         int t, int wg, Win (&run)[2][2]) {
   const int lane = threadIdx.x & 31;
   const int w = (threadIdx.x >> 5) & 3;
   const int quad = lane & 3;
@@ -341,34 +468,46 @@ __device__ __forceinline__ void epilogue(const Acc& acc, const Params& p, const 
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int s = 0; s < 2; ++s) run[h][s] = INT_MIN;
+        for (int s = 0; s < 2; ++s) run[h][s] = {INT_MIN, 0};
     }
-    const int sub = in_bin + 2 * quad;
+    Win tw[2][2];
+    E::tile(acc, in_bin + 2 * quad, keep, tw);
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int s = 0; s < 2; ++s)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            run[h][s] = max(run[h][s], (key_bits<BIASED>(acc[h][4 * j + 2 * s + e]) & keep) |
-                                           (sub + 8 * j + e));
+      for (int s = 0; s < 2; ++s) E::scan(run[h][s], tw[h][s]);
     if (in_bin + ROWS == per_bin) {  // the bin ends in this tile
-      int k[2][2];
+      // Reduce over the quad; lane quad then writes the winner of slot
+      // (hk, sk). The packed key reduces each slot on its own (four short
+      // independent chains: the next tile's wgmma waits on them); K2's
+      // two-register winner, whose epilogue is bound by integer work, takes
+      // a butterfly with a third of the shuffles and merges: across lane
+      // bit 0 a lane keeps slot sk of both h and sends the other, across
+      // bit 1 it keeps hk.
+      const int hk = quad >> 1, sk = quad & 1;
+      Win x;
+      if constexpr (E::kRow) {
+        Win w[2];
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          int x = run[h][s];
-          x = max(x, __shfl_xor_sync(0xffffffffu, x, 1));
-          x = max(x, __shfl_xor_sync(0xffffffffu, x, 2));
-          k[h][s] = x;
+        for (int h = 0; h < 2; ++h) {
+          w[h] = sk ? run[h][1] : run[h][0];
+          E::merge(w[h], shfl_xor<E>(sk ? run[h][0] : run[h][1], 1));
         }
-      // each lane of the quad writes one of its 4 queries
-      const int h = quad >> 1, s = quad & 1;
-      const int x = h ? (s ? k[1][1] : k[1][0]) : (s ? k[0][1] : k[0][0]);
-      put(p, it, r0 >> p.bin_shift, q0 + 64 * h + 8 * s, x);
+        x = hk ? w[1] : w[0];
+        E::merge(x, shfl_xor<E>(hk ? w[0] : w[1], 2));
+      } else {
+        Win k[2][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            k[h][s] = run[h][s];
+            E::merge(k[h][s], shfl_xor<E>(k[h][s], 1));
+            E::merge(k[h][s], shfl_xor<E>(k[h][s], 2));
+          }
+        x = hk ? (sk ? k[1][1] : k[1][0]) : (sk ? k[0][1] : k[0][0]);
+      }
+      put<E>(p, it, r0 >> p.bin_shift, q0 + 64 * hk + 8 * sk, x);
     }
     return;
   }
@@ -379,35 +518,37 @@ __device__ __forceinline__ void epilogue(const Acc& acc, const Params& p, const 
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       const int q = q0 + 64 * h + 8 * s;
-      int acc_run = INT_MIN;
+      Win acc_run = {INT_MIN, 0};
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = 8 * j + 2 * quad;  // column of e = 0
-        const int k0 = (key_bits<BIASED>(acc[h][4 * j + 2 * s]) & keep) | (c & (per_bin - 1));
-        const int k1 =
-            (key_bits<BIASED>(acc[h][4 * j + 2 * s + 1]) & keep) | ((c + 1) & (per_bin - 1));
+        Win k = E::make(acc[h][4 * j + 2 * s], c & (per_bin - 1), keep);
+        const Win k1 = E::make(acc[h][4 * j + 2 * s + 1], (c + 1) & (per_bin - 1), keep);
         if (per_bin == 1) {
-          put(p, it, bin0 + c, q, k0);
-          put(p, it, bin0 + c + 1, q, k1);
+          put<E>(p, it, bin0 + c, q, k);
+          put<E>(p, it, bin0 + c + 1, q, k1);
           continue;
         }
-        int k = max(k0, k1);
+        E::scan(k, k1);
         if (per_bin == 2) {
-          put(p, it, bin0 + c / 2, q, k);
+          put<E>(p, it, bin0 + c / 2, q, k);
           continue;
         }
         if (per_bin == 4) {
-          k = max(k, __shfl_xor_sync(0xffffffffu, k, 1));
-          if ((quad & 1) == 0) put(p, it, bin0 + c / 4, q, k);
+          E::merge(k, shfl_xor<E>(k, 1));
+          if ((quad & 1) == 0) put<E>(p, it, bin0 + c / 4, q, k);
           continue;
         }
         // per_bin 8, 16 or 32: per_bin / 8 chunks j per bin, 4 lanes per chunk
-        acc_run = ((8 * j) & (per_bin - 1)) == 0 ? k : max(acc_run, k);
+        if (((8 * j) & (per_bin - 1)) == 0)
+          acc_run = k;
+        else
+          E::scan(acc_run, k);
         if (((8 * j + 8) & (per_bin - 1)) == 0) {
-          int x = acc_run;
-          x = max(x, __shfl_xor_sync(0xffffffffu, x, 1));
-          x = max(x, __shfl_xor_sync(0xffffffffu, x, 2));
-          if (quad == 0) put(p, it, bin0 + ((8 * j) >> p.bin_shift), q, x);
+          Win x = acc_run;
+          E::merge(x, shfl_xor<E>(x, 1));
+          E::merge(x, shfl_xor<E>(x, 2));
+          if (quad == 0) put<E>(p, it, bin0 + ((8 * j) >> p.bin_shift), q, x);
         }
       }
     }
@@ -428,7 +569,7 @@ struct Walk {
 
 // Moves to the next tile of a live item; writes the winners of the dead
 // items passed on the way. False when the CTA has no tile left.
-template <bool BIASED>
+template <class E>
 __device__ __forceinline__ bool next_tile(const Params& p, Walk& wk, int wg) {
   if (++wk.t < wk.tiles) return true;
   for (wk.i += static_cast<int>(gridDim.x); wk.i < p.n_items; wk.i += static_cast<int>(gridDim.x)) {
@@ -438,7 +579,7 @@ __device__ __forceinline__ bool next_tile(const Params& p, Walk& wk, int wg) {
       wk.tiles = (wk.it.rows + ROWS - 1) / ROWS;
       return true;
     }
-    write_dead<BIASED>(p, wk.it, wg);
+    write_dead<E>(p, wk.it, wg);
   }
   return false;
 }
@@ -516,15 +657,15 @@ __device__ __forceinline__ void bind_query_frag(QFrag<NK>& af, const Params& p, 
 }
 
 // One step of the resident pipeline: the tile in `cur` is in flight; issue
-// the next tile into `nxt`, retire `cur` and turn it into keys while `nxt`
+// the next tile into `nxt`, retire `cur` and turn it into winners while `nxt`
 // runs. False when there was no next tile.
-template <bool BIASED, int NK>
+template <class E, int NK>
 __device__ __forceinline__ bool step(Acc& cur, Acc& nxt, QFrag<NK>& af, const Params& p,
-                                     const Smem& sm, Walk& wk, int wg, int (&run)[2][2]) {
+                                     const Smem& sm, Walk& wk, int wg, Win (&run)[2][2]) {
   const Item cit = wk.it;
   const int ct = wk.t;
   const int cqb = wk.qb;
-  const bool more = next_tile<BIASED>(p, wk, wg);
+  const bool more = next_tile<E>(p, wk, wg);
   if (more && query_key(p, wk.it) != wk.qkey) {
     // a new query group: retire everything that reads the old one first
     wgmma_wait<0>();
@@ -544,15 +685,15 @@ __device__ __forceinline__ bool step(Acc& cur, Acc& nxt, QFrag<NK>& af, const Pa
     fence_acc(cur);
     release(p, sm, wk, NK);
   }
-  epilogue<BIASED>(cur, p, cit, ct, wg, run);
+  epilogue<E>(cur, p, cit, ct, wg, run);
   return more;
 }
 
 // NK: dpad / 64 when the queries are resident (1-4), 0 when they stream
 // with the ring (any dpad, read from p.nk).
-template <bool BIASED, bool STREAM, int NK>
+template <class E, bool STREAM, int NK>
 __global__ void __launch_bounds__(THREADS, 1)
-packed_scan_kernel(const __grid_constant__ CUtensorMap tm_base,
+hopper_scan_kernel(const __grid_constant__ CUtensorMap tm_base,
                    const __grid_constant__ CUtensorMap tm_q, const Params p) {
   extern __shared__ __align__(1024) uint8_t packed_smem[];
   uint8_t* base = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(packed_smem) + 1023) &
@@ -620,20 +761,20 @@ packed_scan_kernel(const __grid_constant__ CUtensorMap tm_base,
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     Walk wk;
     wk.i = static_cast<int>(blockIdx.x) - static_cast<int>(gridDim.x);
-    int run[2][2] = {{INT_MIN, INT_MIN}, {INT_MIN, INT_MIN}};
+    Win run[2][2] = {};
     Acc acc0, acc1;
     if constexpr (!STREAM) {
       QFrag<NK> af;
-      if (!next_tile<BIASED>(p, wk, wg)) return;
+      if (!next_tile<E>(p, wk, wg)) return;
       bind_query_frag<NK>(af, p, sm, wk, wg);
       mma_tile<NK>(acc0, af, p, sm, wk, wg);
-      while (step<BIASED, NK>(acc0, acc1, af, p, sm, wk, wg, run) &&
-             step<BIASED, NK>(acc1, acc0, af, p, sm, wk, wg, run)) {
+      while (step<E, NK>(acc0, acc1, af, p, sm, wk, wg, run) &&
+             step<E, NK>(acc1, acc0, af, p, sm, wk, wg, run)) {
       }
     } else {
       // queries arrive with each slice: one tile at a time, each slice
       // released as soon as the wgmma reading it has retired
-      while (next_tile<BIASED>(p, wk, wg)) {
+      while (next_tile<E>(p, wk, wg)) {
         for (int ks = 0; ks < p.nk; ++ks) {
           mbar_wait(sm.full + wk.ring.stage, wk.ring.phase);
           const uint8_t* st = sm.ring + size_t(wk.ring.stage) * sm.stage_bytes;
@@ -648,7 +789,7 @@ packed_scan_kernel(const __grid_constant__ CUtensorMap tm_base,
         wgmma_wait<0>();
         fence_acc(acc0);
         release(p, sm, wk, 1);
-        epilogue<BIASED>(acc0, p, wk.it, wk.t, wg, run);
+        epilogue<E>(acc0, p, wk.it, wk.t, wg, run);
       }
     }
   }
@@ -698,7 +839,8 @@ struct Launch {
   const void* queries;      // (n_tiles * tile_q, dpad) bf16
   const int32_t* tile_block;
   const int32_t* tile_live;
-  int32_t* out;
+  int32_t* out;             // see Params
+  int32_t* vals;
   long long n_pad;
   long long tile_rows;
   long long n_tiles;
@@ -708,26 +850,29 @@ struct Launch {
   int min_item_rows;        // rows per work item at least (whole bins)
 };
 
-template <bool BIASED, bool STREAM, int NK>
+template <class E, bool STREAM, int NK>
 int launch_kernel(const CUtensorMap& tm_base, const CUtensorMap& tm_q, const Params& p, int grid,
                   size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(packed_scan_kernel<BIASED, STREAM, NK>,
+  cudaError_t err = cudaFuncSetAttribute(hopper_scan_kernel<E, STREAM, NK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  packed_scan_kernel<BIASED, STREAM, NK><<<grid, THREADS, smem, stream>>>(tm_base, tm_q, p);
+  hopper_scan_kernel<E, STREAM, NK><<<grid, THREADS, smem, stream>>>(tm_base, tm_q, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Checks a launch, builds its tensor maps and work list and launches it on
 // `stream` of CUDA device `device`. Returns a cudaError_t code (0 =
 // launched).
-template <bool BIASED>
-int launch_packed(const Launch& L, int device, void* stream) {
+template <class E>
+int launch_scan(const Launch& L, int device, void* stream) {
   const int P = L.per_bin;
   if (L.dpad <= 0 || L.dpad % KS != 0 || P < 1 || P > MAX_PER_BIN || (P & (P - 1)) != 0 ||
       L.n_pad < 0 || L.tile_rows <= 0 || L.tile_q < 0 || L.n_tiles < 0 || L.tile_rows % P != 0 ||
       L.min_item_rows < ROWS || L.min_item_rows % ROWS != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // ArgmaxKey writes the rows of one tile at block 0 (K2), beside its values
+  if (E::kRow && (L.tile_block != nullptr || L.n_tiles > 1 || L.vals == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   // TMA coordinates are int32: every base row a tile can reach and every
   // query row of a group must fit
@@ -747,6 +892,7 @@ int launch_packed(const Launch& L, int device, void* stream) {
 
   Params p;
   p.out = L.out;
+  p.vals = L.vals;
   p.tile_block = L.tile_block;
   p.tile_live = L.tile_live;
   p.n_pad = L.n_pad;
@@ -786,11 +932,11 @@ int launch_packed(const Launch& L, int device, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int g = static_cast<int>(grid);
   switch (stream_q ? 0 : p.nk) {
-    case 1: return launch_kernel<BIASED, false, 1>(tm_base, tm_q, p, g, smem, s);
-    case 2: return launch_kernel<BIASED, false, 2>(tm_base, tm_q, p, g, smem, s);
-    case 3: return launch_kernel<BIASED, false, 3>(tm_base, tm_q, p, g, smem, s);
-    case 4: return launch_kernel<BIASED, false, 4>(tm_base, tm_q, p, g, smem, s);
-    default: return launch_kernel<BIASED, true, 0>(tm_base, tm_q, p, g, smem, s);
+    case 1: return launch_kernel<E, false, 1>(tm_base, tm_q, p, g, smem, s);
+    case 2: return launch_kernel<E, false, 2>(tm_base, tm_q, p, g, smem, s);
+    case 3: return launch_kernel<E, false, 3>(tm_base, tm_q, p, g, smem, s);
+    case 4: return launch_kernel<E, false, 4>(tm_base, tm_q, p, g, smem, s);
+    default: return launch_kernel<E, true, 0>(tm_base, tm_q, p, g, smem, s);
   }
 }
 

@@ -15,28 +15,52 @@
 // the product already holds score + 3.0 and lands in [2, 4), where the f32
 // bit pattern orders like the float) and 3.0 otherwise. Output layout is
 // the JAX kernel's (n_pad / per_bin, q_pad) int32; the decode and the
-// cross-bin top-k stay in PyTorch (clann_tpu_torch/ops/scan_topk.py). Its
-// main loop (persistent, warp-specialised, TMA + wgmma) is in
-// scan_hopper.cuh, shared with K3.
+// cross-bin top-k stay in PyTorch (clann_tpu_torch/ops/scan_topk.py).
 //
 // K2 replaces clann_tpu/ops/pallas/scan_topk.py::_scan_kernel, the unpacked
 // kernel behind pallas_scan_topk. Per (query, bin) it writes the f32 max of
 // the unshifted dot and the lowest row reaching it, in the JAX layout:
 // vals (q_pad, n_pad / per_bin) f32 and ids (q_pad, n_pad / per_bin) int32,
 // ids = bin * per_bin + row_in_bin (JAX's blk*block_n + bin*per_bin + arg).
-// It runs on the mma.sync loop of scan_common.cuh.
+//
+// Both run on the Hopper main loop of scan_hopper.cuh (persistent,
+// warp-specialised, TMA + wgmma), shared with K3; they differ in its
+// epilogue policy only (PackedKey, ArgmaxKey).
 //
 // What bounds them on the card: at the glove-100 bench shape (n_pad =
 // 1,212,416 rows, dpad = 128, 2,048 queries per launch) the product is
 // 6.4e11 FLOP (0.64 ms at the 989 TFLOP/s bf16 dense peak) plus 2.5e9
-// keyed scores in the epilogue, while the base is 310 MB of bf16 (0.09 ms
+// scores reduced in the epilogue, while the base is 310 MB of bf16 (0.09 ms
 // at 3.35 TB/s). The work is tensor-core bound as long as a base tile is
-// read from DRAM once and then served from L2 to every query group. K2's
-// key is 64 bits wide (value and row), so its epilogue moves twice K1's
-// bits through shuffles and shared atomics.
+// read from DRAM once and then served from L2 to every query group and the
+// epilogue's integer work hides behind the product: two operations per
+// score for K1, about six for K2, whose winner is a value and a row.
 
-#include "scan_common.cuh"
 #include "scan_hopper.cuh"
+
+namespace {
+
+// One tile over the whole base: K1 and K2.
+clann::hopper::Launch scan_launch(const void* base, const void* queries, void* out,
+                                  long long n_pad, int q_pad, int dpad, int per_bin) {
+  clann::hopper::Launch L;
+  L.base = base;
+  L.queries = queries;
+  L.tile_block = nullptr;
+  L.tile_live = nullptr;
+  L.out = static_cast<int32_t*>(out);
+  L.vals = nullptr;
+  L.n_pad = n_pad;
+  L.tile_rows = n_pad;
+  L.n_tiles = 1;
+  L.tile_q = q_pad;
+  L.dpad = dpad;
+  L.per_bin = per_bin;
+  L.min_item_rows = 512;  // the grid keeps its query groups: fine items balance best
+  return L;
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -47,22 +71,10 @@ extern "C" {
 int clann_scan_topk_packed(const void* base, const void* queries, void* out, long long n_pad,
                            int q_pad, int dpad, int per_bin, int biased, int device,
                            void* stream) {
-  clann::hopper::Launch L;
-  L.base = base;
-  L.queries = queries;
-  L.tile_block = nullptr;
-  L.tile_live = nullptr;
-  L.out = static_cast<int32_t*>(out);
-  L.n_pad = n_pad;
-  L.tile_rows = n_pad;
-  L.n_tiles = 1;
-  L.tile_q = q_pad;
-  L.dpad = dpad;
-  L.per_bin = per_bin;
-  L.min_item_rows = 512;  // the grid keeps its query groups: fine items balance best
+  const clann::hopper::Launch L = scan_launch(base, queries, out, n_pad, q_pad, dpad, per_bin);
   if (n_pad == 0) return 0;
-  return biased ? clann::hopper::launch_packed<true>(L, device, stream)
-                : clann::hopper::launch_packed<false>(L, device, stream);
+  return biased ? clann::hopper::launch_scan<clann::hopper::PackedKey<true>>(L, device, stream)
+                : clann::hopper::launch_scan<clann::hopper::PackedKey<false>>(L, device, stream);
 }
 
 // Launches K2 on `stream` of CUDA device `device`. base: (n_pad, dpad) bf16,
@@ -72,16 +84,11 @@ int clann_scan_topk_packed(const void* base, const void* queries, void* out, lon
 int clann_scan_candidates(const void* base, const void* queries, void* vals, void* ids,
                           long long n_pad, int q_pad, int dpad, int per_bin, int device,
                           void* stream) {
-  clann::ScanShape sh;
-  long long grid = 0;
-  if (!clann::make_shape(sh, grid, base, queries, n_pad, q_pad, dpad, per_bin) ||
-      n_pad > INT_MAX)  // ids are int32 rows
-    return static_cast<int>(cudaErrorInvalidValue);
-  clann::ArgmaxEpi epi;
-  epi.vals = static_cast<float*>(vals);
-  epi.ids = static_cast<int32_t*>(ids);
-  epi.per_bin = per_bin;
-  return clann::launch_scan(sh, grid, epi, device, stream);
+  if (n_pad > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);  // ids are int32 rows
+  clann::hopper::Launch L = scan_launch(base, queries, ids, n_pad, q_pad, dpad, per_bin);
+  L.vals = static_cast<int32_t*>(vals);
+  if (n_pad == 0) return 0;
+  return clann::hopper::launch_scan<clann::hopper::ArgmaxKey>(L, device, stream);
 }
 
 const char* clann_cuda_error_string(int code) {

@@ -30,6 +30,17 @@ import numpy as np
 import torch
 
 
+def resolve_device(device) -> torch.device:
+    """torch.device for `device`; a CUDA device must exist (no CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
 def as_device_f32(x, device) -> torch.Tensor:
     """Float32 tensor on `device` from a numpy array or tensor."""
     if isinstance(x, torch.Tensor):
@@ -90,14 +101,16 @@ def cosine_similarity_block(base_n: torch.Tensor, queries_n: torch.Tensor) -> to
 
 
 def brute_force_topk(base, queries, k: int = 10, metric: str = "angular",
-                     block_q: int = 256, device="cpu"):
+                     block_q: int = 256, device="cuda"):
     """Exact k nearest neighbors (ascending distance), the test oracle.
 
     Reference: src/utils/mod.rs:116-131 (Rust brute_force_search) and
     collection.hpp:524-541 (C++ search_bf). Blocked over queries so the
     (block_q, n) distance tile stays bounded. Returns (distances (q, k),
-    indices (q, k) int64) as tensors on `device`.
+    indices (q, k) int64) as tensors on `device` (the card unless the
+    caller names the CPU).
     """
+    device = resolve_device(device)
     base = as_device_f32(base, device)
     queries = as_device_f32(queries, device)
     if metric == "angular":
@@ -225,13 +238,15 @@ def dense_scan_topk(
     recall_target: float = 0.95,
     exact: bool = False,
     batch_q: int = 2048,
-    device="cpu",
+    device="cuda",
 ):
     """Full dense scan: blocked f32 matmuls + per-block top-k + exact merge.
 
     Returns numpy (cosine dot-similarities desc (q, k), ids). The returned
-    similarity VALUES are exact.
+    similarity VALUES are exact. Runs on the card unless `device` names the
+    CPU.
     """
+    device = resolve_device(device)
     base_n = l2_normalize(as_device_f32(base, device))
     qn = l2_normalize(as_device_f32(queries, device))
     outs_s, outs_i = [], []

@@ -37,6 +37,7 @@ from clann_tpu_torch.ops.distances import (
     as_device_f32,
     l2_normalize,
     rescore,
+    resolve_device,
 )
 
 # Launches of the K1 kernel made by scan_candidates_packed, and of the K2
@@ -91,7 +92,7 @@ def _check_cuda_operands(base_bf16, queries_bf16):
         raise ValueError("base and queries must be 16-byte aligned")
 
 
-# The packed kernels address base and query rows with TMA, whose
+# The scan kernels (K1-K3) address base and query rows with TMA, whose
 # coordinates are int32: every row a launch can reach, plus one tile past it,
 # must stay below 2**31.
 _TMA_ROW_LIMIT = (1 << 31) - 1
@@ -99,7 +100,7 @@ _TMA_BASE_TILE, _TMA_QUERY_GROUP = 64, 256
 
 
 def _check_tma_rows(base_rows: int, query_rows: int) -> None:
-    """What the packed kernels' TMA coordinates take (checked on every
+    """What the scan kernels' TMA coordinates take (checked on every
     device, so that a call never depends on where its tensors lie)."""
     if base_rows + _TMA_BASE_TILE > _TMA_ROW_LIMIT:
         raise ValueError(f"{base_rows} base rows exceed the kernel's int32 TMA rows")
@@ -352,10 +353,12 @@ def scan_candidates(
 
     CUDA tensors launch the hand-written kernel on the current stream (and
     raise on anything it does not take); CPU tensors run candidates_plain.
+    Rows are limited as for K1 (the same loop's int32 TMA coordinates).
     """
     global CANDIDATES_LAUNCHES
 
     _check_operands(base_bf16, queries_bf16, per_bin)
+    _check_tma_rows(base_bf16.shape[0], queries_bf16.shape[0])
     if base_bf16.device.type == "cpu":
         return candidates_plain(base_bf16, queries_bf16, per_bin=per_bin)
     _check_cuda_operands(base_bf16, queries_bf16)
@@ -441,17 +444,19 @@ def pallas_scan_topk(
     block_n: int = 16384,
     q_tile: int = 256,
     batch_q: int = 4096,
-    device="cpu",
+    device="cuda",
 ):
     """Fused-kernel dense scan (K2 candidates): returns numpy (exact cosine
     sims desc (Q, k) f32, ids (Q, k) int32).
 
     The base is unbiased, padded to dpad = ceil(d / 128) * 128 columns; the
     candidates of each batch of `batch_q` queries are re-scored exactly in
-    f32 and the best k kept, as in the JAX function.
+    f32 and the best k kept, as in the JAX function. Runs on the card unless
+    `device` names the CPU (resolve_device: no fallback).
     """
     if k > num_bins:
         raise ValueError(f"k={k} must be <= num_bins={num_bins}")
+    device = resolve_device(device)
     base_n = l2_normalize(as_device_f32(base, device))
     qn_all = l2_normalize(as_device_f32(queries, device))
     n, d = base_n.shape

@@ -66,7 +66,7 @@ def small_world():
     assign = np.asarray(assign)
     jlay = jbs.build_block_layout(x, assign, BLOCK_N)
     own = tbs.build_block_layout(x, assign, BLOCK_N, device="cpu")
-    _, gt = brute_force_topk(x, qn, k=10)
+    _, gt = brute_force_topk(x, qn, k=10, device="cpu")
     return x, qn, assign, jlay, _copy_layout(jlay), own, gt.numpy()
 
 
@@ -453,7 +453,7 @@ def test_block_scan_search_adaptive_vs_jax(index_world, monkeypatch, n_probe0):
     np.testing.assert_array_equal(ts.uncertified, j[2].uncertified)
     assert ((ts.uncertified == 0) | (ts.clusters_visited == 12)).all()
     assert (ts.clusters_visited >= (n_probe0 or 2)).all()
-    _, gt = brute_force_topk(data, q, k=10)
+    _, gt = brute_force_topk(data, q, k=10, device="cpu")
     assert recall_by_ids(gt.numpy(), t[1], 10) >= 0.9
 
 
@@ -481,7 +481,7 @@ def test_facade_scan_block_recall_on_own_layout(own_handle):
     data, h = own_handle
     q = clustered_unit_vectors(32, 32, n_modes=16, seed=4)
     d, i, st = h.search_batch(q, mode="scan-block")
-    _, gt = brute_force_topk(h.index.vectors, q, k=10)
+    _, gt = brute_force_topk(h.index.vectors, q, k=10, device="cpu")
     assert recall_by_ids(gt.numpy(), i, 10) >= 0.95
     assert d.shape == (32, 10) and (np.diff(d, axis=1) >= -1e-6).all()
     assert st.distance_computations.shape == (32,)

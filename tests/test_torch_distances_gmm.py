@@ -58,7 +58,7 @@ def test_brute_force_topk(data, metric):
     jdist, jids = jd.brute_force_topk(base, queries, k=10, metric=metric,
                                       block_q=16)
     tdist, tids = td.brute_force_topk(base, queries, k=10, metric=metric,
-                                      block_q=16)
+                                      block_q=16, device="cpu")
     assert_topk_match(np.asarray(jids), np.asarray(jdist), tids.numpy(),
                       tdist.numpy())
 
@@ -111,7 +111,8 @@ def test_certified_scan_counts(data):
 def test_dense_scan_topk_wrapper(data):
     base, queries = data
     js, ji = jd.dense_scan_topk(base, queries, k=7, block_points=400, batch_q=16)
-    ts, ti = td.dense_scan_topk(base, queries, k=7, block_points=400, batch_q=16)
+    ts, ti = td.dense_scan_topk(base, queries, k=7, block_points=400, batch_q=16,
+                                device="cpu")
     assert ti.dtype == np.int32 and ts.dtype == np.float32
     assert_topk_match(ji, js, ti, ts)
 

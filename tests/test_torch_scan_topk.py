@@ -232,13 +232,16 @@ def _both_unpacked(bp, qp, **kw):
     (512, 128),   # per_bin 4
     (1024, 8),    # per_bin 128: a bin spans a whole 128-row chunk
     (2048, 32),   # one block: the raw bin winners, no cross-block top-k
+    (2048, 2048), # per_bin 1 over one block: every raw row its own winner
+    (2048, 1),    # per_bin 2048: one bin spans 32 of the kernel's row tiles
 ])
 def test_k2_candidates_plain_vs_jax(block_n, num_bins):
     _, _, bp, qp, n_real = _operands(n_real=N - 17)
     jv, ji, tv, ti = _both_unpacked(bp, qp, n_real=n_real, num_bins=num_bins,
                                     block_n=block_n, q_tile=32)
     assert ti.shape == (QN, num_bins)
-    assert ti.max() < n_real and (ti >= 0).all()
+    # every slot holds a real row, but for the padded rows' own bins
+    assert ti.max() < n_real and ((ti >= 0).sum(axis=1) == min(num_bins, n_real)).all()
     _assert_candidates_match(jv, ji, tv, ti, 1e-5)
 
 
@@ -252,6 +255,61 @@ def test_k2_ties_take_the_lowest_row():
     assert (ti % 2 == 0).all()
     np.testing.assert_array_equal(ti, ji)
     np.testing.assert_allclose(tv, jv, atol=1e-6)
+
+
+def _signed_tie_operands(n, per_bin, seed):
+    """Operands whose scores are negative or exactly +-0, with exact ties:
+    base rows in the positive orthant, rows 2i + 1 copies of rows 2i;
+    queries alternately in the negative and the positive orthant (half of
+    the rows score below 0 for every query); and in every third group of
+    max(per_bin, 8) rows a row of -0.0 and a row of +0.0 (their scores are
+    -0.0 or +0.0 by the query's sign), at rows 3 and 5 of the group or 5
+    and 3, alternately. The
+    expected winner of each (query, bin) is computed in numpy: the largest
+    score, then the lowest row, -0.0 equal to +0.0."""
+    rng = np.random.default_rng(seed)
+    base = np.abs(rng.normal(size=(n, D))).astype(np.float32)
+    base[n // 2:] *= -1.0
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    base[1::2] = base[0::2]
+    qs = np.abs(rng.normal(size=(QN, D))).astype(np.float32)
+    qs[0::2] *= -1.0
+    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+    bp = np.zeros((n, DPAD), np.float32)
+    bp[:, :D] = base
+    g = max(per_bin, 8)
+    for b0 in range(0, n, 3 * g):
+        neg, pos = (3, 5) if (b0 // (3 * g)) % 2 == 0 else (5, 3)
+        bp[b0 + neg] = -0.0
+        bp[b0 + pos] = 0.0
+    qp = np.zeros((QN, DPAD), np.float32)
+    qp[:, :D] = qs
+    # the scores of the bf16 operands, exact in f64 (products of bf16 are
+    # exact and 24 of them sum exactly)
+    bq = torch.from_numpy(bp).to(torch.bfloat16).double().numpy()
+    qq = torch.from_numpy(qp).to(torch.bfloat16).double().numpy()
+    s = (bq @ qq.T).reshape(n // per_bin, per_bin, QN)
+    m = s.max(axis=1)
+    arg = (s == m[:, None, :]).argmax(axis=1)
+    ids = np.arange(n // per_bin)[:, None] * per_bin + arg
+    return bp, qp, m.T, ids.T
+
+
+@pytest.mark.parametrize("per_bin", [1, 4, 16, 128, 512])
+def test_k2_negative_tied_and_signed_zero_scores(per_bin):
+    """Negative scores, exact ties among them (duplicated rows) and +-0.0
+    products: the JAX kernel and the plain version name the same row, the
+    lowest reaching the max with -0.0 == +0.0, in the raw (one block)
+    layout, and both agree with the exact winners."""
+    n = 1024
+    bp, qp, want_v, want_i = _signed_tie_operands(n, per_bin, seed=12)
+    jv, ji, tv, ti = _both_unpacked(bp, qp, n_real=n, num_bins=n // per_bin,
+                                    block_n=n, q_tile=32)
+    assert (want_v < 0).any() and (want_v == 0).any()
+    np.testing.assert_array_equal(ji, want_i)
+    np.testing.assert_array_equal(ti, want_i)
+    np.testing.assert_allclose(tv, want_v, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(jv, want_v, rtol=0, atol=1e-6)
 
 
 def test_k2_raw_layout_and_blocks_agree():
@@ -287,7 +345,7 @@ def test_pallas_scan_topk_vs_jax(shape):
         kw = dict(k=5, num_bins=16, block_n=512, q_tile=16)
     js, ji = jst.pallas_scan_topk(base, queries, interpret=True, **kw)
     before = tst.CANDIDATES_LAUNCHES
-    ts, ti = tst.pallas_scan_topk(base, queries, **kw)
+    ts, ti = tst.pallas_scan_topk(base, queries, device="cpu", **kw)
     assert tst.CANDIDATES_LAUNCHES == before  # CPU tensors: plain version
     assert ts.dtype == np.float32 and ti.dtype == np.int32
     assert_topk_match(ji, js, ti, ts)
@@ -306,10 +364,11 @@ def test_pallas_scan_topk_k_bounded_by_bins():
     with pytest.raises(ValueError):
         jst.pallas_scan_topk(base, base[:4], k=20, num_bins=16, interpret=True)
     with pytest.raises(ValueError, match="num_bins"):
-        tst.pallas_scan_topk(base, base[:4], k=20, num_bins=16)
+        tst.pallas_scan_topk(base, base[:4], k=20, num_bins=16, device="cpu")
 
 
-@pytest.mark.parametrize("case", ["dtype", "dpad", "per_bin", "ragged", "device"])
+@pytest.mark.parametrize("case", ["dtype", "dpad", "per_bin", "ragged", "device",
+                                  "tma_base_rows", "tma_query_rows"])
 def test_k2_wrapper_rejects_bad_input(case):
     b = torch.zeros((512, DPAD), dtype=torch.bfloat16)
     q = torch.zeros((32, DPAD), dtype=torch.bfloat16)
@@ -322,9 +381,33 @@ def test_k2_wrapper_rejects_bad_input(case):
         per_bin = 12
     elif case == "ragged":
         b = b[:500]
+    elif case == "tma_base_rows":  # the Hopper loop's TMA rows are int32
+        b = torch.empty(((1 << 31) - 48, DPAD), dtype=torch.bfloat16, device="meta")
+        q = q.to("meta")
+    elif case == "tma_query_rows":
+        q = torch.empty(((1 << 31) - 128, DPAD), dtype=torch.bfloat16, device="meta")
+        b = b.to("meta")
     else:  # neither CPU nor CUDA: no silent plain-version fallback
         b, q = b.to("meta"), q.to("meta")
     before = tst.CANDIDATES_LAUNCHES
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="TMA" if case.startswith("tma") else None):
         tst.scan_candidates(b, q, per_bin=per_bin)
     assert tst.CANDIDATES_LAUNCHES == before
+
+
+@pytest.mark.parametrize("entry", ["pallas_scan_topk", "dense_scan_topk",
+                                   "brute_force_topk"])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """With no CUDA device the default device raises (no CPU fallback);
+    device="cpu" runs."""
+    from clann_tpu_torch.ops import distances as tdist
+
+    fn = {"pallas_scan_topk": tst.pallas_scan_topk,
+          "dense_scan_topk": tdist.dense_scan_topk,
+          "brute_force_topk": tdist.brute_force_topk}[entry]
+    base = random_unit_vectors(600, 16, seed=8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fn(base, base[:4], k=5)
+    _, ids = fn(base, base[:4], k=5, device="cpu")
+    assert np.asarray(ids)[:, 0].tolist() == [0, 1, 2, 3]
