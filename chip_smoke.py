@@ -14,14 +14,17 @@ caught):
    shared-memory / spill summary (failing if ptxas serialised a wgmma),
    then checks with cuobjdump -sass that every instance of the scan
    kernels K1, K2 and K3 (one Hopper loop, hopper_scan_kernel; K2's found
-   by its ArgmaxKey epilogue) issues HGMMA and no HMMA, and that no other
-   (mma.sync) scan kernel is in the library.
+   by its ArgmaxKey epilogue) issues HGMMA and no HMMA, that no other
+   (mma.sync) scan kernel is in the library, that every instance of the
+   bulk gather (K4, K5) issues bulk copies (UBLKCP) and that the warp gather
+   (K6, K7) is there.
 3. kernels vs plain, each against its plain PyTorch version on the card, at
    the main paths' shapes and at small ragged ones, then CUDA-event times of
    both at the main paths' shapes, beside the kernel's bound (the larger of
    its FLOP at 989 TFLOP/s and its bytes at 3.35 TB/s) and its library
    yardstick (K1, K2: a cuBLAS bf16 torch.matmul of the same product;
-   K4-K7: one torch.index_select of the same rows; K3: none):
+   K3: one cuBLAS bf16 torch.bmm of its live (query tile, block)
+   products; K4-K7: one torch.index_select of the same rows):
    K1 (packed scan; 1,183,514 x 100 -> dpad 128, block_n 32768, 64 bins,
    2,048 queries), K2 (unpacked scan; pallas_scan_topk's block_n 16384,
    128 bins, 2,048 queries, and timed again at its own batch of 4,096;
@@ -44,11 +47,15 @@ caught):
    the gather-rate probe's shapes (131,072 rows: 4 KB pages, 8-row groups
    and 128-word slices of the (1,849,250, 128) word table), K7 at the global
    engine's record table (L = 128, G = 32, 512-byte rows), at ragged row
-   counts with the first and last rows and out-of-range indices (zeros),
-   and at 12-byte rows (the 4-byte-lane instance); then CUDA-event times of
-   each kernel and its plain version. Then the gather-rate probe's entry
-   point (clann_tpu_torch.probes.gather_rate.run) as a path of its own,
-   which must launch K4-K7.
+   counts (131,109 and 1,001) with the first and last rows and out-of-range
+   indices (zeros), and at 12-byte rows (the 4-byte-lane instance); K4 and
+   K5 at every inflight, K5 also at W = 4 and W = 300 (group rows of 128 B
+   and 9,600 B), and K5 must refuse a source that is not 16-byte aligned;
+   then CUDA-event times of each kernel and its plain version (K4 and K5 at
+   every inflight), beside one index_select of the same rows and the card's
+   copy ceiling (one contiguous copy_ of the same 537 MB). Then the
+   gather-rate probe's entry point (clann_tpu_torch.probes.gather_rate.run)
+   as a path of its own, which must launch K4-K7.
 6. lsh-build: the LSH configuration of bench.py's lsh_at_0.9 row
    (LSH_AT_09.json "chosen": L = 128, gather_block 32, chunk 2048,
    filter_expand 8, global engine, no dense layout) built with
@@ -204,7 +211,9 @@ def check_sass(lib_path):
     """cuobjdump -sass of the built library: every instance of the scan
     kernels K1, K2 and K3 (hopper_scan_kernel: K2's by its ArgmaxKey
     epilogue, K3's by its source) must issue HGMMA (wgmma) and no HMMA
-    (mma.sync), and no other scan kernel may be in the library."""
+    (mma.sync), and no other scan kernel may be in the library; every
+    instance of bulk_gather_kernel (K4, K5) must issue bulk copies (UBLKCP,
+    cp.async.bulk), and gather_kernel (K6, K7) must be there."""
     import re
     import shutil
 
@@ -215,7 +224,7 @@ def check_sass(lib_path):
         return
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True).stdout
-    counts = {}
+    counts, bulk = {}, {}
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         name = part.split("\n", 1)[0].strip()
         if "hopper_scan_kernel" in name:
@@ -224,18 +233,28 @@ def check_sass(lib_path):
                    else "K1 hopper_scan_kernel<PackedKey> (scan_topk.cu)")
         elif "scan_kernel" in name:
             key = f"other scan kernel {name}"
+        elif "bulk_gather_kernel" in name:
+            key = "K4/K5 bulk_gather_kernel"
+            for op in re.findall(r"\b(UBLK\w*(?:\.\w+)*)", part):
+                bulk[op] = bulk.get(op, 0) + 1
         else:
-            key = "gather_kernel"
+            key = "K6/K7 gather_kernel"
         counts.setdefault(key, []).append((len(re.findall(r"\bHGMMA\.", part)),
-                                           len(re.findall(r"\bHMMA\.", part))))
+                                           len(re.findall(r"\bHMMA\.", part)),
+                                           len(re.findall(r"\bUBLKCP\b", part))))
     for key, ns in sorted(counts.items()):
-        log(f"[build] SASS {key}: {len(ns)} instance(s), (HGMMA, HMMA) per instance {ns}")
+        log(f"[build] SASS {key}: {len(ns)} instance(s), (HGMMA, HMMA, UBLKCP) per instance {ns}")
+    log(f"[build] SASS bulk-copy instructions of bulk_gather_kernel: {bulk}")
     scans = {k: ns for k, ns in counts.items() if k[:2] in ("K1", "K2", "K3")}
     if (len(scans) != 3 or any(k.startswith("other") for k in counts)
-            or min(g for ns in scans.values() for g, _ in ns) == 0
-            or max(h for ns in scans.values() for _, h in ns) > 0):
+            or min(g for ns in scans.values() for g, _, _ in ns) == 0
+            or max(h for ns in scans.values() for _, h, _ in ns) > 0):
         fail("every instance of K1, K2 and K3 must issue HGMMA and no HMMA, and no "
              "other (mma.sync) scan kernel may remain")
+    if (not counts.get("K6/K7 gather_kernel")
+            or min((c for _, _, c in counts.get("K4/K5 bulk_gather_kernel", [])), default=0) < 2):
+        fail("bulk_gather_kernel (K4, K5) must issue its bulk load and store (UBLKCP) in every "
+             "instance, and gather_kernel (K6, K7) must be in the library")
 
 
 def _norm(x):
@@ -629,13 +648,35 @@ def k3_bench_at(layout, test, B, card):
     nbytes = (2.0 * blocks * block_n * dpad + 2.0 * live * dpad
               + 4.0 * T * (block_n // per_bin) * q_tile + 8.0 * T)
     b_ms, b_by = bound(flop, nbytes)
+    lib_ms, lib_tiles = library_k3_ms(layout, tile_block, qg, tile_live, q_tile)
     log(f"[kernel-time] K3 at B={B}: {T} tiles x ({block_n} rows x {q_tile} slots x dpad "
         f"{dpad}), {live} live slots of {T * q_tile}: kernel {ms:.3f} ms ({tk[0]:.3f}, "
         f"{tk[1]:.3f}; {flop / ms / 1e9:.1f} TFLOP/s over live slots, {b_ms / ms:.3f} of the "
         f"{b_ms:.3f} ms bound by {b_by}), plain {plain_ms:.3f} ms ({tp[0]:.3f}, {tp[1]:.3f}), "
-        f"library none on {card}")
+        f"library {lib_ms:.3f} ms (one cuBLAS bf16 torch.bmm of the {lib_tiles} tiles with a "
+        f"live slot, ({q_tile} x {dpad}) x ({dpad} x {block_n}) each, GEMM only: writes the "
+        f"{2.0 * lib_tiles * q_tile * block_n / 1e9:.2f} GB of scores the kernel never writes) "
+        f"on {card}")
     return {"max_abs_err": agree["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def library_k3_ms(layout, tile_block, qg, tile_live, q_tile):
+    """(ms, tiles) of one cuBLAS bf16 torch.bmm of K3's live products: each
+    tile with a live slot, its queries against its block; the operands are
+    gathered before the timing."""
+    import torch
+
+    dpad, block_n = qg.shape[1], layout.block_n
+    live = (tile_live > 0) & (tile_block >= 0) & (tile_block < layout.n_blocks)
+    q = qg.view(-1, q_tile, dpad)[live]
+    base = layout.base_bf16[: layout.n_blocks * block_n].view(layout.n_blocks, block_n, dpad)
+    b = base[tile_block[live].long()].transpose(1, 2)
+    ms = time_cuda(lambda: torch.bmm(q, b), 5)
+    tiles = q.shape[0]
+    del q, b
+    torch.cuda.empty_cache()
+    return ms, tiles
 
 
 def check_result(d, i, label, n_queries=N_QUERIES):
@@ -832,7 +873,7 @@ def check_gather(label, kern, plain):
 
     got = kern()
     sync()
-    ref = plain()
+    ref = plain() if callable(plain) else plain
     sync()
     if got.shape != ref.shape or got.dtype != ref.dtype or not torch.equal(got, ref):
         fail(f"{label}: kernel output differs from its plain version")
@@ -843,8 +884,12 @@ def check_gather(label, kern, plain):
 
 def phase_gather(card):
     """K4-K7 against their plain versions at the probe's shapes, K7 at the
-    engine's, at ragged shapes and at 12-byte rows; then both timed, each
-    iteration on its own rotated index vector (the probe's protocol)."""
+    engine's, at ragged shapes and at 12-byte rows; K4 and K5 (the bulk
+    ring) at every inflight, K5 also at group rows below and above one 4 KB
+    stage, and refusing an unaligned source; then both timed, each
+    iteration on its own rotated index vector (the probe's protocol), K4
+    and K5 at every inflight, beside one index_select of the same rows and
+    the card's contiguous copy of as many bytes."""
     import torch
 
     from clann_tpu_torch.ops import gather as tg
@@ -871,32 +916,47 @@ def phase_gather(card):
     flat = table.view(-1)
     # name, kernel(i, inflight), plain(i), source rows, moved / useful bytes
     # per index, the source as the 2-D rows one index picks (for the library
-    # yardstick, one torch.index_select)
+    # yardstick, one torch.index_select), the inflight values checked
+    every, probe = tg.INFLIGHT_CHOICES, gr.NSEMS
     cases = [
-        ("K4 gather_pages", lambda i, f=8: tg.gather_pages(pages, i, inflight=f),
+        ("K4 gather_pages", lambda i, f=tg.BULK_INFLIGHT: tg.gather_pages(pages, i, inflight=f),
          lambda i: tg.pages_plain(pages, i), T // 8, 4096, 4096, f"pages {tuple(pages.shape)}",
-         pages.view(pages.shape[0], -1)),
-        ("K5 gather_group8", lambda i, f=8: tg.gather_group8(table, i, inflight=f),
+         pages.view(pages.shape[0], -1), every),
+        ("K5 gather_group8", lambda i, f=tg.BULK_INFLIGHT: tg.gather_group8(table, i, inflight=f),
          lambda i: tg.group8_plain(table, i), T // 8, 8 * W * 4, W * 4,
-         f"8-row groups of {tuple(table.shape)}", table[: 8 * (T // 8)].reshape(T // 8, 8 * W)),
+         f"8-row groups of {tuple(table.shape)}", table[: 8 * (T // 8)].reshape(T // 8, 8 * W),
+         every),
         ("K6 gather_flat1d", lambda i, f=8: tg.gather_flat1d(flat, i, width=W, inflight=f),
          lambda i: tg.flat1d_plain(flat, i, width=W), T, W * 4, W * 4,
-         f"{W}-word slices of ({flat.shape[0]},)", flat.view(-1, W)),
+         f"{W}-word slices of ({flat.shape[0]},)", flat.view(-1, W), probe),
         ("K7 gather_rows", lambda i, f=8: tg.gather_rows(rec, i, inflight=f),
          lambda i: tg.rows_plain(rec, i), rec.shape[0], rec.shape[1] * 4, rec.shape[1] * 4,
-         f"engine records {tuple(rec.shape)} (L={gr.ENGINE_L}, G={gr.ENGINE_G})", rec),
+         f"engine records {tuple(rec.shape)} (L={gr.ENGINE_L}, G={gr.ENGINE_G})", rec, probe),
     ]
+    # the card's copy ceiling: one contiguous copy of the bytes a 4 KB-row
+    # gather reads and writes
+    src_c = torch.empty(rows * 1024, dtype=torch.int32, device=dev)
+    dst_c = torch.empty_like(src_c)
+    copy_ms = gr.time_iters(lambda: dst_c.copy_(src_c), [()] * 20, 3)
+    del src_c, dst_c
+    log(f"[gather-time] copy ceiling: one contiguous torch copy_ of {rows * 4096 / 1e6:.1f} MB "
+        f"into {rows * 4096 / 1e6:.1f} MB: {copy_ms:.4f} ms "
+        f"({2 * rows * 4096 / copy_ms / 1e6:.1f} GB/s read + written) on {card}")
     out = {}
-    for name, kern, plain, n_src, moved, useful, shape, src2d in cases:
+    for name, kern, plain, n_src, moved, useful, shape, src2d, checked in cases:
         i0 = idx_in(n_src)
+        ref = plain(i0)
         err = 0.0
-        for f in gr.NSEMS:
+        for f in checked:
             err = max(err, check_gather(f"{name} at {rows} rows of {shape}, inflight {f}",
-                                        lambda: kern(i0, f), lambda: plain(i0)))
+                                        lambda: kern(i0, f), ref))
+        del ref
         for count in (rows + 37, 1001):  # not a multiple of a CTA's rows
             ir = ragged(n_src, count)
-            err = max(err, check_gather(f"{name} ragged: {count} rows, indices 0, last, -1, "
-                                        f"{n_src}", lambda: kern(ir), lambda: plain(ir)))
+            ref = plain(ir)
+            for f in checked:
+                err = max(err, check_gather(f"{name} ragged: {count} rows, indices 0, last, -1, "
+                                            f"{n_src}, inflight {f}", lambda: kern(ir, f), ref))
         sets = [(i,) for i in gr.rotated(i0, n_src, 20)]
         t_plain = [gr.time_iters(plain, sets, 3)]
         t_kern = [gr.time_iters(kern, sets, 3), gr.time_iters(kern, sets, 3)]
@@ -911,14 +971,41 @@ def phase_gather(card):
             f"bound by {b_by}), plain {plain_ms:.4f} ms ({t_plain[0]:.4f}, {t_plain[1]:.4f}; "
             f"{rows * moved / plain_ms / 1e6:.1f} GB/s moved), library {lib_ms:.4f} ms (one "
             f"torch.index_select of the same rows) on {card}")
+        if checked is every:
+            at = {f: gr.time_iters(lambda i, f=f: kern(i, f), sets, 3) for f in every}
+            log(f"[gather-time] {name} ms by inflight: "
+                + ", ".join(f"{f}: {t:.4f}" for f, t in at.items())
+                + f"; index_select {lib_ms:.4f}, bound {b_ms:.4f}, copy ceiling {copy_ms:.4f} "
+                f"(the same bytes as 4 KB rows) on {card}")
         out[name.split()[0]] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    del table, pages, rec, flat
+    # K5 at group rows below (W = 4: 128 B) and above (W = 300: 9,600 B, three
+    # stages) one 4 KB stage; then an unaligned source, which must be refused
+    for w, groups in ((4, 100_003), (300, 5_003)):
+        t = gr.random_words((8 * groups + 5, w), gen, dev)  # 5 rows of a partial group
+        for count in (rows + 37, 1001):
+            ir = ragged(groups, count)
+            ref = tg.group8_plain(t, ir)
+            for f in tg.INFLIGHT_CHOICES:
+                out["K5"]["max_abs_err"] = max(out["K5"]["max_abs_err"], check_gather(
+                    f"K5 gather_group8 at W={w} ({32 * w} B groups of {tuple(t.shape)}): "
+                    f"{count} rows, indices 0, last, -1, {groups}, inflight {f}",
+                    lambda: tg.gather_group8(t, ir, inflight=f), ref))
+        del t
+    words = gr.random_words((8 * 1000 * W + 1,), gen, dev)
+    odd = words[1:].view(8 * 1000, W)  # 4 bytes past a 16-byte boundary
+    try:
+        tg.gather_group8(odd, idx_in(1000, 64))
+    except ValueError as e:
+        log(f"[gather] K5 on a source 4 bytes off 16-byte alignment refused: {e}")
+    else:
+        fail("K5 took a source that is not 16-byte aligned")
     # the 4-byte-lane instance: 12-byte records (G = 1, R = 3)
     small = gr.random_words((5003, 3), gen, dev)
     ir = ragged(5003, 4099)
     check_gather("K7 gather_rows, 12-byte rows (4-byte lanes), 4,099 rows",
                  lambda: tg.gather_rows(small, ir), lambda: tg.rows_plain(small, ir))
-    del table, pages, rec, flat
     return out
 
 

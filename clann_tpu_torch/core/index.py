@@ -107,7 +107,7 @@ class ClusteredIndex:
     probs_table: Optional[torch.Tensor] = None  # (D+2, B) f32 collision probs
     maxdiff_table: Optional[torch.Tensor] = None  # (B,) int32 sketch thresholds
     # per-cluster hash functions of a faithful reference import (JAX's
-    # io/interop.py); no port path sets them yet (ROADMAP slice 13)
+    # io/interop.py); no port path sets them yet (ROADMAP slice 14)
     pc_hash_params: Any = None
     # --- packed per-(table, slot) [id, sketch words] records of the
     # clustered walk (config.pack_slot_records) ---
@@ -376,7 +376,7 @@ def build_index(
         raise DataError("empty or non-2D dataset")
     if config.rescore_dtype == "int8":
         raise NotImplementedError(
-            "rescore_dtype='int8' (the vectors_q8 shadow): ROADMAP.md slice 10 "
+            "rescore_dtype='int8' (the vectors_q8 shadow): ROADMAP.md slice 11 "
             "(int8 rescore)"
         )
     n, d = x.shape

@@ -76,6 +76,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "sm90_async.cuh"
+
 namespace clann {
 namespace hopper {
 // Internal linkage: each .cu is compiled on its own and keeps its own
@@ -138,38 +140,6 @@ __device__ __forceinline__ Item get_item(const Params& p, int i) {
             static_cast<long long>(it.blk) * p.tile_rows + it.row0 < p.n_pad;
   if (p.tile_live) it.live = it.live && __ldg(p.tile_live + it.tile) > it.qg * QG;
   return it;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
 }
 
 // A (64-dim x box_rows) box at (col, row) of `map` into shared memory; the
@@ -716,7 +686,7 @@ hopper_scan_kernel(const __grid_constant__ CUtensorMap tm_base,
       mbar_init(sm.qfull + b, 1);
       mbar_init(sm.qempty + b, CONSUMER_WARPS);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 

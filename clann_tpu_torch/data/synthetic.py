@@ -2,7 +2,8 @@
 
 The numpy generators are byte-for-byte those of ``clann_tpu.data.synthetic``
 (same seed, same arrays); ground truth comes from the port's
-``ops.distances.brute_force_topk`` on the device the caller names. The
+``ops.distances.brute_force_topk`` on the card, or on the device the caller
+names. The
 reference's random-unit-vector generator is src/utils/mod.rs:101-114; the
 clustered mixtures mimic the strongly clustered real embedding datasets
 (glove etc.) that the clustering stage is built for.
@@ -101,15 +102,18 @@ def make_synthetic_dataset(
     seed: int = 0,
     name: str = "",
     kind: str = "",
-    device="cpu",
+    device="cuda",
 ) -> AnnDataset:
     """Build a full ann-benchmarks-shaped dataset with exact ground truth.
 
     kind: "uniform", "clustered" or "hierarchical"; defaults from the
     legacy `clustered` flag when empty. `device`: where the brute-force
-    ground truth runs.
+    ground truth runs, the card unless the caller names the CPU (a missing
+    CUDA device raises; nothing falls back).
     """
-    from clann_tpu_torch.ops.distances import brute_force_topk
+    from clann_tpu_torch.ops.distances import brute_force_topk, resolve_device
+
+    device = resolve_device(device)
 
     if not kind:
         kind = "clustered" if clustered else "uniform"

@@ -17,8 +17,13 @@ kernel does not take) and runs its plain PyTorch version for CPU tensors:
 
 An index outside the source reads as a row of zeros, in the kernels and in
 the plain versions alike. Words may be int32, uint32 or float32 tensors
-(the bits are copied). `inflight` (1, 2, 4, 8, 16 or 32) is how many
-pieces each warp has in flight, the counterpart of the TPU kernels' NSEM.
+(the bits are copied). `inflight` (1, 2, 4, 8, 16 or 32) is the
+counterpart of the TPU kernels' NSEM: for K4 and K5 (bulk copies through a
+shared-memory ring) the rows each CTA has in flight, for K6 and K7 (a warp
+copy) the pieces each warp has in flight. K4 and K5 copy with the TMA, which
+needs 16-byte aligned addresses: on the card they refuse a source whose
+base address is not a multiple of 16 bytes (e.g. a view at an odd word
+offset).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ FLAT1D_LAUNCHES = 0  # K6
 ROWS_LAUNCHES = 0  # K7
 
 INFLIGHT_CHOICES = (1, 2, 4, 8, 16, 32)
+BULK_INFLIGHT = 32  # K4's and K5's default: rows in flight per CTA (the fastest on an H100)
 
 
 def reset_launches() -> None:
@@ -83,6 +89,14 @@ def _cuda_operands(src: torch.Tensor, idx: torch.Tensor) -> None:
         raise ValueError("source and idx must be contiguous")
 
 
+def _bulk_aligned(src: torch.Tensor) -> None:
+    """K4 and K5 copy rows with bulk (TMA) copies, whose addresses must be
+    multiples of 16 bytes; their rows always are, so the base must be."""
+    if src.data_ptr() % 16:
+        raise ValueError(f"the source's base address must be 16-byte aligned for the bulk "
+                         f"copies of K4 / K5, got {src.data_ptr():#x}")
+
+
 # --- K4 -------------------------------------------------------------------
 
 def pages_plain(pages: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -92,7 +106,8 @@ def pages_plain(pages: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.view(-1, 8, 128).view(pages.dtype)
 
 
-def gather_pages(pages: torch.Tensor, idx: torch.Tensor, *, inflight: int = 8) -> torch.Tensor:
+def gather_pages(pages: torch.Tensor, idx: torch.Tensor, *,
+                 inflight: int = BULK_INFLIGHT) -> torch.Tensor:
     """K4: out[i] = pages[idx[i]] for (P, 8, 128) 4 KB pages."""
     global PAGES_LAUNCHES
 
@@ -103,6 +118,7 @@ def gather_pages(pages: torch.Tensor, idx: torch.Tensor, *, inflight: int = 8) -
     if p.device.type == "cpu":
         return pages_plain(pages, idx)
     _cuda_operands(p, idx)
+    _bulk_aligned(p)
     out = torch.empty((idx.shape[0], 8, 128), dtype=torch.int32, device=p.device)
     if idx.numel():
         _launch("clann_gather_pages", (p.data_ptr(), p.shape[0], idx.data_ptr(),
@@ -122,7 +138,8 @@ def group8_plain(table: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
     return _rows_plain(groups, gidx).view(-1, W).view(table.dtype)
 
 
-def gather_group8(table: torch.Tensor, gidx: torch.Tensor, *, inflight: int = 8) -> torch.Tensor:
+def gather_group8(table: torch.Tensor, gidx: torch.Tensor, *,
+                  inflight: int = BULK_INFLIGHT) -> torch.Tensor:
     """K5: the aligned 8-row group [8 gidx[i], 8 gidx[i] + 8) of a (T, W)
     table for every i, as (8 n, W). A group not wholly inside the table
     reads as zeros."""
@@ -135,6 +152,7 @@ def gather_group8(table: torch.Tensor, gidx: torch.Tensor, *, inflight: int = 8)
     if t.device.type == "cpu":
         return group8_plain(table, gidx)
     _cuda_operands(t, gidx)
+    _bulk_aligned(t)
     T, W = t.shape
     out = torch.empty((8 * gidx.shape[0], W), dtype=torch.int32, device=t.device)
     if gidx.numel():

@@ -180,12 +180,22 @@ def test_generators_byte_identical(gen, kw):
 
 def test_make_synthetic_dataset():
     j = jsyn.make_synthetic_dataset(n=800, d=12, n_queries=20, k_gt=15, seed=4)
-    t = tsyn.make_synthetic_dataset(n=800, d=12, n_queries=20, k_gt=15, seed=4)
+    t = tsyn.make_synthetic_dataset(n=800, d=12, n_queries=20, k_gt=15, seed=4, device="cpu")
     assert j.name == t.name
     assert j.train.tobytes() == t.train.tobytes()
     assert j.test.tobytes() == t.test.tobytes()
     assert t.neighbors.dtype == np.int32 and t.distances.dtype == np.float32
     assert_topk_match(j.neighbors, j.distances, t.neighbors, t.distances)
+
+
+def test_make_synthetic_dataset_defaults_to_the_card(monkeypatch):
+    """The ground truth runs on the card unless the caller names the CPU:
+    with no CUDA device the default raises (no CPU fallback)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tsyn.make_synthetic_dataset(n=50, d=4, n_queries=3, k_gt=5)
+    t = tsyn.make_synthetic_dataset(n=50, d=4, n_queries=3, k_gt=5, device="cpu")
+    assert t.neighbors.shape == (3, 5)
 
 
 def test_config_round_trips_between_packages():

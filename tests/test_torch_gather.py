@@ -76,7 +76,7 @@ def _dma_gather():
     return ns["dma_gather"]
 
 
-@pytest.mark.parametrize("nsem", [8, 16])
+@pytest.mark.parametrize("nsem", [1, 8, 16, 32])
 def test_k4_pages_plain_matches_pallas(pallas_gather, nsem):
     rng = np.random.default_rng(nsem)
     pages = _words(rng, 300, 8, 128)
@@ -88,15 +88,19 @@ def test_k4_pages_plain_matches_pallas(pallas_gather, nsem):
     np.testing.assert_array_equal(want, pages[idx])
 
 
-@pytest.mark.parametrize("nsem", [8, 32])
-def test_k5_group8_plain_matches_pallas(pallas_gather, nsem):
+# group rows of 128 B, 4 KB and 9,600 B: below, at and above one 4 KB stage
+# of the card's bulk ring
+@pytest.mark.parametrize("width,nsem", [(128, 8), (128, 32), (128, 1), (4, 1), (4, 32),
+                                        (300, 1), (300, 32)])
+def test_k5_group8_plain_matches_pallas(pallas_gather, width, nsem):
     rng = np.random.default_rng(nsem)
-    table = _words(rng, 8 * 50, 128)
+    table = _words(rng, 8 * 50, width)
     gidx = rng.integers(0, 50, size=128, dtype=np.int32)
-    run = pallas_gather.make_group8_dma(128, 64, nsem, True)
+    run = pallas_gather.make_group8_dma(width, 64, nsem, True)
     want = np.asarray(run(jnp.asarray(gidx), jnp.asarray(table)))
     got = tg.gather_group8(_t(table), torch.from_numpy(gidx), inflight=nsem)
     np.testing.assert_array_equal(_u32(got), want)
+    np.testing.assert_array_equal(want, table.reshape(50, 8, width)[gidx].reshape(-1, width))
 
 
 @pytest.mark.parametrize("nsem", [8, 16])
@@ -174,6 +178,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tg.gather_rows(table.double(), torch.zeros(3, dtype=torch.int32))
     with pytest.raises(ValueError, match="pages"):
         tg.gather_pages(table, torch.zeros(3, dtype=torch.int32))
+
+
+def test_bulk_gathers_refuse_unaligned_sources():
+    """K4 and K5 copy with bulk (TMA) copies on the card, which need a
+    16-byte aligned source: a view at an odd word offset is refused."""
+    words = torch.zeros(8 * 10 * 4 + 4, dtype=torch.int32)
+    assert words.data_ptr() % 16 == 0
+    tg._bulk_aligned(words[4:].view(80, 4))
+    for off in (1, 2, 3):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tg._bulk_aligned(words[off:off + 320].view(80, 4))
 
 
 def test_probe_rows_and_fields():

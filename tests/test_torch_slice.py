@@ -188,10 +188,10 @@ def test_facade_single_query_search(world):
 
 
 # each mode in a configuration where it reaches a part that is not ported:
-# the int8 rescore (ROADMAP.md slice 10) refuses to build, whatever the mode;
+# the int8 rescore (ROADMAP.md slice 11) refuses to build, whatever the mode;
 # the clustered walk ("lsh" on a clustered build, "lsh-clustered") refuses
 # an index with per-cluster hash functions (a faithful reference import,
-# slice 13)
+# slice 14)
 _INT8 = dict(rescore_dtype="int8")
 _UNPORTED = {
     None: _INT8, "auto": _INT8, "dense": dict(_INT8, dense_layout=True),

@@ -286,7 +286,7 @@ def test_search_by_id_matches_jax(world, exclude_self):
 
 def test_search_per_cluster_params_raise(world):
     t = dataclasses.replace(world["tidx"], pc_hash_params={"w": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="slice 13"):
+    with pytest.raises(NotImplementedError, match="slice 14"):
         tq.search(t, world["ds"].test[:2])
 
 
