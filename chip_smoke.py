@@ -16,8 +16,10 @@ caught):
    kernels K1, K2 and K3 (one Hopper loop, hopper_scan_kernel; K2's found
    by its ArgmaxKey epilogue) issues HGMMA and no HMMA, that no other
    (mma.sync) scan kernel is in the library, that every instance of the
-   bulk gather (K4, K5) issues bulk copies (UBLKCP) and that the warp gather
-   (K6, K7) is there.
+   bulk gather (K4, K5) issues bulk copies (UBLKCP), and that the warp
+   gather warp_gather_kernel (K6, K7) is there in the 11 instances its plan
+   launches (4-byte units at each inflight, 16-byte units up to 16), each
+   taking its rows' indices by shuffle (SHFL.IDX), and no other kernel.
 3. kernels vs plain, each against its plain PyTorch version on the card, at
    the main paths' shapes and at small ragged ones, then CUDA-event times of
    both at the main paths' shapes, beside the kernel's bound (the larger of
@@ -43,19 +45,25 @@ caught):
    block and "scan-block-adaptive" (both gated). Each path is run with the
    launch counts set to 0 just before it and read just after, and fails if
    its kernel was not launched.
-5. gather: K4-K7 against their plain versions on the card, bit-exact, at
-   the gather-rate probe's shapes (131,072 rows: 4 KB pages, 8-row groups
-   and 128-word slices of the (1,849,250, 128) word table), K7 at the global
-   engine's record table (L = 128, G = 32, 512-byte rows), at ragged row
-   counts (131,109 and 1,001) with the first and last rows and out-of-range
-   indices (zeros), and at 12-byte rows (the 4-byte-lane instance); K4 and
-   K5 at every inflight, K5 also at W = 4 and W = 300 (group rows of 128 B
-   and 9,600 B), and K5 must refuse a source that is not 16-byte aligned;
-   then CUDA-event times of each kernel and its plain version (K4 and K5 at
-   every inflight), beside one index_select of the same rows and the card's
-   copy ceiling (one contiguous copy_ of the same 537 MB). Then the
-   gather-rate probe's entry point (clann_tpu_torch.probes.gather_rate.run)
-   as a path of its own, which must launch K4-K7.
+5. gather: K4-K7 against their plain versions on the card, bit-exact at
+   every inflight, at the gather-rate probe's shapes (131,072 rows: 4 KB
+   pages, 8-row groups and 128-word slices of the (1,849,250, 128) word
+   table), K7 at the global engine's record table (L = 128, G = 32,
+   512-byte rows), at ragged row counts (131,109 and 1,001) with the first
+   and last rows and out-of-range indices (zeros); K7 also at widths of 1,
+   3, 12, 48, 100 and 128 words on a 16-byte aligned source and on one 4
+   bytes off (16- and 4-byte units); K5 also at W = 4 and W = 300 (group
+   rows of 128 B and 9,600 B), and K5 must refuse a source that is not
+   16-byte aligned. Then each kernel, its plain version and one
+   index_select of the same rows timed two ways on 20 rotated index
+   vectors: device ms, by CUDA events around the replay of a CUDA graph of
+   the 20 calls (the device's time alone; the share of the bound is taken
+   on it), and call ms, around a Python loop of the same calls (what a
+   caller waits, the host's work included); each kernel also at every
+   inflight, beside the card's copy ceiling (one contiguous copy_ of the
+   same 537 MB). Then the gather-rate probe's entry point
+   (clann_tpu_torch.probes.gather_rate.run) as a path of its own, which
+   must launch K4-K7.
 6. lsh-build: the LSH configuration of bench.py's lsh_at_0.9 row
    (LSH_AT_09.json "chosen": L = 128, gather_block 32, chunk 2048,
    filter_expand 8, global engine, no dense layout) built with
@@ -85,7 +93,8 @@ caught):
    failing if K7 was not launched; the loop's outer steps, inner
    iterations and host syncs per batch; K7 against its plain version at the
    walk's shape (the built slot records viewed as block rows, one batch's
-   65,536 indices, and ragged counts), bit-exact; the ball-overlap stop's
+   65,536 indices, and ragged counts), bit-exact at every inflight, and
+   timed as in phase 5 (device ms and call ms); the ball-overlap stop's
    bound recomputed in numpy from the built index (radii, center distances),
    which must agree with the clusters each query visited; then search_by_id
    on 256 indexed points, which must agree with search on those vectors at
@@ -213,7 +222,12 @@ def check_sass(lib_path):
     epilogue, K3's by its source) must issue HGMMA (wgmma) and no HMMA
     (mma.sync), and no other scan kernel may be in the library; every
     instance of bulk_gather_kernel (K4, K5) must issue bulk copies (UBLKCP,
-    cp.async.bulk), and gather_kernel (K6, K7) must be there."""
+    cp.async.bulk); warp_gather_kernel (K6, K7) must be there in every
+    instance its plan launches (4-byte units at each inflight, 16-byte
+    units up to WARP_VEC16_INFLIGHT), each shuffling its rows' indices
+    (SHFL.IDX); no other kernel may be there."""
+    from clann_tpu_torch.ops import gather as tg
+
     import re
     import shutil
 
@@ -237,24 +251,35 @@ def check_sass(lib_path):
             key = "K4/K5 bulk_gather_kernel"
             for op in re.findall(r"\b(UBLK\w*(?:\.\w+)*)", part):
                 bulk[op] = bulk.get(op, 0) + 1
+        elif "warp_gather_kernel" in name:
+            key = "K6/K7 warp_gather_kernel"
+        elif "gather_kernel" in name:
+            key = f"other gather kernel {name}"
         else:
-            key = "K6/K7 gather_kernel"
+            key = f"other kernel {name}"
         counts.setdefault(key, []).append((len(re.findall(r"\bHGMMA\.", part)),
                                            len(re.findall(r"\bHMMA\.", part)),
-                                           len(re.findall(r"\bUBLKCP\b", part))))
+                                           len(re.findall(r"\bUBLKCP\b", part)),
+                                           len(re.findall(r"\bSHFL\.IDX\b", part))))
     for key, ns in sorted(counts.items()):
-        log(f"[build] SASS {key}: {len(ns)} instance(s), (HGMMA, HMMA, UBLKCP) per instance {ns}")
+        log(f"[build] SASS {key}: {len(ns)} instance(s), (HGMMA, HMMA, UBLKCP, SHFL.IDX) per "
+            f"instance {ns}")
     log(f"[build] SASS bulk-copy instructions of bulk_gather_kernel: {bulk}")
     scans = {k: ns for k, ns in counts.items() if k[:2] in ("K1", "K2", "K3")}
-    if (len(scans) != 3 or any(k.startswith("other") for k in counts)
-            or min(g for ns in scans.values() for g, _, _ in ns) == 0
-            or max(h for ns in scans.values() for _, h, _ in ns) > 0):
+    if (len(scans) != 3 or any(k.startswith("other scan") for k in counts)
+            or min(g for ns in scans.values() for g, _, _, _ in ns) == 0
+            or max(h for ns in scans.values() for _, h, _, _ in ns) > 0):
         fail("every instance of K1, K2 and K3 must issue HGMMA and no HMMA, and no "
              "other (mma.sync) scan kernel may remain")
-    if (not counts.get("K6/K7 gather_kernel")
-            or min((c for _, _, c in counts.get("K4/K5 bulk_gather_kernel", [])), default=0) < 2):
+    warp = counts.get("K6/K7 warp_gather_kernel", [])
+    n_warp = len(tg.INFLIGHT_CHOICES) + sum(f <= tg.WARP_VEC16_INFLIGHT
+                                            for f in tg.INFLIGHT_CHOICES)
+    if (min((c for _, _, c, _ in counts.get("K4/K5 bulk_gather_kernel", [])), default=0) < 2
+            or len(warp) != n_warp or min(x for *_, x in warp) < 1
+            or any(k.startswith("other") for k in counts)):
         fail("bulk_gather_kernel (K4, K5) must issue its bulk load and store (UBLKCP) in every "
-             "instance, and gather_kernel (K6, K7) must be in the library")
+             "instance, warp_gather_kernel (K6, K7) must be there in every instance with its "
+             "index shuffle (SHFL.IDX), and no other kernel may be in the library")
 
 
 def _norm(x):
@@ -867,7 +892,7 @@ def profile_search(handle, test, mode):
             f"{e.key[:90]}")
 
 
-def check_gather(label, kern, plain):
+def check_gather(label, kern, plain, quiet=False):
     """A gather kernel against its plain version: bit-identical words."""
     import torch
 
@@ -878,18 +903,53 @@ def check_gather(label, kern, plain):
     if got.shape != ref.shape or got.dtype != ref.dtype or not torch.equal(got, ref):
         fail(f"{label}: kernel output differs from its plain version")
     err = (got.long() - ref.long()).abs().max().item() if got.numel() else 0
-    log(f"[gather] {label}: bit-identical to the plain version ({got.numel()} words)")
+    if not quiet:
+        log(f"[gather] {label}: bit-identical to the plain version ({got.numel()} words)")
     return float(err)
 
 
+def check_every(label, kern, ref):
+    """check_gather of kern(inflight) at every inflight, one line for all."""
+    from clann_tpu_torch.ops import gather as tg
+
+    err = max(check_gather(f"{label}, inflight {f}", lambda: kern(f), ref, quiet=True)
+              for f in tg.INFLIGHT_CHOICES)
+    log(f"[gather] {label}: bit-identical to the plain version at inflight "
+        f"{', '.join(map(str, tg.INFLIGHT_CHOICES))} ({ref.numel()} words)")
+    return err
+
+
+def gather_time_line(name, rows, shape, moved, useful, t, card):
+    """The [gather-time] lines of probes.gather_rate.kernel_times' readings
+    (device ms by CUDA-graph replay, call ms by a Python loop); the
+    kernels-line numbers (device ms, the share of the bound taken on them)."""
+    k, p, lib = t["kernel"], t["plain"], t["library"]
+    ms, each = k["device_ms"], k["device_each"]
+    # each picked row read once and written once, and the indices
+    b_ms, b_by = bound(0.0, rows * (2.0 * moved + 4))
+    log(f"[gather-time] {name} at {rows} rows of {shape}: device {ms:.4f} ms ({each[0]:.4f}, "
+        f"{each[1]:.4f}; {rows * moved / ms / 1e6:.1f} GB/s moved, {rows * useful / ms / 1e6:.1f} "
+        f"useful; {b_ms / ms:.3f} of the {b_ms:.4f} ms bound by {b_by}), call {k['call_ms']:.4f} "
+        f"ms; plain device {p['device_ms']:.4f} / call {p['call_ms']:.4f} ms; library device "
+        f"{lib['device_ms']:.4f} / call {lib['call_ms']:.4f} ms (one torch.index_select of the "
+        f"same rows); device ms by CUDA-graph replay, call ms by a Python loop, 20 calls, on "
+        f"{card}")
+    log(f"[gather-time] {name} device ms by inflight: "
+        + ", ".join(f"{f}: {ms:.4f}" for f, ms in t["inflight"].items())
+        + f"; index_select {lib['device_ms']:.4f}, bound {b_ms:.4f} on {card}")
+    return {"ms": ms, "plain_ms": p["device_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib["device_ms"]}
+
+
 def phase_gather(card):
-    """K4-K7 against their plain versions at the probe's shapes, K7 at the
-    engine's, at ragged shapes and at 12-byte rows; K4 and K5 (the bulk
-    ring) at every inflight, K5 also at group rows below and above one 4 KB
-    stage, and refusing an unaligned source; then both timed, each
-    iteration on its own rotated index vector (the probe's protocol), K4
-    and K5 at every inflight, beside one index_select of the same rows and
-    the card's contiguous copy of as many bytes."""
+    """K4-K7 against their plain versions at every inflight, at the probe's
+    shapes, K7 at the engine's, at ragged shapes and K7 at widths of 1 to
+    128 words, aligned and not; K5 also at group rows below and above one 4
+    KB stage, and refusing an unaligned source; then each kernel, its plain
+    version and one index_select timed on the device alone and per call,
+    each iteration on its own rotated index vector (the probe's protocol),
+    each kernel also at every inflight, beside the card's contiguous copy
+    of as many bytes."""
     import torch
 
     from clann_tpu_torch.ops import gather as tg
@@ -916,25 +976,25 @@ def phase_gather(card):
     flat = table.view(-1)
     # name, kernel(i, inflight), plain(i), source rows, moved / useful bytes
     # per index, the source as the 2-D rows one index picks (for the library
-    # yardstick, one torch.index_select), the inflight values checked
-    every, probe = tg.INFLIGHT_CHOICES, gr.NSEMS
+    # yardstick, one torch.index_select)
     cases = [
-        ("K4 gather_pages", lambda i, f=tg.BULK_INFLIGHT: tg.gather_pages(pages, i, inflight=f),
+        ("K4 gather_pages", lambda i, **kw: tg.gather_pages(pages, i, **kw),
          lambda i: tg.pages_plain(pages, i), T // 8, 4096, 4096, f"pages {tuple(pages.shape)}",
-         pages.view(pages.shape[0], -1), every),
-        ("K5 gather_group8", lambda i, f=tg.BULK_INFLIGHT: tg.gather_group8(table, i, inflight=f),
+         pages.view(pages.shape[0], -1)),
+        ("K5 gather_group8", lambda i, **kw: tg.gather_group8(table, i, **kw),
          lambda i: tg.group8_plain(table, i), T // 8, 8 * W * 4, W * 4,
-         f"8-row groups of {tuple(table.shape)}", table[: 8 * (T // 8)].reshape(T // 8, 8 * W),
-         every),
-        ("K6 gather_flat1d", lambda i, f=8: tg.gather_flat1d(flat, i, width=W, inflight=f),
+         f"8-row groups of {tuple(table.shape)}", table[: 8 * (T // 8)].reshape(T // 8, 8 * W)),
+        ("K6 gather_flat1d", lambda i, **kw: tg.gather_flat1d(flat, i, width=W, **kw),
          lambda i: tg.flat1d_plain(flat, i, width=W), T, W * 4, W * 4,
-         f"{W}-word slices of ({flat.shape[0]},)", flat.view(-1, W), probe),
-        ("K7 gather_rows", lambda i, f=8: tg.gather_rows(rec, i, inflight=f),
+         f"{W}-word slices of ({flat.shape[0]},)", flat.view(-1, W)),
+        ("K7 gather_rows", lambda i, **kw: tg.gather_rows(rec, i, **kw),
          lambda i: tg.rows_plain(rec, i), rec.shape[0], rec.shape[1] * 4, rec.shape[1] * 4,
-         f"engine records {tuple(rec.shape)} (L={gr.ENGINE_L}, G={gr.ENGINE_G})", rec, probe),
+         f"engine records {tuple(rec.shape)} (L={gr.ENGINE_L}, G={gr.ENGINE_G})", rec),
     ]
     # the card's copy ceiling: one contiguous copy of the bytes a 4 KB-row
-    # gather reads and writes
+    # gather reads and writes, timed by a loop of calls (the host's share of
+    # a 0.36 ms copy is small; replayed from a CUDA graph the same copy_
+    # read 0.44 ms on an H100, slower than the gathers it bounds)
     src_c = torch.empty(rows * 1024, dtype=torch.int32, device=dev)
     dst_c = torch.empty_like(src_c)
     copy_ms = gr.time_iters(lambda: dst_c.copy_(src_c), [()] * 20, 3)
@@ -943,42 +1003,18 @@ def phase_gather(card):
         f"into {rows * 4096 / 1e6:.1f} MB: {copy_ms:.4f} ms "
         f"({2 * rows * 4096 / copy_ms / 1e6:.1f} GB/s read + written) on {card}")
     out = {}
-    for name, kern, plain, n_src, moved, useful, shape, src2d, checked in cases:
+    for name, kern, plain, n_src, moved, useful, shape, src2d in cases:
         i0 = idx_in(n_src)
-        ref = plain(i0)
-        err = 0.0
-        for f in checked:
-            err = max(err, check_gather(f"{name} at {rows} rows of {shape}, inflight {f}",
-                                        lambda: kern(i0, f), ref))
-        del ref
+        err = check_every(f"{name} at {rows} rows of {shape}", lambda f: kern(i0, inflight=f),
+                          plain(i0))
         for count in (rows + 37, 1001):  # not a multiple of a CTA's rows
             ir = ragged(n_src, count)
-            ref = plain(ir)
-            for f in checked:
-                err = max(err, check_gather(f"{name} ragged: {count} rows, indices 0, last, -1, "
-                                            f"{n_src}, inflight {f}", lambda: kern(ir, f), ref))
+            err = max(err, check_every(f"{name} ragged: {count} rows, indices 0, last, -1, "
+                                       f"{n_src}", lambda f: kern(ir, inflight=f), plain(ir)))
         sets = [(i,) for i in gr.rotated(i0, n_src, 20)]
-        t_plain = [gr.time_iters(plain, sets, 3)]
-        t_kern = [gr.time_iters(kern, sets, 3), gr.time_iters(kern, sets, 3)]
-        t_plain.append(gr.time_iters(plain, sets, 3))
-        ms, plain_ms = sum(t_kern) / 2, sum(t_plain) / 2
-        lib_ms = gr.time_iters(lambda i: torch.index_select(src2d, 0, i), sets, 3)
-        # each picked row read once and written once, and the indices
-        b_ms, b_by = bound(0.0, rows * (2.0 * moved + 4))
-        log(f"[gather-time] {name} at {rows} rows of {shape}: kernel {ms:.4f} ms "
-            f"({t_kern[0]:.4f}, {t_kern[1]:.4f}; {rows * moved / ms / 1e6:.1f} GB/s moved, "
-            f"{rows * useful / ms / 1e6:.1f} useful; {b_ms / ms:.3f} of the {b_ms:.4f} ms "
-            f"bound by {b_by}), plain {plain_ms:.4f} ms ({t_plain[0]:.4f}, {t_plain[1]:.4f}; "
-            f"{rows * moved / plain_ms / 1e6:.1f} GB/s moved), library {lib_ms:.4f} ms (one "
-            f"torch.index_select of the same rows) on {card}")
-        if checked is every:
-            at = {f: gr.time_iters(lambda i, f=f: kern(i, f), sets, 3) for f in every}
-            log(f"[gather-time] {name} ms by inflight: "
-                + ", ".join(f"{f}: {t:.4f}" for f, t in at.items())
-                + f"; index_select {lib_ms:.4f}, bound {b_ms:.4f}, copy ceiling {copy_ms:.4f} "
-                f"(the same bytes as 4 KB rows) on {card}")
-        out[name.split()[0]] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        t = gr.kernel_times(kern, plain, lambda i: torch.index_select(src2d, 0, i), sets)
+        out[name.split()[0]] = dict(max_abs_err=err, **gather_time_line(
+            name, rows, shape, moved, useful, t, card))
     del table, pages, rec, flat
     # K5 at group rows below (W = 4: 128 B) and above (W = 300: 9,600 B, three
     # stages) one 4 KB stage; then an unaligned source, which must be refused
@@ -986,12 +1022,10 @@ def phase_gather(card):
         t = gr.random_words((8 * groups + 5, w), gen, dev)  # 5 rows of a partial group
         for count in (rows + 37, 1001):
             ir = ragged(groups, count)
-            ref = tg.group8_plain(t, ir)
-            for f in tg.INFLIGHT_CHOICES:
-                out["K5"]["max_abs_err"] = max(out["K5"]["max_abs_err"], check_gather(
-                    f"K5 gather_group8 at W={w} ({32 * w} B groups of {tuple(t.shape)}): "
-                    f"{count} rows, indices 0, last, -1, {groups}, inflight {f}",
-                    lambda: tg.gather_group8(t, ir, inflight=f), ref))
+            out["K5"]["max_abs_err"] = max(out["K5"]["max_abs_err"], check_every(
+                f"K5 gather_group8 at W={w} ({32 * w} B groups of {tuple(t.shape)}): "
+                f"{count} rows, indices 0, last, -1, {groups}",
+                lambda f: tg.gather_group8(t, ir, inflight=f), tg.group8_plain(t, ir)))
         del t
     words = gr.random_words((8 * 1000 * W + 1,), gen, dev)
     odd = words[1:].view(8 * 1000, W)  # 4 bytes past a 16-byte boundary
@@ -1001,11 +1035,18 @@ def phase_gather(card):
         log(f"[gather] K5 on a source 4 bytes off 16-byte alignment refused: {e}")
     else:
         fail("K5 took a source that is not 16-byte aligned")
-    # the 4-byte-lane instance: 12-byte records (G = 1, R = 3)
-    small = gr.random_words((5003, 3), gen, dev)
-    ir = ragged(5003, 4099)
-    check_gather("K7 gather_rows, 12-byte rows (4-byte lanes), 4,099 rows",
-                 lambda: tg.gather_rows(small, ir), lambda: tg.rows_plain(small, ir))
+    # K7 at widths of 1 to 128 words: 16-byte units where the width and the
+    # base allow, else 4-byte units (e.g. the 12-byte records of G = 1, R = 3)
+    for w in (1, 3, 12, 48, 100, 128):
+        words = gr.random_words((5003 * w + 1,), gen, dev)
+        ir = ragged(5003, 4099)
+        for off, where in ((0, "16-byte aligned"), (1, "4 bytes off 16-byte alignment")):
+            t = words[off: off + 5003 * w].view(5003, w)
+            out["K7"]["max_abs_err"] = max(out["K7"]["max_abs_err"], check_every(
+                f"K7 gather_rows at W={w} ({4 * w} B rows of {tuple(t.shape)}, {where}): 4099 "
+                f"rows, indices 0, last, -1, 5003", lambda f: tg.gather_rows(t, ir, inflight=f),
+                tg.rows_plain(t, ir)))
+        del words
     return out
 
 
@@ -1273,7 +1314,9 @@ def phase_walk_build(train, card):
 
 def phase_walk(handle, test, gt_d, gt_i, card):
     """mode="lsh" on a clustered build (the walk) through the facade, gated;
-    its loop counts from a second call; then search_by_id."""
+    its loop counts from a second call; K7 at the walk's shape; then
+    search_by_id. Returns the walk's K7 launches and check_walk_gather's
+    readings."""
     import numpy as np
     import torch
 
@@ -1312,7 +1355,7 @@ def phase_walk(handle, test, gt_d, gt_i, card):
         fail(f"walk: recall@10 {rec:.4f} below 0.8 * delta")
     if not np.array_equal(i, i2):
         fail("the walk is not deterministic across two calls")
-    check_walk_gather(handle.index, card)
+    walk_k7 = check_walk_gather(handle.index, card)
     walk_ball_readings(handle.index, q, d, gd, np.asarray(st.clusters_visited))
 
     # search_by_id: k results, never the point itself, and search at k + 1
@@ -1329,14 +1372,16 @@ def phase_walk(handle, test, gt_d, gt_i, card):
         f"{agree}")
     if (bi == pts[:, None]).any() or not agree:
         fail("search_by_id returned a point's own id or disagrees with search at k + 1")
-    return launches
+    return launches, walk_k7
 
 
 def check_walk_gather(idx, card):
     """K7 against its plain version at the walk's shape: the built
     slot_records viewed as (L * nb, G * R) block rows (the walk's rec_view),
     one 256-query batch's 256 * WB indices, and ragged counts with indices 0,
-    last, -1 and n; then both timed on rotated index vectors."""
+    last, -1 and n, at every inflight; then timed as in phase_gather (device
+    ms and call ms) on rotated index vectors. Returns the kernels-line
+    numbers at this shape."""
     import torch
 
     from clann_tpu_torch.ops import gather as tg
@@ -1351,23 +1396,20 @@ def check_walk_gather(idx, card):
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     i0 = torch.randint(0, n_src, (rows,), dtype=torch.int32, generator=gen, device=DEVICE)
     shape = f"slot records {tuple(view.shape)} (L={L}, G={G}, {G * R * 4}-byte rows)"
-    kern = lambda i: tg.gather_rows(view, i)
+    kern = lambda i, **kw: tg.gather_rows(view, i, **kw)
     plain = lambda i: tg.rows_plain(view, i)
-    check_gather(f"K7 gather_rows at the walk's {rows} rows of {shape}",
-                 lambda: kern(i0), lambda: plain(i0))
+    err = check_every(f"K7 gather_rows at the walk's {rows} rows of {shape}",
+                      lambda f: kern(i0, inflight=f), plain(i0))
     for count in (rows + 37, 1001):
         ir = torch.randint(0, n_src, (count,), dtype=torch.int32, generator=gen, device=DEVICE)
         ir[:4] = torch.tensor([0, n_src - 1, -1, n_src], dtype=torch.int32, device=DEVICE)
-        check_gather(f"K7 gather_rows at the walk's shape, ragged: {count} rows, indices 0, "
-                     f"last, -1, {n_src}", lambda: kern(ir), lambda: plain(ir))
+        err = max(err, check_every(f"K7 gather_rows at the walk's shape, ragged: {count} rows, "
+                                   f"indices 0, last, -1, {n_src}", lambda f: kern(ir, inflight=f),
+                                   plain(ir)))
     sets = [(i,) for i in gr.rotated(i0, n_src, 20)]
-    ms, plain_ms = gr.time_iters(kern, sets, 3), gr.time_iters(plain, sets, 3)
-    lib_ms = gr.time_iters(lambda i: torch.index_select(view, 0, i), sets, 3)
-    b_ms, b_by = bound(0.0, rows * (2.0 * G * R * 4 + 4))
-    log(f"[gather-time] K7 gather_rows at the walk's {rows} rows of {shape}: kernel "
-        f"{ms:.4f} ms ({rows * G * R * 4 / ms / 1e6:.1f} GB/s; {b_ms / ms:.3f} of the "
-        f"{b_ms:.4f} ms bound by {b_by}), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
-        f"(one torch.index_select of the same rows) on {card}")
+    t = gr.kernel_times(kern, plain, lambda i: torch.index_select(view, 0, i), sets)
+    return dict(rows=rows, row_bytes=G * R * 4, max_abs_err=err, **gather_time_line(
+        "K7 gather_rows (walk)", rows, shape, G * R * 4, G * R * 4, t, card))
 
 
 def walk_ball_readings(idx, q, d, gt_d, visited):
@@ -1509,7 +1551,7 @@ def main():
     del lsh
     torch.cuda.empty_cache()
     walk = phase_walk_build(train, label)
-    launches_walk = phase_walk(walk, test, gt_d, gt_i, label)
+    launches_walk, walk_k7 = phase_walk(walk, test, gt_d, gt_i, label)
     if args.profile:
         profile_lsh(walk, test, "walk (lsh -> lsh-clustered)", sessions=1, host_ops=False)
     launches_k7 = launches_lsh + launches_walk
@@ -1533,19 +1575,14 @@ def main():
         ("gather_rows (K7)", "clann_tpu_torch/csrc/gather.cu",
          "scripts/exp_gather_rate.py:154", launches_k7, gather["K7"]),
     ]
-    log(json.dumps({"kernels": [{
-        "name": name,
-        "route": "cuda",
-        "source": source,
-        "replaces": replaces,
-        "launches": launches,
-        "max_abs_err": m["max_abs_err"],
-        "ms": m["ms"],
-        "plain_ms": m["plain_ms"],
-        "bound_ms": m["bound_ms"],
-        "bound_by": m["bound_by"],
-        "library_ms": m["library_ms"],
-    } for name, source, replaces, launches, m in kernels]}))
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    entries = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, **{k: m[k] for k in keys}}
+               for name, source, replaces, launches, m in kernels]
+    # K7's numbers above are at the engine's 512 B records; the walk, which
+    # makes most of its launches, gathers 192 B records
+    entries[-1]["walk"] = walk_k7
+    log(json.dumps({"kernels": entries}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

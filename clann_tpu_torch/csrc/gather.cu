@@ -14,19 +14,22 @@
 //   K5 clann_gather_group8  replaces exp_pallas_gather.py::make_group8_dma
 //      (:146): the aligned 8-row group holding row 8 * gidx[i] of a (T, W)
 //      table, span = stride = 8 * W.
-//   K6 clann_gather_flat1d  replaces exp_pallas_gather.py::make_flat1d_dma
+//   K6 clann_gather_warp    replaces exp_pallas_gather.py::make_flat1d_dma
 //      (:200): W-word slices of the flat (T * W,) view, span = stride = W.
-//   K7 clann_gather_rows    replaces scripts/exp_gather_rate.py::dma_gather
-//      (:154): rows of a (T, W) table, span = stride = W. It is the global
-//      LSH engine's record gather (clann_tpu/ops/global_query.py:284): W =
-//      G * R words, 128 words = 512 B at G = 32, R = 4, and 131,072 rows per
-//      loop iteration of a 256-query batch.
+//   K7 clann_gather_warp    replaces scripts/exp_gather_rate.py::dma_gather
+//      (:154): rows of a (T, W) table, span = stride = W. It is the record
+//      gather of both LSH engines: the global engine's (ops/global_query.py,
+//      512 B rows at G = 32, R = 4, 131,072 per loop iteration of a
+//      256-query batch) and the clustered walk's (ops/query.py, 192 B rows
+//      at G = 16, R = 3, 65,536 per iteration).
 //
-// What bounds them on the card: random reads of whole rows from device
-// memory (3.35 TB/s on an H100 SXM) and the sequential write of the output.
-// Every row is an independent random access whose index must be read
-// first, so the rate is set by how many bytes are in flight and by whether
-// every 32-byte sector fetched is used.
+// What bounds them on the card: bytes. Random reads of whole rows from
+// device memory (3.35 TB/s on an H100 SXM) and the sequential write of the
+// output. Every row is an independent random access whose index must be
+// read first, so the rate is set by how many bytes are in flight, by
+// whether every 32-byte sector fetched is used and, for the small calls of
+// the walk (12.6 MB read, a 7.6 us bound), by how much of the index and
+// data round trips overlap.
 //
 // Two kernels:
 //
@@ -50,17 +53,37 @@
 //   Rows outside the source are stored from a stage of zeros. Bulk copies
 //   need 16-byte aligned addresses and sizes: a row is a multiple of 16
 //   bytes, and a source or output that is not 16-byte aligned is refused.
-// - gather_kernel (K6, K7: rows of 512 B and less, e.g. the walk's 192 B
-//   records) copies a row with a warp in pieces of 32 lanes x 16 bytes (one
-//   512-byte piece per warp step), neighbouring lanes on neighbouring
-//   addresses, so every sector fetched is used. Rows narrower than 512 B use
-//   fewer lanes per piece and the warp copies several rows per step. Each
-//   warp issues the loads of INFLIGHT pieces (their indices first, then the
-//   data) before it stores any of them, so INFLIGHT independent reads per
-//   lane are in flight. A grid-stride loop walks the pieces. Rows whose byte
-//   width, stride or base address is not a multiple of 16 take the instance
-//   with 4-byte lanes (e.g. 12-byte records at G = 1, R = 3); every other
-//   row takes the 16-byte one.
+// - warp_gather_kernel (K6, K7: rows of 512 B and less) copies with the
+//   lanes of a warp, through registers. A warp takes a run of `run`
+//   consecutive output rows (at most 32) and copies it as one flat stream
+//   of units: 16 bytes, or 4 where a row's width or a base address is not
+//   a multiple of 16 bytes (e.g. 12-byte records at G = 1, R = 3). Unit
+//   p of the run is unit p % su of the run's row p / su (su: units per row),
+//   and lane l copies units l, l + 32, l + 64, ... The launch plan
+//   (ops/gather.py::warp_plan) picks `run` so that run * su is a multiple
+//   of 32: the fewest rows that fill whole warp steps, 32 / gcd(su, 32),
+//   doubled while each lane's units stay within `inflight` and the call's
+//   runs still give every warp of a full grid one. So every lane
+//   is busy at every width, and the run's output, which is contiguous, is
+//   written by stores of 32 neighbouring units (512 B at 16-byte units).
+//   The kernel this one replaced gave a row the next power of two of lanes
+//   at or above its width: at the walk's 192 B rows (12 units) 4 of every 16
+//   lanes idled, at 12-byte rows 1 of 4.
+//   The run's indices come in one coalesced load, lane r holding row r's,
+//   checked against [0, n_src) once (-1: a row of zeros); the lane that
+//   copies a unit takes its row's index by __shfl_sync, and moves its
+//   (row, unit) pair on by 32 units with an add and a compare, never a
+//   division. A lane issues every load of its run before its first store
+//   (at most INFLIGHT at once, in waves where a run's units per lane exceed
+//   it; the plan launches the instance with the fewest loads in flight
+//   that hold a lane's units, and 16 16-byte loads at most, so registers,
+//   and the warps an SM keeps, follow the rows: 32 take 128 registers and
+//   leave one CTA per SM), and loads the next run's indices before it
+//   stores, so a warp that takes several runs (a grid-stride loop) overlaps
+//   one run's index trip with the other's data trip. The kernel it replaced
+//   loaded each unit's index per lane and issued the unit's data load only
+//   once the index was back, and stored nothing until every load of its
+//   unit of work was back.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,19 +93,21 @@
 namespace clann {
 namespace {
 
-constexpr int GATHER_THREADS = 256;
+// ---- warp_gather_kernel (K6, K7) -------------------------------------------
 
-struct GatherArgs {
+constexpr int WARP_THREADS = 256;  // ops/gather.py::WARP_THREADS
+
+struct WarpArgs {
   const void* src;
   void* dst;
   const int32_t* idx;
   long long n_src;     // rows of the source view
-  long long n_items;   // n_rows * cpr
-  long long su;        // span in vector units
-  long long stride_u;  // stride in vector units
-  int lpr;             // lanes per piece (power of two <= 32)
-  int lpr_log;
-  long long cpr;       // pieces per row
+  long long n_rows;    // rows gathered
+  long long n_runs;    // ceil(n_rows / run)
+  int su;              // units per row
+  int run;             // rows per run (<= 32)
+  int per_lane;        // units per lane in a whole run: run * su / 32
+  int dr, de;          // 32 units on: dr rows and de units (32 = dr * su + de)
 };
 
 template <typename V>
@@ -92,114 +117,73 @@ __device__ __forceinline__ uint4 zero_vec<uint4>() { return make_uint4(0u, 0u, 0
 template <>
 __device__ __forceinline__ uint32_t zero_vec<uint32_t>() { return 0u; }
 
-// Row and element (in vector units) of piece `item` for this lane; false
-// where the lane lies past the row's span or the item past the end.
-__device__ __forceinline__ bool locate(const GatherArgs& a, long long item, int sub,
-                                       long long& row, long long& e) {
-  if (item >= a.n_items) return false;
-  if (a.cpr == 1) {
-    row = item;
-    e = sub;
-  } else {
-    row = item / a.cpr;
-    e = (item - row * a.cpr) * a.lpr + sub;
-  }
-  return e < a.su;
+// The source row of row `lane` of run `run` (one coalesced load across the
+// warp), or -1 where it lies outside the source, past the run or past the
+// end.
+__device__ __forceinline__ int32_t run_index(const WarpArgs& a, long long run, int lane) {
+  if (run >= a.n_runs || lane >= a.run) return -1;
+  const long long row = run * a.run + lane;
+  if (row >= a.n_rows) return -1;
+  const int32_t s = __ldg(a.idx + row);
+  return s >= 0 && s < a.n_src ? s : -1;
 }
 
 template <typename V, int INFLIGHT>
-__global__ void __launch_bounds__(GATHER_THREADS) gather_kernel(GatherArgs a) {
+__global__ void __launch_bounds__(WARP_THREADS) warp_gather_kernel(WarpArgs a) {
   const V* __restrict__ src = static_cast<const V*>(a.src);
   V* __restrict__ dst = static_cast<V*>(a.dst);
   const int lane = threadIdx.x & 31;
-  const int group = lane >> a.lpr_log;  // which piece of the warp step
-  const int sub = lane & (a.lpr - 1);   // lane within the piece
-  const int per_step = 32 >> a.lpr_log;
-  const long long per_unit = static_cast<long long>(INFLIGHT) * per_step;
-  const long long n_warps = (static_cast<long long>(gridDim.x) * GATHER_THREADS) >> 5;
-  long long unit = (static_cast<long long>(blockIdx.x) * GATHER_THREADS + threadIdx.x) >> 5;
-  for (; unit * per_unit < a.n_items; unit += n_warps) {
-    const long long item0 = unit * per_unit + group;
-    int32_t s[INFLIGHT];  // row indices (-1 where the lane has no piece)
+  const long long n_warps = static_cast<long long>(gridDim.x) * (WARP_THREADS / 32);
+  long long run = (static_cast<long long>(blockIdx.x) * WARP_THREADS + threadIdx.x) >> 5;
+  const int r_lane = lane / a.su, e_lane = lane % a.su;  // the lane's first unit of a run
+  int32_t next = run_index(a, run, lane);
+  for (; run < a.n_runs; run += n_warps) {
+    const int32_t mine = next;  // the source row of the run's row `lane`
+    const long long row0 = run * a.run;
+    const int units = static_cast<int>(min(static_cast<long long>(a.run), a.n_rows - row0)) * a.su;
+    V* out = dst + row0 * a.su;  // the run's output: `units` contiguous units
+    int r = r_lane, e = e_lane, u = lane;
+    for (int w = 0; w < a.per_lane; w += INFLIGHT, u += 32 * INFLIGHT) {
+      V v[INFLIGHT];
 #pragma unroll
-    for (int k = 0; k < INFLIGHT; ++k) {
-      long long row, e;
-      s[k] = -1;
-      if (locate(a, item0 + static_cast<long long>(k) * per_step, sub, row, e))
-        s[k] = __ldg(a.idx + row);
-    }
-    V v[INFLIGHT];
+      for (int k = 0; k < INFLIGHT; ++k) {
+        const int32_t s = __shfl_sync(0xffffffffu, mine, r & 31);  // every lane takes part
+        v[k] = zero_vec<V>();
+        if (w + k < a.per_lane && u + 32 * k < units && s >= 0)
+          v[k] = __ldg(src + static_cast<long long>(s) * a.su + e);
+        e += a.de;
+        r += a.dr;
+        if (e >= a.su) {
+          e -= a.su;
+          ++r;
+        }
+      }
+      if (w == 0) next = run_index(a, run + n_warps, lane);  // ahead of this run's stores
 #pragma unroll
-    for (int k = 0; k < INFLIGHT; ++k) {
-      long long row, e;
-      v[k] = zero_vec<V>();
-      if (locate(a, item0 + static_cast<long long>(k) * per_step, sub, row, e) &&
-          s[k] >= 0 && s[k] < a.n_src)
-        v[k] = __ldg(src + s[k] * a.stride_u + e);
-    }
-#pragma unroll
-    for (int k = 0; k < INFLIGHT; ++k) {
-      long long row, e;
-      if (locate(a, item0 + static_cast<long long>(k) * per_step, sub, row, e))
-        dst[row * a.su + e] = v[k];
+      for (int k = 0; k < INFLIGHT; ++k)
+        if (w + k < a.per_lane && u + 32 * k < units) out[u + 32 * k] = v[k];
     }
   }
 }
 
 template <typename V>
-int launch_vec(const GatherArgs& a, int inflight, unsigned grid, cudaStream_t stream) {
+int launch_warp_vec(const WarpArgs& a, int inflight, unsigned grid, cudaStream_t stream) {
   switch (inflight) {
-    case 1: gather_kernel<V, 1><<<grid, GATHER_THREADS, 0, stream>>>(a); break;
-    case 2: gather_kernel<V, 2><<<grid, GATHER_THREADS, 0, stream>>>(a); break;
-    case 4: gather_kernel<V, 4><<<grid, GATHER_THREADS, 0, stream>>>(a); break;
-    case 8: gather_kernel<V, 8><<<grid, GATHER_THREADS, 0, stream>>>(a); break;
-    case 16: gather_kernel<V, 16><<<grid, GATHER_THREADS, 0, stream>>>(a); break;
-    case 32: gather_kernel<V, 32><<<grid, GATHER_THREADS, 0, stream>>>(a); break;
+    case 1: warp_gather_kernel<V, 1><<<grid, WARP_THREADS, 0, stream>>>(a); break;
+    case 2: warp_gather_kernel<V, 2><<<grid, WARP_THREADS, 0, stream>>>(a); break;
+    case 4: warp_gather_kernel<V, 4><<<grid, WARP_THREADS, 0, stream>>>(a); break;
+    case 8: warp_gather_kernel<V, 8><<<grid, WARP_THREADS, 0, stream>>>(a); break;
+    case 16: warp_gather_kernel<V, 16><<<grid, WARP_THREADS, 0, stream>>>(a); break;
+    case 32:  // 4-byte units only: ops/gather.py::warp_plan holds 16-byte ones 16 at most
+      if constexpr (sizeof(V) == 4) {
+        warp_gather_kernel<V, 32><<<grid, WARP_THREADS, 0, stream>>>(a);
+        break;
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
-
-// The shared launcher: `span_w` / `stride_w` in 32-bit words; returns a
-// cudaError_t code (0 = launched).
-int launch_gather(const void* src, long long n_src, long long span_w, long long stride_w,
-                  const void* idx, long long n_rows, void* dst, int inflight, int device,
-                  void* stream) {
-  if (span_w < 1 || stride_w < span_w || n_src < 0 || n_rows < 0 || !src || !dst || !idx)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rows == 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const bool vec16 = span_w % 4 == 0 && stride_w % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(dst) % 16 == 0;
-  GatherArgs a;
-  a.src = src;
-  a.dst = dst;
-  a.idx = static_cast<const int32_t*>(idx);
-  a.n_src = n_src;
-  a.su = vec16 ? span_w / 4 : span_w;
-  a.stride_u = vec16 ? stride_w / 4 : stride_w;
-  a.lpr = 1;
-  a.lpr_log = 0;
-  while (a.lpr < 32 && a.lpr < a.su) {
-    a.lpr <<= 1;
-    ++a.lpr_log;
-  }
-  a.cpr = (a.su + a.lpr - 1) / a.lpr;
-  a.n_items = n_rows * a.cpr;
-  const long long per_block =
-      static_cast<long long>(inflight) * (32 >> a.lpr_log) * (GATHER_THREADS / 32);
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  long long grid = (a.n_items + per_block - 1) / per_block;
-  if (grid > 8LL * sms) grid = 8LL * sms;  // the grid-stride loop covers the rest
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec16 ? launch_vec<uint4>(a, inflight, static_cast<unsigned>(grid), s)
-               : launch_vec<uint32_t>(a, inflight, static_cast<unsigned>(grid), s);
-}
-
 
 // ---- bulk_gather_kernel (K4, K5) -------------------------------------------
 
@@ -379,21 +363,47 @@ int clann_gather_group8(const void* table, long long n_table_rows, int width, co
                             stream);
 }
 
-// K6. flat: (n_words,) words; idx: (n,) int32 slice ids (words
-// [idx * width, (idx + 1) * width)); out: (n * width,).
-int clann_gather_flat1d(const void* flat, long long n_words, int width, const void* idx,
-                        long long n, void* out, int inflight, int device, void* stream) {
-  if (width < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return clann::launch_gather(flat, n_words / width, width, width, idx, n, out, inflight, device,
-                              stream);
-}
-
-// K7. src: (n_src_rows, width) words; idx: (n,) int32 row ids; out:
-// (n, width).
-int clann_gather_rows(const void* src, long long n_src_rows, int width, const void* idx,
-                      long long n, void* out, int inflight, int device, void* stream) {
-  return clann::launch_gather(src, n_src_rows, width, width, idx, n, out, inflight, device,
-                              stream);
+// K6 and K7 with the plan of ops/gather.py::warp_plan, packed with the
+// device into one word by ops/gather.py::pack_warp_plan: su (units per
+// row) in bits 0-30, log2 of `run` (rows per run, 1 to 32) in 32-34, log2
+// of the instance's `inflight` (loads in flight per lane: 1 to 16, or 32
+// with 4-byte units) in 35-37, vec16 (16-byte units, else 4) in 38, the
+// grid (CTAs of WARP_THREADS) in 39-55, the device in 56-62. src: (n_src,
+// su) units; idx: (n_rows,) int32 row ids; dst: (n_rows, su) units. With
+// vec16, src and dst must be 16-byte aligned.
+int clann_gather_warp(const void* src, long long n_src, const void* idx, long long n_rows,
+                      void* dst, long long word, void* stream) {
+  const unsigned long long w = static_cast<unsigned long long>(word);
+  const int su = static_cast<int>(w & 0x7fffffffu);
+  const int run = 1 << ((w >> 32) & 7);
+  const int inflight = 1 << ((w >> 35) & 7);
+  const bool vec16 = (w >> 38) & 1;
+  const int grid = static_cast<int>((w >> 39) & 0x1ffff);
+  const int device = static_cast<int>((w >> 56) & 0x7f);
+  if (su < 1 || run > 32 || (static_cast<long long>(run) * su) % 32 != 0 || grid < 1 ||
+      n_src < 0 || n_rows < 0 || !src || !dst || !idx)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec16 && (reinterpret_cast<uintptr_t>(src) % 16 != 0 ||
+                reinterpret_cast<uintptr_t>(dst) % 16 != 0))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (n_rows == 0) return 0;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  clann::WarpArgs a;
+  a.src = src;
+  a.dst = dst;
+  a.idx = static_cast<const int32_t*>(idx);
+  a.n_src = n_src;
+  a.n_rows = n_rows;
+  a.n_runs = (n_rows + run - 1) / run;
+  a.su = su;
+  a.run = run;
+  a.per_lane = static_cast<int>(static_cast<long long>(run) * su / 32);
+  a.dr = 32 / su;
+  a.de = 32 % su;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec16 ? clann::launch_warp_vec<uint4>(a, inflight, static_cast<unsigned>(grid), s)
+               : clann::launch_warp_vec<uint32_t>(a, inflight, static_cast<unsigned>(grid), s);
 }
 
 }  // extern "C"

@@ -121,10 +121,8 @@ def load_library() -> ctypes.CDLL:
     lib.clann_block_scan_packed.restype = i32
     lib.clann_gather_pages.argtypes = [vp, i64, vp, i64, vp, i32, i32, vp]
     lib.clann_gather_group8.argtypes = [vp, i64, i32, vp, i64, vp, i32, i32, vp]
-    lib.clann_gather_flat1d.argtypes = [vp, i64, i32, vp, i64, vp, i32, i32, vp]
-    lib.clann_gather_rows.argtypes = [vp, i64, i32, vp, i64, vp, i32, i32, vp]
-    for fn in (lib.clann_gather_pages, lib.clann_gather_group8, lib.clann_gather_flat1d,
-               lib.clann_gather_rows):
+    lib.clann_gather_warp.argtypes = [vp, i64, vp, i64, vp, i64, vp]
+    for fn in (lib.clann_gather_pages, lib.clann_gather_group8, lib.clann_gather_warp):
         fn.restype = i32
     lib.clann_cuda_error_string.argtypes = [i32]
     lib.clann_cuda_error_string.restype = ctypes.c_char_p

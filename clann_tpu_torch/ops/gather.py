@@ -20,15 +20,22 @@ the plain versions alike. Words may be int32, uint32 or float32 tensors
 (the bits are copied). `inflight` (1, 2, 4, 8, 16 or 32) is the
 counterpart of the TPU kernels' NSEM: for K4 and K5 (bulk copies through a
 shared-memory ring) the rows each CTA has in flight, for K6 and K7 (a warp
-copy) the pieces each warp has in flight. K4 and K5 copy with the TMA, which
-needs 16-byte aligned addresses: on the card they refuse a source whose
-base address is not a multiple of 16 bytes (e.g. a view at an odd word
-offset).
+copy, `warp_plan`) the loads each lane has in flight. K4 and K5 copy with
+the TMA, which needs 16-byte aligned addresses: on the card they refuse a
+source whose base address is not a multiple of 16 bytes (e.g. a view at an
+odd word offset). K6 and K7 take any source, in 4-byte units where a row's
+width or a base address is not a multiple of 16 bytes.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+from typing import NamedTuple
+
 import torch
+
+from clann_tpu_torch.ops import _build
 
 # Launches of each kernel made by its wrapper (the plain versions never
 # count). A run resets them and reads them back to show that its path went
@@ -40,6 +47,12 @@ ROWS_LAUNCHES = 0  # K7
 
 INFLIGHT_CHOICES = (1, 2, 4, 8, 16, 32)
 BULK_INFLIGHT = 32  # K4's and K5's default: rows in flight per CTA (the fastest on an H100)
+WARP_INFLIGHT = 8  # K6's and K7's default: loads in flight per lane at most
+# 16-byte loads a lane holds at once, at most: 32 take 128 registers and
+# leave one CTA of 8 warps per SM, which is slower at 512-byte rows
+WARP_VEC16_INFLIGHT = 16
+WARP_THREADS = 256  # threads per CTA of warp_gather_kernel (csrc/gather.cu)
+WARP_CTAS_PER_SM = 8  # K6 / K7 grid: CTAs per SM at most; a warp loops over the runs beyond
 
 
 def reset_launches() -> None:
@@ -73,15 +86,118 @@ def _rows_plain(src2d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.masked_fill(~valid[:, None], 0)
 
 
-def _launch(fn_name: str, args, src: torch.Tensor, what: str) -> None:
+# the library's launchers, bound once the library is loaded (a wrapper's call
+# then costs one dict lookup, not a load and an attribute lookup)
+_LAUNCHERS: dict = {}
+
+
+def _launcher(fn_name: str, src: torch.Tensor):
     if not src.is_cuda:
         raise ValueError(f"unsupported device {src.device}")
-    from clann_tpu_torch.ops import _build
+    fn = _LAUNCHERS.get(fn_name)
+    if fn is None:
+        fn = _LAUNCHERS[fn_name] = getattr(_build.load_library(), fn_name)
+    return fn
 
-    lib = _build.load_library()
-    code = getattr(lib, fn_name)(*args, src.device.index,
-                                 torch.cuda.current_stream(src.device).cuda_stream)
-    _build.check(lib, code, what)
+
+def _stream(device_index: int) -> int:
+    """The current stream of the card, as a raw pointer (the capture
+    stream inside `torch.cuda.graph`), without building a Stream object."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+def _launch(fn_name: str, args, src: torch.Tensor, what: str) -> None:
+    fn = _launcher(fn_name, src)
+    dev = src.get_device()
+    code = fn(*args, dev, _stream(dev))
+    if code:
+        _build.check(_build.load_library(), code, what)
+
+
+class WarpPlan(NamedTuple):
+    """The launch of warp_gather_kernel (K6, K7) for one call."""
+    vec16: bool  # 16-byte units (else 4-byte)
+    su: int  # units per row
+    run: int  # rows per run, a power of two <= 32
+    per_lane: int  # units each lane copies in a whole run: run * su / 32
+    inflight: int  # the kernel instance: loads in flight per lane
+    n_runs: int  # runs of the call, ceil(n_rows / run)
+    grid: int  # CTAs of WARP_THREADS
+
+
+def fill_warps(sms: int) -> int:
+    """Warps of warp_gather_kernel's largest grid on a card of `sms` SMs."""
+    return sms * WARP_CTAS_PER_SM * (WARP_THREADS // 32)
+
+
+def warp_plan(width: int, n_rows: int, inflight: int, *, aligned16: bool,
+              sms: int) -> WarpPlan:
+    """Rows of `width` words copied in 16-byte units where the width and
+    both base addresses (`aligned16`) allow, else in 4-byte units. A run
+    takes the fewest rows whose units fill whole warp steps,
+    32 / gcd(su, 32), so no lane idles, doubled while every lane's units
+    stay within `inflight`, the run within 32 rows (one index per lane) and
+    the call's runs at least as many as the warps of a full grid
+    (`fill_warps`): fewer, longer runs leave warps idle, as 16-row runs did
+    at the walk's 65,536 rows of 192 B (3% slower than 8-row runs on an
+    H100, PERF.md). Where even the fewest rows exceed `inflight` units
+    per lane, a lane copies them in waves. The kernel instance holds the
+    fewest loads in flight (a power of two) that take a lane's units, at
+    most `inflight` and at most WARP_VEC16_INFLIGHT 16-byte loads: its
+    registers, and so the warps an SM keeps, follow what the rows need. The
+    grid covers the runs with one warp each, at most WARP_CTAS_PER_SM CTAs
+    per SM."""
+    if width < 1 or inflight not in INFLIGHT_CHOICES:
+        raise ValueError(f"width {width}, inflight {inflight}")
+    vec16 = aligned16 and width % 4 == 0
+    su = width // 4 if vec16 else width
+    run = 32 // math.gcd(su, 32)
+    warps = WARP_THREADS // 32
+    while (run < 32 and 2 * run * su <= 32 * inflight
+           and -(-n_rows // (2 * run)) >= fill_warps(sms)):
+        run *= 2
+    if run * su >= 2**31:
+        raise ValueError(f"rows of {width} words are too wide for the warp gather")
+    n_runs = -(-n_rows // run)
+    grid = max(1, min(-(-n_runs // warps), sms * WARP_CTAS_PER_SM))
+    per_lane = run * su // 32
+    cap = min(inflight, WARP_VEC16_INFLIGHT) if vec16 else inflight
+    instance = min(cap, 1 << (per_lane - 1).bit_length())
+    return WarpPlan(vec16, su, run, per_lane, instance, n_runs, grid)
+
+
+def pack_warp_plan(p: WarpPlan, device_index: int) -> int:
+    """A plan and its card as the one 64-bit word clann_gather_warp takes
+    (csrc/gather.cu::clann_gather_warp): su in bits 0-30, log2 run in 32-34, log2
+    of the instance's inflight in 35-37, vec16 in 38, the grid in 39-55,
+    the device in 56-62."""
+    if p.grid >= 1 << 17 or not 0 <= device_index < 1 << 7:
+        raise ValueError(f"grid {p.grid} or device {device_index} out of range")
+    return (p.su | (p.run.bit_length() - 1) << 32 | (p.inflight.bit_length() - 1) << 35
+            | int(p.vec16) << 38 | p.grid << 39 | device_index << 56)
+
+
+@functools.lru_cache(maxsize=1024)
+def _warp_word(width: int, n_rows: int, inflight: int, aligned16: bool,
+               device_index: int) -> int:
+    """warp_plan's packed launch word for one call shape on one card, kept:
+    the LSH loops repeat a few shapes thousands of times, and a wrapper's
+    call then costs one lookup, not a plan."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return pack_warp_plan(warp_plan(width, n_rows, inflight, aligned16=aligned16, sms=sms),
+                          device_index)
+
+
+def _warp_gather(src: torch.Tensor, n_src: int, width: int, idx: torch.Tensor,
+                 out: torch.Tensor, inflight: int, what: str) -> None:
+    """Launch warp_gather_kernel: out (n, width) words = rows of `width`
+    words of the contiguous `src`, `n_src` of them, picked by idx."""
+    fn = _launcher("clann_gather_warp", src)
+    sp, op, n, dev = src.data_ptr(), out.data_ptr(), idx.shape[0], src.get_device()
+    code = fn(sp, n_src, idx.data_ptr(), n, op,
+              _warp_word(width, n, inflight, (sp | op) % 16 == 0, dev), _stream(dev))
+    if code:
+        _build.check(_build.load_library(), code, what)
 
 
 def _cuda_operands(src: torch.Tensor, idx: torch.Tensor) -> None:
@@ -173,7 +289,7 @@ def flat1d_plain(flat: torch.Tensor, idx: torch.Tensor, *, width: int) -> torch.
 
 
 def gather_flat1d(flat: torch.Tensor, idx: torch.Tensor, *, width: int,
-                  inflight: int = 8) -> torch.Tensor:
+                  inflight: int = WARP_INFLIGHT) -> torch.Tensor:
     """K6: out[i W : (i+1) W] = flat[idx[i] W : (idx[i]+1) W], (n W,)."""
     global FLAT1D_LAUNCHES
 
@@ -186,9 +302,7 @@ def gather_flat1d(flat: torch.Tensor, idx: torch.Tensor, *, width: int,
     _cuda_operands(f, idx)
     out = torch.empty((idx.shape[0] * width,), dtype=torch.int32, device=f.device)
     if idx.numel():
-        _launch("clann_gather_flat1d", (f.data_ptr(), f.shape[0], width, idx.data_ptr(),
-                                        idx.shape[0], out.data_ptr(), inflight),
-                f, "clann_gather_flat1d launch")
+        _warp_gather(f, f.shape[0] // width, width, idx, out, inflight, "K6 gather_flat1d launch")
         FLAT1D_LAUNCHES += 1
     return out.view(flat.dtype)
 
@@ -200,7 +314,8 @@ def rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return _rows_plain(_words(table, "table"), idx).view(table.dtype)
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor, *, inflight: int = 8) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, idx: torch.Tensor, *,
+                inflight: int = WARP_INFLIGHT) -> torch.Tensor:
     """K7: out[r] = table[idx[r]] for a (T, W) table, (n, W)."""
     global ROWS_LAUNCHES
 
@@ -214,8 +329,6 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor, *, inflight: int = 8) ->
     T, W = t.shape
     out = torch.empty((idx.shape[0], W), dtype=torch.int32, device=t.device)
     if idx.numel():
-        _launch("clann_gather_rows", (t.data_ptr(), T, W, idx.data_ptr(), idx.shape[0],
-                                      out.data_ptr(), inflight),
-                t, "clann_gather_rows launch")
+        _warp_gather(t, T, W, idx, out, inflight, "K7 gather_rows launch")
         ROWS_LAUNCHES += 1
     return out.view(table.dtype)

@@ -1,7 +1,8 @@
 """Gather-rate probe on one GPU: the candidate-record gather of the LSH
-engine, plain PyTorch against the hand-written kernels K4-K7.
+engines, plain PyTorch against the hand-written kernels K4-K7.
 
     python -m clann_tpu_torch.probes.gather_rate [--iters 20] [--reps 6] [--out PATH]
+    python -m clann_tpu_torch.probes.gather_rate --kernel-times [--out PATH]
 
 The port of scripts/exp_gather_rate.py and scripts/exp_pallas_gather.py
 (whose TPU results are GATHER_RATE.json and PALLAS_GATHER.json; this probe
@@ -18,12 +19,24 @@ writes no file unless `--out` names one):
 
 each kernel at inflight 8, 16 and 32 (the TPU kernels' NSEM values), with
 131,072 rows per iteration. Every row runs `iters` iterations, each on its
-own rotated index vector (made before the timing), timed by CUDA events;
-the best of `reps` is kept. Fields per row, as in the scripts: ms_per_iter,
-ns_per_row, gbps (bytes moved), useful_gbps (bytes of the wanted rows) and,
-for kernels, correct (bit-equal to the plain version on the first index
-vector). Needs a CUDA device; the card's name and power limit are printed
-and recorded beside the numbers.
+own rotated index vector (made before the timing), timed by CUDA events
+around a Python loop of the calls (`time_iters`); the best of `reps` is
+kept. Fields per row, as in the scripts: ms_per_iter, ns_per_row, gbps
+(bytes moved), useful_gbps (bytes of the wanted rows) and, for kernels,
+correct (bit-equal to the plain version on the first index vector).
+
+`--kernel-times` runs `path_times` instead: `kernel_times` of K7 at the
+global engine's 512-byte records and at the clustered walk's 192-byte
+records (L = 50, G = 16, R = 3, 65,536 rows per iteration) and of K6 on the
+(T, 128) table above. `kernel_times` is the timing that `chip_smoke.py`'s
+`[gather-time]` lines use: a wrapper, its plain version and one
+`torch.index_select` on the same rotated index vectors, each timed twice,
+device ms by `time_graph` (the replay of a CUDA graph of the calls: the
+device's time alone) and call ms by `time_iters` (the host's work per call
+included), and the wrapper's device ms at every inflight.
+
+Needs a CUDA device; the card's name and power limit are printed and
+recorded beside the numbers.
 """
 
 from __future__ import annotations
@@ -39,6 +52,7 @@ import torch
 from clann_tpu_torch.ops import gather as tg
 
 ROWS = 131_072  # gathered rows per iteration (both scripts)
+PEAK_BYTES_PER_S = 3.35e12  # one H100 SXM's device memory (NVIDIA's data sheet)
 N_SLOTS, L_PROBE, R = 1_200_000, 50, 4  # exp_gather_rate.py
 GS = (8, 16, 32, 64, 128)
 K7_GS = (16, 64)
@@ -47,6 +61,10 @@ NSEMS = (8, 16, 32)
 TAKE_SLOTS, TAKE_G = 1_183_520, 32
 # the global engine at the LSH configuration (L 128, G 32)
 ENGINE_L, ENGINE_G = 128, 32
+# the clustered walk (the README quickstart's L 50, gather_block 16, 3-word
+# slot records) on 1,183,514 points: one 256-query batch gathers 256 *
+# chunk 512 * filter_expand 8 / G = 65,536 block rows of 192 B
+WALK_L, WALK_G, WALK_R, WALK_POINTS, WALK_ROWS = 50, 16, 3, 1_183_514, 65_536
 
 
 def rate_row(ms: float, *, rows: int, row_bytes: int, useful_bytes: int, **extra) -> dict:
@@ -68,8 +86,9 @@ def rotated(idx: torch.Tensor, n: int, iters: int) -> List[torch.Tensor]:
 
 
 def time_iters(fn: Callable, args_per_iter: List, reps: int) -> float:
-    """Best-of-`reps` mean ms of one fn(*args) call, CUDA events over one
-    pass of every iteration's arguments (after a warm-up pass)."""
+    """Best-of-`reps` mean ms of one fn(*args) call, CUDA events around a
+    Python loop over every iteration's arguments (after a warm-up pass):
+    the call's time as its caller sees it, the host's work included."""
     for a in args_per_iter:
         fn(*a)
     torch.cuda.synchronize()
@@ -80,6 +99,33 @@ def time_iters(fn: Callable, args_per_iter: List, reps: int) -> float:
         start.record()
         for a in args_per_iter:
             fn(*a)
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / len(args_per_iter))
+    return best
+
+
+def time_graph(fn: Callable, args_per_iter: List, reps: int) -> float:
+    """Best-of-`reps` mean ms of one fn(*args) call on the device alone: one
+    pass over every iteration's arguments (made before; the outputs are
+    allocated inside) is captured in a CUDA graph after a warm-up pass, and
+    the graph's replay is timed by CUDA events. The wrappers launch on the
+    current stream, which is the capture stream inside `torch.cuda.graph`."""
+    for a in args_per_iter:
+        fn(*a)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for a in args_per_iter:
+            fn(*a)
+    graph.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end) / len(args_per_iter))
@@ -166,6 +212,75 @@ def run(device="cuda", *, iters: int = 20, reps: int = 6, rows: int = ROWS,
     return res
 
 
+def kernel_times(kern: Callable, plain: Callable, library: Callable, sets: List,
+                 reps: int = 3) -> Dict[str, dict]:
+    """A gather wrapper `kern(i, **kw)`, its plain version and its library
+    call on the same index vectors, in turns (plain, kernel, kernel, plain,
+    library), each timed two ways: device ms (`time_graph`) and call ms
+    (`time_iters`); then the wrapper's device ms at every inflight.
+    {"kernel" | "plain" | "library": {device_ms, call_ms (means),
+    device_each}, "inflight": {inflight: device ms}}."""
+    runs: Dict[str, list] = {}
+    for name, fn in (("plain", plain), ("kernel", kern), ("kernel", kern), ("plain", plain),
+                     ("library", library)):
+        runs.setdefault(name, []).append((time_graph(fn, sets, reps), time_iters(fn, sets, reps)))
+    res: Dict[str, dict] = {
+        name: dict(device_ms=sum(d for d, _ in t) / len(t), call_ms=sum(c for _, c in t) / len(t),
+                   device_each=[d for d, _ in t]) for name, t in runs.items()}
+    res["inflight"] = {f: time_graph(lambda i, f=f: kern(i, inflight=f), sets, reps)
+                       for f in tg.INFLIGHT_CHOICES}
+    return res
+
+
+def path_times(device="cuda", *, iters: int = 20, reps: int = 3,
+               log: Optional[Callable[[str], None]] = None) -> Dict[str, dict]:
+    """kernel_times of K7 at the engine's and the walk's records and of K6,
+    on random words; {tag: its readings with rows, row_bytes, bound_ms (each
+    wanted row read once and written once, and the indices) and correct
+    (the wrapper's default equal to the plain version)}."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    res: Dict[str, dict] = {}
+
+    def shape(tag, table, kern, plain, rows):
+        n_src, W = table.shape
+        sets = [(i,) for i in rotated(torch.randint(0, n_src, (rows,), generator=gen,
+                                                    device=dev), n_src, iters)]
+        r = kernel_times(kern, plain, lambda i: torch.index_select(table, 0, i), sets, reps)
+        bound = rows * (2.0 * W * 4 + 4) / PEAK_BYTES_PER_S * 1e3
+        r.update(rows=rows, row_bytes=W * 4, bound_ms=bound,
+                 correct=bool(torch.equal(kern(sets[0][0]), plain(sets[0][0]))))
+        res[tag] = r
+        if log:
+            k = r["kernel"]
+            log(f"[kernel-times] {tag}: device {k['device_ms']:.4f} ms "
+                f"({bound / k['device_ms']:.3f} of the {bound:.4f} ms bound), call {k['call_ms']:.4f} ms; by inflight "
+                + ", ".join(f"{f}: {ms:.4f}" for f, ms in r["inflight"].items())
+                + f"; plain {r['plain']['device_ms']:.4f} / {r['plain']['call_ms']:.4f}, "
+                f"index_select {r['library']['device_ms']:.4f} / {r['library']['call_ms']:.4f}; "
+                f"correct {r['correct']}")
+
+    # the global engine's records: (L * nb, G * R) at L 128, G 32 (512 B)
+    table = random_words((ENGINE_L * (TAKE_SLOTS // ENGINE_G), ENGINE_G * R), gen, dev)
+    shape(f"k7_engine_L{ENGINE_L}_G{ENGINE_G}", table,
+          lambda i, **kw: tg.gather_rows(table, i, **kw), lambda i: tg.rows_plain(table, i), ROWS)
+    del table
+    # the clustered walk's slot records: (L * nb, G * R) at L 50, G 16, R 3
+    table = random_words((WALK_L * -(-WALK_POINTS // WALK_G), WALK_G * WALK_R), gen, dev)
+    shape(f"k7_walk_L{WALK_L}_G{WALK_G}_R{WALK_R}", table,
+          lambda i, **kw: tg.gather_rows(table, i, **kw), lambda i: tg.rows_plain(table, i),
+          WALK_ROWS)
+    del table
+    # K6: 128-word slices of the flat (T * 128,) view of the G = 32 table
+    T, W = L_PROBE * (TAKE_SLOTS // TAKE_G), TAKE_G * R
+    table = random_words((T, W), gen, dev)
+    flat = table.view(-1)
+    shape("k6_flat1d", table, lambda i, **kw: tg.gather_flat1d(flat, i, width=W, **kw).view(-1, W),
+          lambda i: tg.flat1d_plain(flat, i, width=W).view(-1, W), ROWS)
+    del table, flat
+    return res
+
+
 def card_line() -> str:
     """nvidia-smi's name and power limit of the first card."""
     return subprocess.run(
@@ -180,6 +295,8 @@ def main(argv=None) -> None:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--reps", type=int, default=6)
     ap.add_argument("--out", default=None, help="also write the JSON line to this file")
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="time K6 and K7 at their paths' shapes (path_times) instead")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     if dev.type != "cuda" or not torch.cuda.is_available():
@@ -188,13 +305,16 @@ def main(argv=None) -> None:
     card = card_line()
     print(f"[gather-rate] {torch.cuda.get_device_name(dev)}; {card}", file=sys.stderr,
           flush=True)
-    results = run(dev, iters=args.iters, reps=args.reps,
-                  log=lambda m: print(m, file=sys.stderr, flush=True))
+    results = (path_times if args.kernel_times else run)(
+        dev, iters=args.iters, reps=args.reps,
+        log=lambda m: print(m, file=sys.stderr, flush=True))
     line = json.dumps({
         "device": torch.cuda.get_device_name(dev), "nvidia_smi": card,
         "config": {"rows_per_iter": ROWS, "iters": args.iters, "reps": args.reps,
                    "slots": N_SLOTS, "L": L_PROBE, "R": R,
-                   "engine": {"L": ENGINE_L, "G": ENGINE_G, "slots": TAKE_SLOTS}},
+                   "engine": {"L": ENGINE_L, "G": ENGINE_G, "slots": TAKE_SLOTS},
+                   "walk": {"L": WALK_L, "G": WALK_G, "R": WALK_R, "points": WALK_POINTS,
+                            "rows_per_iter": WALK_ROWS}},
         "results": results,
     })
     if args.out:
