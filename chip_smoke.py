@@ -100,6 +100,35 @@ caught):
    on 256 indexed points, which must agree with search on those vectors at
    k + 1.
 
+Phases 7b, 7c, 11b and 12 drive the continuous driver, the int8 rescore
+and the Jaccard set index:
+
+7b. lsh-continuous (right after phase 7, on its index, so that the walk's
+   build sees the device as before): global_search_continuous (256 lanes,
+   8 iterations per step) on the 2,048 lsh queries at delta 0.95, held per
+   query to global_search at batch 256 (ids and dc identical, sims within
+   1e-6), gated recall@10 >= 0.8 * delta; QPS of both (median of 3), its
+   steps, refills and K7 launches, and global_search at batch 1,024 (not
+   gated).
+7c. lsh-int8: the same index under rescore_dtype="int8" (derived from the
+   f32 build by core.index.with_rescore_dtype, the function the build
+   calls) and queries, gated recall@10 >= 0.8 * delta; QPS, dc/query and
+   peak device memory beside the f32 run; whether torch.bmm takes int8
+   CUDA operands (not relied on).
+11b. walk-int8: one 256-query batch of the walk under int8, gated like
+   the walk.
+12. jaccard: scripts/jaccard_baseline.py's corpus (clustered_sets of
+   200,000 sets over a universe of 50,000, mean size 64, 1024 modes) and
+   512 queries, ground truth by brute_force_jaccard_topk on the card; the
+   flat and the clustered build (L = 50, gather_block 16, chunk 512,
+   filter_expand 8, JACCARD_KNOBS.json's best row); jaccard_search in
+   batches of 128 (256 queries if the first batch projects 512 past 120
+   s), gated threshold recall@10 >= 0.8 * delta, the clustered ids equal
+   to the flat ones; jaccard_scan, whose ids must equal the ground truth
+   up to ties; K7 bit-exact at the engine's 256-byte rows (32,768 per
+   128-query iteration) at every inflight and ragged, and timed as in
+   phase 5.
+
 It prints the kernels as one JSON line (launches on the main paths, error
 against the plain version, ms, plain_ms, bound_ms / bound_by, library_ms),
 the nvidia-smi name / power limit line, and last {"ok": true, "device":
@@ -137,6 +166,11 @@ LSH_BIG_BATCH = 1_024  # compared with the engine's default batch of 256
 IVF_SWEEP = (8, 12, 16, 24, 32, 48, 64, 96, 128)  # bench.py's n_probe sweep
 IVF_SWEEP_QUERIES, IVF_BATCH = 2_000, 2_048  # bench.py's sub-sample and BATCH
 WALK_QUERIES, WALK_DELTA = 512, 0.9
+CONT_LANES, CONT_STEP_ITERS = 256, 8  # global_search_continuous's defaults
+# scripts/jaccard_baseline.py's set corpus, queries and batches
+JACCARD_N, JACCARD_UNIVERSE, JACCARD_QUERIES, JACCARD_BATCH = 200_000, 50_000, 512, 128
+JACCARD_DELTA = 0.9
+JACCARD_CUT_S, JACCARD_CUT_QUERIES = 120.0, 256  # a slower variant runs 256 queries
 BY_ID_POINTS = 256
 DEVICE = "cuda"
 
@@ -1382,34 +1416,41 @@ def check_walk_gather(idx, card):
     last, -1 and n, at every inflight; then timed as in phase_gather (device
     ms and call ms) on rotated index vectors. Returns the kernels-line
     numbers at this shape."""
+    return check_record_gather(idx.slot_records, idx.config, 256, "walk", "slot records", 2,
+                               card)
+
+
+def check_record_gather(records, cfg, batch, path, what, seed, card):
+    """K7 at the shape a record engine gives it (check_walk_gather): the
+    (L, n_pad, R) `records` of `path` as block rows, one `batch`-query
+    iteration's indices (batch * WB, from its config's G and window)."""
     import torch
 
     from clann_tpu_torch.ops import gather as tg
     from clann_tpu_torch.probes import gather_rate as gr
 
-    cfg = idx.config
-    L, n_pad, R = idx.slot_records.shape
+    L, n_pad, R = records.shape
     G = cfg.gather_block
-    view = idx.slot_records.view(L * (n_pad // G), G * R)
+    view = records.view(L * (n_pad // G), G * R)
     n_src = view.shape[0]
-    rows = 256 * max(1, cfg.candidate_chunk * cfg.filter_expand // G)
-    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    rows = batch * max(1, cfg.candidate_chunk * cfg.filter_expand // G)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
     i0 = torch.randint(0, n_src, (rows,), dtype=torch.int32, generator=gen, device=DEVICE)
-    shape = f"slot records {tuple(view.shape)} (L={L}, G={G}, {G * R * 4}-byte rows)"
+    shape = f"{what} {tuple(view.shape)} (L={L}, G={G}, {G * R * 4}-byte rows)"
     kern = lambda i, **kw: tg.gather_rows(view, i, **kw)
     plain = lambda i: tg.rows_plain(view, i)
-    err = check_every(f"K7 gather_rows at the walk's {rows} rows of {shape}",
+    err = check_every(f"K7 gather_rows at the {path}'s {rows} rows of {shape}",
                       lambda f: kern(i0, inflight=f), plain(i0))
     for count in (rows + 37, 1001):
         ir = torch.randint(0, n_src, (count,), dtype=torch.int32, generator=gen, device=DEVICE)
         ir[:4] = torch.tensor([0, n_src - 1, -1, n_src], dtype=torch.int32, device=DEVICE)
-        err = max(err, check_every(f"K7 gather_rows at the walk's shape, ragged: {count} rows, "
+        err = max(err, check_every(f"K7 gather_rows at the {path}'s shape, ragged: {count} rows, "
                                    f"indices 0, last, -1, {n_src}", lambda f: kern(ir, inflight=f),
                                    plain(ir)))
     sets = [(i,) for i in gr.rotated(i0, n_src, 20)]
     t = gr.kernel_times(kern, plain, lambda i: torch.index_select(view, 0, i), sets)
     return dict(rows=rows, row_bytes=G * R * 4, max_abs_err=err, **gather_time_line(
-        "K7 gather_rows (walk)", rows, shape, G * R * 4, G * R * 4, t, card))
+        f"K7 gather_rows ({path})", rows, shape, G * R * 4, G * R * 4, t, card))
 
 
 def walk_ball_readings(idx, q, d, gt_d, visited):
@@ -1472,6 +1513,296 @@ def walk_ball_readings(idx, q, d, gt_d, visited):
         f"the numpy bound of that rank's cluster exceeds the final k-th distance")
     if (visited[must_visit_all] != C).any() or not fired.all():
         fail("the walk's ball-overlap stops disagree with the numpy recomputation")
+
+
+def phase_lsh_continuous(handle, test, gt_d, gt_i, card):
+    """global_search_continuous (lanes 256, 8 iterations per step) on the
+    lsh phase's index and queries at delta 0.95, held per query to
+    global_search at batch 256 (ids and dc identical, sims within 1e-6),
+    gated recall@10 >= 0.8 * delta; QPS of both drivers (median of 3) and
+    of global_search at batch 1,024 (not gated)."""
+    import numpy as np
+
+    from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
+    from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.ops.global_query import (LoopStats, global_search,
+                                                  global_search_continuous)
+
+    q, gd, gi = test[:LSH_QUERIES], gt_d[:LSH_QUERIES], gt_i[:LSH_QUERIES]
+    delta, idx = LSH_DELTAS[0], handle.index
+    run = lambda: global_search_continuous(idx, q, delta=delta, lanes=CONT_LANES,  # noqa: E731
+                                           step_iters=CONT_STEP_ITERS, loop_stats=ls)
+    ls = LoopStats()
+    tg.reset_launches()
+    cd, ci, cst = run()
+    sync()
+    launches = tg.ROWS_LAUNCHES
+    steps, iters, syncs = ls.outer_steps, ls.iterations, ls.syncs
+    bd, bi, bst = global_search(idx, q, delta=delta, batch_size=CONT_LANES)
+    check_result(cd, ci, "lsh-continuous", LSH_QUERIES)
+    rec, idr = recall_values(gd, cd, K)[0], recall_by_ids(gi, ci, K)
+    same_ids = float(np.mean(np.all(ci == bi, axis=1)))
+    same_dc = float(np.mean(cst.distance_computations == bst.distance_computations))
+    sim_err = float(np.max(np.abs(cd - bd))) / 2.0  # distances are 2 (1 - sim)
+    rate_c, times_c = qps(run, reps=3, n_queries=LSH_QUERIES)
+    rate_b, times_b = qps(lambda: global_search(idx, q, delta=delta, batch_size=CONT_LANES),
+                          reps=3, n_queries=LSH_QUERIES)
+    global_search(idx, q[:LSH_BIG_BATCH], delta=delta, batch_size=LSH_BIG_BATCH)
+    rate_big, times_big = qps(lambda: global_search(idx, q, delta=delta,
+                                                    batch_size=LSH_BIG_BATCH),
+                              reps=1, n_queries=LSH_QUERIES)
+    log(f"[lsh-continuous] delta={delta}, {LSH_QUERIES} queries, {CONT_LANES} lanes, "
+        f"{CONT_STEP_ITERS} iterations per step: recall@10 {rec:.4f} (gate "
+        f"{0.8 * delta:.2f}), id-recall {idr:.4f}; against global_search at batch "
+        f"{CONT_LANES}: same ids {same_ids:.5f}, same dc {same_dc:.5f}, largest sim difference "
+        f"{sim_err:.3g}; {steps} steps, {LSH_QUERIES - CONT_LANES} refills, {iters} loop "
+        f"iterations, {syncs} host syncs; K7 launches {launches}; dc/query "
+        f"{float(np.mean(cst.distance_computations)):.1f} on {card}")
+    log(f"[lsh-continuous] QPS (median of 3): continuous {rate_c:.1f} (s/call "
+        f"{_qps_line(times_c)}), global_search batch {CONT_LANES} {rate_b:.1f} (s/call "
+        f"{_qps_line(times_b)}); global_search batch {LSH_BIG_BATCH} {rate_big:.1f} (one call, "
+        f"{_qps_line(times_big)}; not gated) on {card}")
+    if launches < 1:
+        fail("global_search_continuous did not launch the K7 kernel")
+    if same_ids < 1.0 or same_dc < 1.0 or sim_err > 1e-6:
+        fail("global_search_continuous differs from global_search per query")
+    if rec < 0.8 * delta:
+        fail(f"lsh-continuous: recall@10 {rec:.4f} below 0.8 * delta")
+    return launches
+
+
+def int8_handle(handle):
+    """The handle's index under rescore_dtype="int8", derived from the f32
+    build by the function the build calls (core.index.with_rescore_dtype)."""
+    import copy
+
+    from clann_tpu_torch.core.index import with_rescore_dtype
+
+    h8 = copy.copy(handle)
+    h8.index = with_rescore_dtype(handle.index, "int8")
+    h8.config = h8.index.config
+    return h8
+
+
+def int8_bmm_probe():
+    """Whether torch.bmm takes int8 CUDA operands (the port does not rely
+    on it: its int8 dots are an exact f32 bmm of the int8 values)."""
+    import torch
+
+    a = torch.randint(-127, 128, (4, 8, 100), dtype=torch.int8, device=DEVICE)
+    b = torch.randint(-127, 128, (4, 100, 1), dtype=torch.int8, device=DEVICE)
+    want = torch.bmm(a.float(), b.float())
+    try:
+        got = torch.bmm(a, b)
+    except RuntimeError as e:
+        return f"refused ({str(e).splitlines()[0][:80]})"
+    return f"accepted, dtype {got.dtype}, equal to the f32 dots: {torch.equal(got.float(), want)}"
+
+
+def phase_lsh_int8(handle, test, gt_d, gt_i, card):
+    """mode="lsh" on the lsh phase's index and queries at delta 0.95 with
+    rescore_dtype="int8" (the index derived from the f32 build), gated
+    recall@10 >= 0.8 * delta; QPS, dc/query and peak device memory beside
+    the f32 run (printed, neither judged)."""
+    import numpy as np
+    import torch
+
+    from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
+    from clann_tpu_torch.ops import gather as tg
+
+    q, gd, gi = test[:LSH_QUERIES], gt_d[:LSH_QUERIES], gt_i[:LSH_QUERIES]
+    delta = LSH_DELTAS[0]
+    h8 = int8_handle(handle)
+    log(f"[lsh-int8] vectors_q8 {tuple(h8.index.vectors_q8.shape)} "
+        f"{h8.index.vectors_q8.numel() / 1e6:.1f} MB; torch.bmm on int8 CUDA operands: "
+        f"{int8_bmm_probe()}")
+    launches = 0
+    for label, h in (("float32", handle), ("int8", h8)):
+        sync()
+        reset_peak()
+        tg.reset_launches()
+        d, i, st = h.search_batch(q, mode="lsh", delta=delta)
+        sync()
+        peak = torch.cuda.max_memory_allocated()
+        launches_d = tg.ROWS_LAUNCHES
+        check_result(d, i, f"lsh-int8 {label}", LSH_QUERIES)
+        rec, idr = recall_values(gd, d, K)[0], recall_by_ids(gi, i, K)
+        rate, times = qps(lambda: h.search_batch(q, mode="lsh", delta=delta), reps=3,
+                          n_queries=LSH_QUERIES)
+        log(f"[lsh-int8] rescore {label}, delta={delta}: recall@10 {rec:.4f}"
+            f"{f' (gate {0.8 * delta:.2f})' if label == 'int8' else ''}, id-recall {idr:.4f}; "
+            f"dc/query {float(np.mean(st.distance_computations)):.1f}; {rate:.1f} QPS (median "
+            f"of 3: {_qps_line(times)}); peak device memory of the search {peak / 1e9:.3f} GB "
+            f"(index resident); K7 launches {launches_d} on {card}")
+        if label == "int8":
+            launches = launches_d
+            if launches_d < 1:
+                fail("the int8 lsh search did not launch the K7 kernel")
+            if rec < 0.8 * delta:
+                fail(f"lsh-int8: recall@10 {rec:.4f} below 0.8 * delta")
+    return launches
+
+
+def phase_walk_int8(handle, test, gt_d, gt_i, card):
+    """One 256-query batch of the walk with rescore_dtype="int8" (the walk
+    index derived from its f32 build), gated recall@10 >= 0.8 * delta."""
+    import numpy as np
+
+    from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
+    from clann_tpu_torch.ops import gather as tg
+
+    q, gd, gi = test[:256], gt_d[:256], gt_i[:256]
+    h8 = int8_handle(handle)
+    tg.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    d, i, st = h8.search_batch(q, mode="lsh", delta=WALK_DELTA)
+    sync()
+    walk_s = time.perf_counter() - t0
+    launches = tg.ROWS_LAUNCHES
+    check_result(d, i, "walk int8", 256)
+    rec, idr = recall_values(gd, d, K)[0], recall_by_ids(gi, i, K)
+    log(f"[walk-int8] one 256-query batch, delta={WALK_DELTA}: recall@10 {rec:.4f} (gate "
+        f"{0.8 * WALK_DELTA:.2f}), id-recall {idr:.4f}; dc/query "
+        f"{float(np.mean(st.distance_computations)):.1f}, clusters visited/query "
+        f"{float(np.mean(st.clusters_visited)):.2f}; {walk_s:.3f} s; K7 launches {launches} "
+        f"on {card}")
+    if launches < 1:
+        fail("the int8 walk did not launch the K7 kernel")
+    if rec < 0.8 * WALK_DELTA:
+        fail(f"walk-int8: recall@10 {rec:.4f} below 0.8 * delta")
+    return launches
+
+
+def jaccard_config():
+    """scripts/jaccard_baseline.py's configuration with JACCARD_KNOBS.json's
+    best row (gather_block 16, chunk 512, filter_expand 8)."""
+    import clann_tpu_torch
+
+    return clann_tpu_torch.Config(
+        num_tables=50, k=K, delta=JACCARD_DELTA, num_clusters_factor=0.4, seed=0,
+        gather_block=16, candidate_chunk=512, filter_expand=8,
+        dataset_name=f"jaccard-{JACCARD_N}",
+    )
+
+
+def phase_jaccard(card):
+    """The Jaccard set index on scripts/jaccard_baseline.py's data: ground
+    truth by the port's brute force on the card; builds flat and clustered;
+    jaccard_search in batches of 128, gated threshold recall@10 >= 0.8 *
+    delta, clustered ids equal to flat; jaccard_scan held to the ground
+    truth; K7 at the engine's 256-byte record rows. Returns (K7 launches,
+    K7's kernels-line numbers at this shape)."""
+    import numpy as np
+    import torch
+
+    from clann_tpu_torch.core import jaccard as tj
+    from clann_tpu_torch.data.setdata import (JaccardData, brute_force_jaccard_topk,
+                                              jaccard_similarity_rowwise)
+    from clann_tpu_torch.data.synthetic import clustered_sets
+    from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.testing import assert_topk_match
+
+    t0 = time.perf_counter()
+    kw = dict(avg_size=64, n_modes=1024, core_share=0.8, pool_factor=1.25)
+    data = JaccardData(clustered_sets(JACCARD_N, JACCARD_UNIVERSE, seed=0, **kw),
+                       JACCARD_UNIVERSE)
+    queries = JaccardData(clustered_sets(JACCARD_QUERIES, JACCARD_UNIVERSE, seed=1, **kw),
+                          JACCARD_UNIVERSE, t_max=data.tokens.shape[1]).tokens
+    log(f"[jaccard] clustered_sets: {JACCARD_N} sets and {JACCARD_QUERIES} queries over a "
+        f"universe of {JACCARD_UNIVERSE}, t_max {data.tokens.shape[1]}, mean size "
+        f"{float((data.tokens >= 0).sum(axis=1).mean()):.1f}, in "
+        f"{time.perf_counter() - t0:.1f} s (host)")
+    sync()
+    t0 = time.perf_counter()
+    gt_s, gt_i = brute_force_jaccard_topk(data, queries, K, device=DEVICE)
+    sync()
+    log(f"[jaccard] ground truth (brute_force_jaccard_topk on the card) in "
+        f"{time.perf_counter() - t0:.3f} s; true 10th similarity min/median "
+        f"{float(gt_s[:, K - 1].min()):.4f}/{float(np.median(gt_s[:, K - 1])):.4f}")
+
+    def exact_sims(ids):
+        rows = data.tokens[np.maximum(ids, 0).reshape(-1)]
+        s = jaccard_similarity_rowwise(rows, np.repeat(queries[: len(ids)], K, axis=0),
+                                       device=DEVICE).cpu().numpy().reshape(ids.shape)
+        return np.where(ids < 0, -1.0, s)
+
+    def threshold_recall(ids):
+        """scripts/jaccard_baseline.py's: J >= the true 10th - 1e-3"""
+        return float(np.mean(exact_sims(ids) >= gt_s[: len(ids), K - 1 : K] - 1e-3))
+
+    cfg = jaccard_config()
+    B, nq = JACCARD_BATCH, JACCARD_QUERIES
+    out, launches = {}, 0
+    for variant, clustered in (("flat", False), ("clustered", True)):
+        sync()
+        reset_peak()
+        t0 = time.perf_counter()
+        idx = tj.build_jaccard_index(data, cfg, clustered=clustered, device=DEVICE)
+        sync()
+        build_s = time.perf_counter() - t0
+        build_peak = torch.cuda.max_memory_allocated()
+        reset_peak()
+        tg.reset_launches()
+        res, t0 = [], time.perf_counter()
+        while len(res) * B < nq:
+            res.append(tj.jaccard_search(idx, queries[len(res) * B : (len(res) + 1) * B]))
+            sync()
+            if (variant == "flat" and len(res) == 1
+                    and (time.perf_counter() - t0) * nq / B > JACCARD_CUT_S):
+                log(f"[jaccard] the first batch projects {nq} queries past {JACCARD_CUT_S} s: "
+                    f"both variants run {JACCARD_CUT_QUERIES} queries")
+                nq = JACCARD_CUT_QUERIES
+        first_s = time.perf_counter() - t0
+        launches_v = tg.ROWS_LAUNCHES
+        launches += launches_v
+        search_peak = torch.cuda.max_memory_allocated()
+        sims = np.concatenate([r[0] for r in res])
+        ids = np.concatenate([r[1] for r in res])
+        st = [np.concatenate([getattr(r[2], f) for r in res]) for f in
+              ("distance_computations", "candidates", "clusters_visited")]
+        rate, times = qps(lambda: [tj.jaccard_search(idx, queries[s : s + B])
+                                   for s in range(0, nq, B)], reps=1, n_queries=nq)
+        rec = threshold_recall(ids)
+        log(f"[jaccard] {variant}: build {build_s:.3f} s (peak device memory "
+            f"{build_peak / 1e9:.3f} GB{f', {idx.center_ids.shape[0]} clusters' if clustered else ''}); "
+            f"{nq} queries in batches of {B}: threshold recall@10 {rec:.4f} (gate "
+            f"{0.8 * JACCARD_DELTA:.2f}); dc/query {float(st[0].mean()):.1f}, candidates/query "
+            f"{float(st[1].mean()):.1f}, visited clusters/query {float(st[2].mean()):.2f}; "
+            f"{rate:.2f} QPS (second pass, s {_qps_line(times)}; first pass {first_s:.3f} s); "
+            f"peak device memory of the search {search_peak / 1e9:.3f} GB; K7 launches "
+            f"{launches_v} on {card}")
+        if launches_v < 1:
+            fail(f"jaccard {variant} did not launch the K7 kernel")
+        if rec < 0.8 * JACCARD_DELTA:
+            fail(f"jaccard {variant}: threshold recall@10 {rec:.4f} below 0.8 * delta")
+        if not np.allclose(sims, np.where(ids >= 0, exact_sims(ids), 0.0), atol=0, rtol=0):
+            fail(f"jaccard {variant}: returned similarities are not the exact Jaccard")
+        out[variant] = (idx, ids)
+    if not np.array_equal(out["clustered"][1], out["flat"][1]):
+        fail("jaccard: the clustered index's ids differ from the flat index's")
+    log(f"[jaccard] clustered ids equal to flat ids on all {nq} queries")
+
+    flat = out["flat"][0]
+    del out
+    sync()
+    t0 = time.perf_counter()
+    ss, si, _ = tj.jaccard_scan(flat, queries)
+    sync()
+    first_s = time.perf_counter() - t0
+    assert_topk_match(gt_i, gt_s, si, ss, atol=0.0)
+    scan_rec = threshold_recall(si)
+    rate, times = qps(lambda: tj.jaccard_scan(flat, queries), reps=3,
+                      n_queries=JACCARD_QUERIES)
+    log(f"[jaccard] jaccard_scan of {JACCARD_QUERIES} queries: ids equal to the ground truth "
+        f"up to ties ({float(np.mean(si == gt_i)):.5f} identical), threshold recall@10 "
+        f"{scan_rec:.4f}; {rate:.1f} QPS (median of 3: {_qps_line(times)}; first call "
+        f"{first_s:.3f} s) on {card}")
+    if scan_rec < 1.0:
+        fail("jaccard_scan is not exact")
+    k7 = check_record_gather(flat.g_records, cfg, JACCARD_BATCH, "jaccard", "set records", 3,
+                             card)
+    return launches, k7
 
 
 def profile_lsh(handle, test, label="lsh", sessions=2, host_ops=True):
@@ -1548,14 +1879,25 @@ def main():
     launches_lsh = phase_lsh(lsh, test, gt_d, gt_i, label)
     if args.profile:
         profile_lsh(lsh, test)
+    # the new LSH paths run on this index here, so that the walk's build
+    # below sees the device as before
+    launches_cont = phase_lsh_continuous(lsh, test, gt_d, gt_i, label)
+    launches_lsh8 = phase_lsh_int8(lsh, test, gt_d, gt_i, label)
     del lsh
     torch.cuda.empty_cache()
     walk = phase_walk_build(train, label)
     launches_walk, walk_k7 = phase_walk(walk, test, gt_d, gt_i, label)
     if args.profile:
         profile_lsh(walk, test, "walk (lsh -> lsh-clustered)", sessions=1, host_ops=False)
-    launches_k7 = launches_lsh + launches_walk
-    log(f"[main] K7 launches: {launches_k7} = lsh {launches_lsh} + walk {launches_walk}")
+    launches_walk8 = phase_walk_int8(walk, test, gt_d, gt_i, label)
+    del walk
+    torch.cuda.empty_cache()
+    launches_jac, jaccard_k7 = phase_jaccard(label)
+    counts = {"lsh": launches_lsh, "lsh-continuous": launches_cont, "lsh-int8": launches_lsh8,
+              "walk": launches_walk, "walk-int8": launches_walk8, "jaccard": launches_jac}
+    launches_k7 = sum(counts.values())
+    log(f"[main] K7 launches: {launches_k7} = "
+        + " + ".join(f"{k} {v}" for k, v in counts.items()))
     log(f"[main] peak device memory over the whole run, all paths "
         f"{max(PEAKS + [torch.cuda.max_memory_allocated()]) / 1e9:.3f} GB")
 
@@ -1580,8 +1922,10 @@ def main():
                 "launches": launches, **{k: m[k] for k in keys}}
                for name, source, replaces, launches, m in kernels]
     # K7's numbers above are at the engine's 512 B records; the walk, which
-    # makes most of its launches, gathers 192 B records
+    # makes many of its launches, gathers 192 B records
     entries[-1]["walk"] = walk_k7
+    # and the Jaccard engine's 256 B records (G 16 x [id, 2 sketch words, cluster])
+    entries[-1]["jaccard"] = jaccard_k7
     log(json.dumps({"kernels": entries}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,12 +7,17 @@ the global engine's tables, the clustered walk's slot records and the dense
 IVF layout) and every search mode of the JAX facade: "auto" (the default),
 "dense", "adaptive", "scan", "scan-pallas", "scan-block",
 "scan-block-adaptive", "lsh", "lsh-global" and "lsh-clustered", plus
-`Clann.search_by_id` and `ops.scan_topk.pallas_scan_topk`. Their kernels
-are written by hand in CUDA for sm_90a (csrc/), built with nvcc on first
-use: the dense scans K1-K3 share one Hopper main loop (TMA + wgmma,
-csrc/scan_hopper.cuh), and K4-K7 are row gathers (K7 is the LSH engines'
-record gather). Entry points run on the card unless the caller asks for
-the CPU.
+`Clann.search_by_id` and `ops.scan_topk.pallas_scan_topk`; the int8
+rescore (`Config(rescore_dtype="int8")`) in every mode; and, from their
+modules as in the JAX package, the global engine's continuous-batching
+driver `ops.global_query.global_search_continuous` and the Jaccard set
+index `core.jaccard` (`build_jaccard_index`, `jaccard_search`,
+`jaccard_scan`). Their kernels are written by hand in CUDA for sm_90a
+(csrc/), built with nvcc on first use: the dense scans K1-K3 share one
+Hopper main loop (TMA + wgmma, csrc/scan_hopper.cuh), and K4-K7 are row
+gathers (K7 is the record gather of the LSH engines, the Jaccard one
+included). Entry points run on the card unless the caller asks for the
+CPU.
 
 Public facade mirrors the reference API (reference: src/lib.rs:41-264).
 """

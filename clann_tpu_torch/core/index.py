@@ -11,8 +11,9 @@ the global engine's hash-sorted tables with [id, sketch, cluster] records
 With `config.dense_layout` (the default) the build also makes the dense IVF
 layout (`build_dense_layout`): every cluster split into rows of at most
 `config.dense_seg_cap` points, padded, for the batched probing of
-ops/ivf.py. Not built yet (ROADMAP.md): the int8 shadow of the vectors
-(`rescore_dtype="int8"` raises).
+ops/ivf.py. With `config.rescore_dtype == "int8"` it keeps an int8 shadow
+of the vectors (`quantize_q8`), which the LSH engines score candidates
+against before an exact f32 re-score of their final top-k.
 
 Random draws: the JAX package splits `jax.random.PRNGKey(config.seed)`
 into a hash key and a sketch key. The port seeds two `torch.Generator`s
@@ -61,6 +62,8 @@ LSH_FIELDS = {
     "g_sorted_hash": torch.int32,
     "g_records": torch.int32,
     "g_dir": torch.int32,
+    # the int8 shadow of `vectors` (config.rescore_dtype == "int8")
+    "vectors_q8": torch.int8,
 }
 # the dense IVF layout (None where not built) and its dtypes in the port
 DENSE_FIELDS = {
@@ -119,6 +122,11 @@ class ClusteredIndex:
     g_sorted_hash: Optional[torch.Tensor] = None  # (L, n) int32
     g_records: Optional[torch.Tensor] = None  # (L, n_pad, 2+W) int32
     g_dir: Optional[torch.Tensor] = None  # (L, 1, 2^global_dir_bits+1) int32
+    # --- int8 shadow of `vectors` for the LSH engines' in-loop candidate
+    # scoring (config.rescore_dtype == "int8"; the reference's Q15 ranking
+    # dots, unit_vector.hpp:26-45, with CLANN's f32 re-scoring of winners,
+    # index.rs:400-416). Not counted by memory_usage, as in JAX ---
+    vectors_q8: Optional[torch.Tensor] = None  # (n, d) int8, scale 127
     # --- dense IVF layout (config.dense_layout): each cluster split into
     # rows of <= dense_seg_cap points; a row inherits its owner's center
     # and radius ---
@@ -209,6 +217,28 @@ class ClusteredIndex:
         filterer = SketchFilterer(self.dims, cfg.num_sketches, cfg.sketch_bits)
         filterer.params = self.sketch_params
         return source, filterer
+
+
+def quantize_q8(xn: torch.Tensor) -> torch.Tensor:
+    """Symmetric int8 quantization (scale 127) of unit-norm vectors:
+    round(clip(x * 127, -127, 127)), halves to even as jnp.round does
+    (the reference's Q15 idea, format/unit_vector.hpp:26-45, at 8 bits)."""
+    return torch.round(torch.clamp(xn * 127.0, -127.0, 127.0)).to(torch.int8)
+
+
+def rescore_shadow(xn: torch.Tensor, config: Config) -> Optional[torch.Tensor]:
+    """The build's `vectors_q8`: quantize_q8(xn) when config.rescore_dtype
+    is "int8", else None."""
+    return quantize_q8(xn) if config.rescore_dtype == "int8" else None
+
+
+def with_rescore_dtype(index: "ClusteredIndex", rescore_dtype: str) -> "ClusteredIndex":
+    """The same index under another config.rescore_dtype: the shadow the
+    build would make (rescore_shadow) and every other array shared."""
+    config = index.config.replace(rescore_dtype=rescore_dtype)
+    return dataclasses.replace(
+        index, config=config, vectors_q8=rescore_shadow(index.vectors, config),
+        pallas_base_cache={}, block_layout_cache={})
 
 
 def build_dense_layout(xn: torch.Tensor, cluster_order_ids: torch.Tensor, starts,
@@ -374,11 +404,6 @@ def build_index(
         x = np.asarray(data, dtype=np.float32)
     if x.ndim != 2 or x.shape[0] == 0:
         raise DataError("empty or non-2D dataset")
-    if config.rescore_dtype == "int8":
-        raise NotImplementedError(
-            "rescore_dtype='int8' (the vectors_q8 shadow): ROADMAP.md slice 11 "
-            "(int8 rescore)"
-        )
     n, d = x.shape
     if n_clusters is None:
         n_clusters = config.num_clusters(n)
@@ -514,6 +539,7 @@ def _assemble_index(xn, hashes_T, sketches, assignment: np.ndarray,
         g_sorted_hash=g_sorted_hash,
         g_records=g_records,
         g_dir=g_dir,
+        vectors_q8=rescore_shadow(xn, config),
         **dense,
         config=config,
         metric=metric,

@@ -92,6 +92,54 @@ def hierarchical_unit_vectors(
     return (x / np.where(norms == 0, 1, norms)).astype(np.float32)
 
 
+def clustered_sets(
+    n: int,
+    universe: int,
+    avg_size: int = 12,
+    n_modes: int = 16,
+    core_share: float = 0.75,
+    pool_factor: float = 1.25,
+    hub_tokens: int = 0,
+    seed: int = 0,
+):
+    """Token sets drawn around n_modes core vocabularies.
+
+    Each mode owns a random core vocabulary of ~pool_factor*avg_size
+    tokens; a member takes ~core_share of its tokens from its mode's core
+    and the rest from the whole universe. Two same-mode members then share
+    E ~ (core_share^2/pool_factor)*avg_size tokens — keep pool_factor
+    close to 1 for high within-mode Jaccard (tight, ball-prunable
+    clusters); larger pools spread the mode out.
+
+    hub_tokens > 0 additionally puts that many UNIVERSAL tokens (the
+    first hub_tokens ids) in every set — the stop-word regime where
+    MinHash collides across modes (the long-tail collisions the
+    reference's clustering exists to cut, src/lib.rs:3-4): cross-mode
+    pairs then have J ~ hub/(2*size) > 0 yet are never true neighbors.
+    Returns a list of unique-token lists.
+    """
+    rng = np.random.default_rng(seed)
+    hub = list(range(hub_tokens))
+    pool = min(max(2, round(pool_factor * avg_size)), universe - hub_tokens)
+    cores = [
+        hub_tokens + rng.choice(
+            universe - hub_tokens, size=pool, replace=False
+        )
+        for _ in range(n_modes)
+    ]
+    sets = []
+    for i in range(n):
+        core = cores[int(rng.integers(n_modes))]
+        size = max(2, int(rng.poisson(avg_size)))
+        n_core = min(len(core), max(1, int(round(size * core_share))))
+        toks = set(rng.choice(core, size=n_core, replace=False).tolist())
+        while len(toks) < size:
+            toks.add(int(rng.integers(hub_tokens, universe)))
+        toks.update(hub)
+        sets.append(sorted(toks))
+    return sets
+
+
 def make_synthetic_dataset(
     n: int = 20000,
     d: int = 25,

@@ -28,8 +28,13 @@ What changes from the JAX engine, none of it in the results:
 - The ball-feasibility lookup is a plain gather of the (Q, C) booleans
   (JAX contracts a one-hot on the MXU; the values are the same).
 
-`global_search_continuous` (the continuous-batching driver) is another
-entry point and not ported yet (ROADMAP.md).
+`global_search_continuous` is the continuous-batching driver: a fixed set
+of lanes, each step advancing them a few iterations and refilling finished
+lanes with pending queries (`_global_step_packed`).
+
+With `rescore_dtype="int8"` the loop scores candidates against the int8
+shadow `vectors_q8` into a 2k buffer, with the k-th similarity lowered by
+the int8 error bound, and `_finalize` re-scores the buffer in f32.
 """
 
 from __future__ import annotations
@@ -101,7 +106,7 @@ def _prepare_streams(index, queries_n, query_hashes, query_sketches, *,
                                          start_depth=d_entry)  # (Q, M)
     bstarts, bcounts = block_stream(starts_s, sizes_s, g_log)
     fc = torch.cumsum(bcounts, dim=1, dtype=torch.int32)  # cumulative block counts
-    return {
+    streams = {
         "qn": queries_n,
         "qsk": query_sketches,
         "feas_bound": feas_bound,
@@ -112,6 +117,17 @@ def _prepare_streams(index, queries_n, query_hashes, query_sketches, *,
         "fc": fc,
         "total": fc[:, -1],
     }
+    if index.vectors_q8 is not None:
+        from clann_tpu_torch.core.index import quantize_q8
+
+        streams["q8"] = quantize_q8(queries_n)
+    return streams
+
+
+def _buffer_depth(index, k: int) -> int:
+    """The loop's top-k buffer: 2k under int8 scoring (the reference's 2k
+    MaxBuffer, maxbuffer.hpp:25), else k."""
+    return k if index.vectors_q8 is None else 2 * k
 
 
 def _init_state(Q: int, kk: int, total: torch.Tensor) -> tuple:
@@ -123,6 +139,82 @@ def _init_state(Q: int, kk: int, total: torch.Tensor) -> tuple:
         total <= 0,
         z, z.clone(), z.clone(),
     )
+
+
+def _record_window(streams: dict, records: torch.Tensor, *, gather_block: int, wb: int,
+                   dense_index: bool, routing: bool):
+    """fetch(qdone, off, use_map) -> (t_sel (Q, WB), rec (Q, WB, G, R),
+    valid (Q, WB * G)): the next WB stream blocks of every query, mapped to
+    (table, block, lane mask) from the stream map (`use_map`; the caller
+    guarantees every live cursor + WB fits it) or by the in-loop
+    derivation (prefixmap.blocked_window, the same values), and their G
+    packed records of R words each, fetched with one row gather per block
+    (K7, ops.gather.gather_rows). With `routing` the dead blocks (done
+    queries, fully masked edge blocks) fetch table 0's block 0; `valid`
+    masks every consumer of their words. Shared by both global engines
+    (cosine, ops/global_query.py; Jaccard, core/jaccard.py)."""
+    starts_s, sizes_s = streams["starts"], streams["sizes"]
+    bstarts, fc = streams["bstarts"], streams["fc"]
+    smap = streams.get("smap")
+    Q, dev = fc.shape[0], fc.device
+    L, n_pad, R = records.shape
+    G = gather_block
+    if n_pad % G:
+        raise ValueError(
+            "the records' slot axis is not a multiple of config.gather_block; "
+            "build them with pad_to=gather_block"
+        )
+    nb = n_pad // G
+    rec_flat = records.view(L * nb, G * R)  # (L, n_pad, R) -> block rows
+    g_log = int(np.log2(G))
+    blk_iota = torch.arange(wb, dtype=torch.int32, device=dev)
+    lane_iota = torch.arange(G, dtype=torch.int32, device=dev)
+
+    def window(off, use_map):
+        if use_map:
+            # one contiguous slice of the precomputed map per query
+            tb = smap.shape[1]
+            pos = torch.clamp(off, 0, tb - wb)[:, None].to(torch.int64) + blk_iota
+            win = torch.gather(smap, 1, pos[:, :, None].expand(Q, wb, 3))
+            lm = win[..., 2]
+            lane_valid = ((lm[:, :, None] >> lane_iota) & 1) != 0  # (Q, WB, G)
+            return win[..., 0], win[..., 1], lane_valid
+        j, blk, _, lane_valid = blocked_window(
+            fc, off, wb, bstarts, starts_s, sizes_s, g_log, dense_index=dense_index)
+        return (j % L), blk, lane_valid
+
+    def fetch(qdone, off, use_map: bool):
+        t_sel, blk, lane_valid = window(off, use_map)
+        if routing:
+            block_live = lane_valid.any(dim=2) & ~qdone[:, None]
+            blk = torch.where(block_live, blk, 0)
+            t_sel = torch.where(block_live, t_sel, 0)
+        valid = (lane_valid & ~qdone[:, None, None]).reshape(Q, wb * G)
+        fidx = (t_sel * nb + torch.clamp(blk, 0, nb - 1)).to(torch.int32)
+        rec = gather_rows(rec_flat, fidx.reshape(-1)).view(Q, wb, G, R)
+        return t_sel, rec, valid
+
+    return fetch
+
+
+def _consumer(*, wb: int, gather_block: int, chunk: int, device):
+    """consume(passes (Q, WB * G)) -> (blocks consumed (Q,), lanes in the
+    consumed blocks (Q, WB * G)): whole blocks from the window's front
+    until ~chunk passing candidates accumulate, at least one block so the
+    cursor advances (collection.hpp:775-781)."""
+    G = gather_block
+    blk_iota = torch.arange(wb, dtype=torch.int32, device=device)
+
+    def consume(passes):
+        Q = passes.shape[0]
+        pb = passes.view(Q, wb, G).sum(dim=2, dtype=torch.int32)
+        consumed = torch.clamp(
+            (torch.cumsum(pb, dim=1) <= chunk).sum(dim=1, dtype=torch.int32), min=1)
+        in_window = (blk_iota[None, :] < consumed[:, None])[:, :, None].expand(
+            Q, wb, G).reshape(Q, wb * G)
+        return consumed, in_window
+
+    return consume
 
 
 def _loop_pieces(index, streams: dict, delta, *, k: int, chunk: int,
@@ -138,9 +230,8 @@ def _loop_pieces(index, streams: dict, delta, *, k: int, chunk: int,
     query_sketches = streams["qsk"]
     feas_bound = streams["feas_bound"]
     ball_floor = streams["ball_floor"]
-    starts_s, sizes_s = streams["starts"], streams["sizes"]
-    bstarts, fc, total = streams["bstarts"], streams["fc"], streams["total"]
-    smap = streams.get("smap")
+    fc, total = streams["fc"], streams["total"]
+    queries_q8 = streams.get("q8")
     dev = queries_n.device
 
     Q = queries_n.shape[0]
@@ -156,60 +247,29 @@ def _loop_pieces(index, streams: dict, delta, *, k: int, chunk: int,
     WL = WB * G  # window width in record lanes
     CB = chunk + G  # compacted rescore capacity (block-granular overshoot)
     Wd = index.sketches.shape[2]
-    R = index.g_records.shape[2]  # 1 + Wd + 1 record words
-    n_pad = index.g_records.shape[1]
-    if n_pad % G:
-        raise ValueError(
-            "g_records slot axis is not a multiple of config.gather_block; "
-            "build records with make_global_tables(..., pad_to=gather_block)"
-        )
-    nb = n_pad // G
-    rec_flat = index.g_records.view(L * nb, G * R)  # (L, n_pad, R) -> block rows
-    g_log = int(np.log2(G))
-    blk_iota = torch.arange(WB, dtype=torch.int32, device=dev)
-    lane_iota = torch.arange(G, dtype=torch.int32, device=dev)
+    # record layout: [id, sketch words..., cluster] (make_global_tables)
+    fetch = _record_window(streams, index.g_records, gather_block=G, wb=WB,
+                           dense_index=index.config.window_index_dense,
+                           routing=index.config.dead_block_routing)
+    consume = _consumer(wb=WB, gather_block=G, chunk=chunk, device=dev)
     delta = torch.as_tensor(delta, dtype=torch.float32, device=dev)
     stop_at = 1.0 - delta  # f32, as the JAX engine's 1.0 - delta
-    routing = index.config.dead_block_routing
+    # int8 k-th overestimation margin (see ops/query.py's walk): an inflated
+    # k-th would irreversibly prune feasible balls and candidates
+    q8_margin = float(np.sqrt(queries_n.shape[1])) / 127.0 if queries_q8 is not None else 0.0
 
     def cond(s):
         return ~torch.all(s[2])
 
-    def window(off, use_map):
-        if use_map:
-            # one contiguous slice of the precomputed map per query
-            tb = smap.shape[1]
-            pos = torch.clamp(off, 0, tb - WB)[:, None].to(torch.int64) + blk_iota
-            win = torch.gather(smap, 1, pos[:, :, None].expand(Q, WB, 3))
-            lm = win[..., 2]
-            lane_valid = ((lm[:, :, None] >> lane_iota) & 1) != 0  # (Q, WB, G)
-            return win[..., 0], win[..., 1], lane_valid
-        j, blk, _, lane_valid = blocked_window(
-            fc, off, WB, bstarts, starts_s, sizes_s, g_log,
-            dense_index=index.config.window_index_dense,
-        )
-        return (j % L), blk, lane_valid
-
     def kth(topk_sims, topk_ids):
-        kth_sim = topk_sims[:, k - 1]
+        kth_sim = topk_sims[:, k - 1] - q8_margin
         full = topk_ids[:, k - 1] >= 0
         kth_dist = torch.where(full, 2.0 * (1.0 - kth_sim), torch.inf)
         return kth_sim, full, kth_dist
 
     def body(s, use_map: bool):
         topk_sims, topk_ids, qdone, off, dc, cand_ct = s
-        t_sel, blk, lane_valid = window(off, use_map)
-        if routing:
-            # dead blocks (done queries, fully masked edge blocks) gather
-            # table-0 / block-0; `valid` masks every consumer of their data
-            block_live = lane_valid.any(dim=2) & ~qdone[:, None]
-            blk = torch.where(block_live, blk, 0)
-            t_sel = torch.where(block_live, t_sel, 0)
-        valid = (lane_valid & ~qdone[:, None, None]).reshape(Q, WL)
-        # ONE row gather per block fetches G packed records (K7)
-        fidx = (t_sel * nb + torch.clamp(blk, 0, nb - 1)).to(torch.int32)
-        rec = gather_rows(rec_flat, fidx.reshape(-1)).view(Q, WB, G, R)
-        # record layout: [id, sketch words..., cluster] (make_global_tables)
+        t_sel, rec, valid = fetch(qdone, off, use_map)
         cand_ids = rec[..., 0].reshape(Q, WL)
         cand_cluster = torch.clamp(rec[..., 1 + Wd].reshape(Q, WL), 0, C - 1)
 
@@ -228,16 +288,11 @@ def _loop_pieces(index, streams: dict, delta, *, k: int, chunk: int,
         if filter_type != "none":
             passes = passes & (ham <= maxdiff[:, None])
 
-        # consume whole blocks until ~chunk passing candidates accumulate;
-        # always at least one block so the cursor advances
-        pb = passes.view(Q, WB, G).sum(dim=2, dtype=torch.int32)
-        consumed = torch.clamp((torch.cumsum(pb, dim=1) <= chunk).sum(dim=1, dtype=torch.int32),
-                               min=1)
-        in_window = (blk_iota[None, :] < consumed[:, None])[:, :, None].expand(
-            Q, WB, G).reshape(Q, WL)
+        consumed, in_window = consume(passes)
         take = passes & in_window
         compact_ids = _compact_take(take, cand_ids, cap=CB, n_sentinel=n)
-        sims = _score_candidates(index, queries_n, None, torch.clamp(compact_ids, 0, n - 1))
+        sims = _score_candidates(index, queries_n, queries_q8,
+                                 torch.clamp(compact_ids, 0, n - 1))
         topk_sims, topk_ids = _merge_topk(topk_sims, topk_ids, compact_ids, sims, n_sentinel=n)
 
         dc = dc + take.sum(dim=1, dtype=torch.int32)
@@ -276,6 +331,31 @@ def _finalize(index, streams, state, *, k):
     return topk_sims, topk_ids, SearchStats(dc, cand_ct, visited)
 
 
+def _advance(cond, body, state, *, tb: int, wb: int, max_iters: Optional[int] = None):
+    """Run body while some query is live (and at most `max_iters` steps):
+    the stop flag and the live cursors' maximum are read once per
+    SYNC_EVERY steps; a step may read the stream map where every live
+    cursor + its WB blocks still fit it. Steps past the last live query
+    change nothing (frozen cursors, no valid lane). Returns (state,
+    iterations, host syncs)."""
+    iters = syncs = 0
+    while max_iters is None or iters < max_iters:
+        qdone, off = state[2], state[3]
+        live, live_max = torch.stack([
+            cond(state).to(torch.int64),
+            torch.max(torch.where(qdone, 0, off)).to(torch.int64),
+        ]).tolist()  # the one host sync per SYNC_EVERY steps
+        syncs += 1
+        if not live:
+            break
+        steps = SYNC_EVERY if max_iters is None else min(SYNC_EVERY, max_iters - iters)
+        for j in range(steps):
+            # cursors move at most WB blocks per step
+            state = body(state, tb > 0 and live_max + (j + 1) * wb <= tb)
+            iters += 1
+    return state, iters, syncs
+
+
 def _run_loop(index, streams, delta, *, k, chunk, min_depth, filter_type,
               filter_expand, loop_stats: Optional[LoopStats] = None):
     """The adaptive loop + finalize over prepared (possibly mapped) streams."""
@@ -285,23 +365,10 @@ def _run_loop(index, streams, delta, *, k, chunk, min_depth, filter_type,
         filter_type=filter_type, filter_expand=filter_expand,
     )
     G = max(1, index.config.gather_block)
-    WB = max(1, (chunk * filter_expand) // G)
     tb = streams["smap"].shape[1] if "smap" in streams else 0
-    state = _init_state(Q, k, streams["total"])
-    iters = syncs = 0
-    while True:
-        qdone, off = state[2], state[3]
-        live, live_max = torch.stack([
-            cond(state).to(torch.int64),
-            torch.max(torch.where(qdone, 0, off)).to(torch.int64),
-        ]).tolist()  # the one host sync per SYNC_EVERY steps
-        syncs += 1
-        if not live:
-            break
-        for j in range(SYNC_EVERY):
-            # cursors move at most WB blocks per step
-            state = body(state, tb > 0 and live_max + (j + 1) * WB <= tb)
-            iters += 1
+    state = _init_state(Q, _buffer_depth(index, k), streams["total"])
+    state, iters, syncs = _advance(cond, body, state, tb=tb,
+                                   wb=max(1, (chunk * filter_expand) // G))
     if loop_stats is not None:
         loop_stats.batches += 1
         loop_stats.iterations += iters
@@ -461,3 +528,145 @@ def global_search(
     dists = 2.0 * (1.0 - sims)
     dists = np.where(ids < 0, np.inf, dists)
     return dists, ids, stats
+
+
+def _global_step_packed(index, streams_all: dict, state_all: tuple, active: torch.Tensor,
+                        delta, *, k: int, chunk: int, min_depth: int, filter_type: str,
+                        filter_expand: int, max_iters: int,
+                        loop_stats: Optional[LoopStats] = None):
+    """Advance the `active` lanes by at most `max_iters` loop iterations.
+
+    The continuous-batching step (JAX global_query.py:603-649): the active
+    rows of every stream and state tensor of the whole query set form a
+    lane batch, the bounded adaptive loop advances it, and the lanes' state
+    is written back into the full state in place. `active` never holds a
+    query twice, so the write-back is well defined. Returns (state_all,
+    the lanes' qdone flags).
+    """
+    lane_streams = {name: t[active] for name, t in streams_all.items()}
+    lane_state = tuple(t[active] for t in state_all)
+    cond, body = _loop_pieces(
+        index, lane_streams, delta, k=k, chunk=chunk, min_depth=min_depth,
+        filter_type=filter_type, filter_expand=filter_expand,
+    )
+    G = max(1, index.config.gather_block)
+    tb = lane_streams["smap"].shape[1] if "smap" in lane_streams else 0
+    lane_state, iters, syncs = _advance(cond, body, lane_state, tb=tb,
+                                        wb=max(1, (chunk * filter_expand) // G),
+                                        max_iters=max_iters)
+    for full, lane in zip(state_all, lane_state):
+        full[active] = lane
+    if loop_stats is not None:
+        loop_stats.outer_steps += 1
+        loop_stats.iterations += iters
+        loop_stats.syncs += syncs
+    return state_all, lane_state[2]
+
+
+def global_search_continuous(
+    index,
+    queries,
+    k: int = None,
+    delta: float = None,
+    lanes: int = 256,
+    step_iters: int = 8,
+    filter_type: str = "default",
+    prepare_batch: int = 2048,
+    loop_stats: Optional[LoopStats] = None,
+) -> Tuple[np.ndarray, np.ndarray, SearchStats]:
+    """Continuous-batching global search: keep every loop lane busy.
+
+    The batched driver runs each batch's loop to its slowest query. Here a
+    fixed set of `lanes` lanes advances by at most `step_iters` iterations
+    per step, and between steps finished queries are swapped out for
+    pending ones, until the queue drains (JAX global_query.py:770-891).
+    Per-query results are those of global_search: the loop carries no
+    cross-query state, so scheduling cannot change any query's walk (the
+    reference's dynamic scheduling over per-query searches,
+    collection.hpp:479-481). Every query's streams are prepared up front
+    in slabs of `prepare_batch`, with one stream map for the whole set;
+    per step the host sends the lane -> query indices and reads the lanes'
+    done flags. With Q <= lanes it is global_search(batch_size=lanes), as
+    in JAX.
+
+    Returns numpy (distances (Q, k) ascending, ids (Q, k), SearchStats).
+    `loop_stats` counts one batch, a step per outer step, the body's
+    iterations and the host syncs (stop flags, done flags, map sizing).
+    """
+    from clann_tpu_torch.errors import DataError
+
+    if index.g_records is None:
+        raise DataError(
+            "index lacks global LSH structures; build with config.lsh_engine='global'"
+        )
+    cfg = index.config
+    k = cfg.k if k is None else k
+    delta = cfg.delta if delta is None else delta
+    source, filterer = index.rebuild_objects()
+
+    q = as_device_f32(queries, index.device)
+    if q.dim() == 1:
+        q = q[None, :]
+    qn = l2_normalize(q)
+    Q = qn.shape[0]
+    if Q <= lanes:
+        # a single batch cannot be repacked (JAX passes the normalized queries)
+        return global_search(index, qn, k=k, delta=delta, batch_size=lanes,
+                             filter_type=filter_type, loop_stats=loop_stats)
+
+    slabs = []
+    for s in range(0, Q, prepare_batch):
+        block = qn[s : s + prepare_batch]
+        slabs.append(_prepare_streams(index, block, source.hash(block), filterer.sketch(block),
+                                      min_depth=cfg.min_depth))
+    streams_all = {name: torch.cat([sl[name] for sl in slabs], dim=0) for name in slabs[0]}
+    del slabs
+    syncs = 0
+    G = max(1, cfg.gather_block)
+    if cfg.stream_map and G <= 32:
+        # one map depth for the whole set; lanes pick up map rows like any
+        # other stream row (_map_tb bounds the (Q, tb) footprint)
+        total_max = int(torch.max(streams_all["total"]))
+        syncs += 1
+        wb = max(1, (cfg.candidate_chunk * cfg.filter_expand) // G)
+        tb = _map_tb(total_max, cfg.stream_map_blocks, wb, Q)
+        streams_all = _attach_stream_map(streams_all, g=int(np.log2(G)),
+                                         L=index.g_sorted_hash.shape[0], tb=tb)
+    state_all = _init_state(Q, _buffer_depth(index, k), streams_all["total"])
+
+    # lane scheduling on the host, O(lanes) per step. A lane whose query is
+    # done, with no pending query left, keeps its assignment: its qdone
+    # row masks all its work.
+    active = np.arange(lanes, dtype=np.int64)
+    next_q = lanes
+    stats = LoopStats() if loop_stats is None else loop_stats
+    while True:
+        state_all, lane_done = _global_step_packed(
+            index, streams_all, state_all, torch.tensor(active, device=qn.device), delta,
+            k=k, chunk=cfg.candidate_chunk, min_depth=cfg.min_depth,
+            filter_type=filter_type, filter_expand=cfg.filter_expand,
+            max_iters=step_iters, loop_stats=stats,
+        )
+        done_np = lane_done.cpu().numpy()
+        syncs += 1
+        refilled = False
+        if next_q < Q:
+            for i in np.nonzero(done_np)[0]:
+                if next_q >= Q:
+                    break
+                active[i] = next_q
+                next_q += 1
+                refilled = True
+        # stop only on a step that finished all its lanes and refilled none:
+        # refilled lanes hold unstarted queries
+        if not refilled and done_np.all():
+            break
+    stats.batches += 1
+    stats.syncs += syncs
+
+    sims, ids, st = _finalize(index, streams_all, state_all, k=k)
+    sims, ids = sims.cpu().numpy(), ids.cpu().numpy()
+    st = SearchStats(*(f.cpu().numpy() for f in st))
+    dists = 2.0 * (1.0 - sims)
+    dists = np.where(ids < 0, np.inf, dists)
+    return dists, ids, st

@@ -60,10 +60,11 @@ SYNC_EVERY = 4
 @dataclasses.dataclass
 class LoopStats:
     """What the adaptive loops of a search did (accumulated over calls):
-    batches run, outer steps (the walk's (group, window) steps; 0 for the
-    global engine), loop-body iterations, and host syncs (stop-flag,
-    map-sizing and descend pulls; the results pull of each batch is not
-    counted)."""
+    batches run, outer steps (the walk's (group, window) steps; the
+    continuous global driver's lane steps; 0 for the batched global
+    engine), loop-body iterations, and host syncs (stop-flag, map-sizing,
+    descend and lane done-flag pulls; the results pull of each batch is
+    not counted)."""
 
     batches: int = 0
     outer_steps: int = 0
@@ -117,24 +118,54 @@ def batched_query_driver(qn, batch_size, run_block):
     return sims, ids, stats
 
 
+# the int8 dots are exact in f32 while every partial sum of 127^2-sized
+# products stays below 2^24: d * 127 * 127 < 2^24, d <= 1,040
+Q8_F32_EXACT_D = ((1 << 24) - 1) // (127 * 127)
+
+
+def _int8_dots(vecs: torch.Tensor, q8: torch.Tensor) -> torch.Tensor:
+    """Exact int8 x int8 -> integer dots (Q, C) as f32: an f32 bmm of the
+    int8 values where every sum is exact (d <= Q8_F32_EXACT_D), else an
+    int32 multiply-and-sum."""
+    if vecs.shape[-1] <= Q8_F32_EXACT_D:
+        return torch.bmm(vecs.to(torch.float32), q8.to(torch.float32)[:, :, None]).squeeze(2)
+    prod = vecs.to(torch.int32) * q8.to(torch.int32)[:, None, :]
+    return prod.sum(dim=-1, dtype=torch.int32).to(torch.float32)
+
+
 def _score_candidates(index, queries_n, queries_q8, safe_ids):
     """Candidate similarity (Q, CB) in f32: (dot + 1) / 2 clipped to [0, 1]
     (cosine.hpp:19-23). f32 products at full precision (TF32 off, the
-    JAX package's Precision.HIGHEST). The int8 path (`queries_q8`) belongs
-    to `rescore_dtype="int8"`, which the port does not build yet."""
+    JAX package's Precision.HIGHEST); with `queries_q8` (rescore_dtype
+    "int8") the exact integer dot of the int8 shadows, scaled by 1/127^2
+    (the reference's i16 ranking dot, math.hpp:11-34)."""
     if queries_q8 is not None:
-        raise NotImplementedError(
-            "int8 candidate scoring: ROADMAP.md slice 11 (int8 rescore)")
-    vecs = index.vectors[safe_ids.to(torch.int64)]  # (Q, CB, d)
-    dots = torch.bmm(vecs, queries_n[:, :, None]).squeeze(2)
+        vecs = index.vectors_q8[safe_ids.to(torch.int64)]  # (Q, CB, d) int8
+        dots = _int8_dots(vecs, queries_q8) * (1.0 / (127.0 * 127.0))
+    else:
+        vecs = index.vectors[safe_ids.to(torch.int64)]  # (Q, CB, d)
+        dots = torch.bmm(vecs, queries_n[:, :, None]).squeeze(2)
     return torch.clamp((dots + 1.0) * 0.5, 0.0, 1.0)
 
 
 def _exact_rescore_topk(index, queries_n, topk_sims, topk_ids, out_k):
-    """Exact f32 re-score of the kept candidates; a no-op in f32 mode, the
-    only mode the port builds (the buffer already holds exact scores)."""
-    del index, queries_n
-    return topk_sims[:, :out_k], topk_ids[:, :out_k]
+    """Re-score the kept candidates exactly in f32, re-sort, keep out_k.
+
+    In f32 mode the buffer already holds exact scores (its first out_k).
+    In int8 mode the buffer holds 2k candidates ranked by their int8 dots
+    (the reference's 2k MaxBuffer, maxbuffer.hpp:25-46); their f32 scores
+    decide the top out_k (CLANN's re-scoring, index.rs:400-416).
+    """
+    if index.vectors_q8 is None:
+        return topk_sims[:, :out_k], topk_ids[:, :out_k]
+    n = index.vectors.shape[0]
+    v = index.vectors[torch.clamp(topk_ids, 0, n - 1).to(torch.int64)]  # (Q, kk, d)
+    dots = torch.bmm(v, queries_n[:, :, None]).squeeze(2)
+    sims = torch.clamp((dots + 1.0) * 0.5, 0.0, 1.0)
+    sims = torch.where(topk_ids >= 0, sims, -1.0)
+    new_sims, sel = topk_stable(sims, out_k)
+    new_ids = torch.gather(topk_ids, 1, sel)
+    return torch.clamp(new_sims, min=0.0), torch.where(new_sims < 0, -1, new_ids)
 
 
 def _compact_take(take, cand_ids, *, cap, n_sentinel):
@@ -272,6 +303,18 @@ def search_batch_impl(
     if n_groups * RG > C:  # pad ranks repeat the last cluster, masked by rank_ok
         order = torch.cat([order, order[:, -1:].expand(Q, n_groups * RG - C)], dim=1)
 
+    # int8 rescore: a 2k buffer (the reference's MaxBuffer keeps 2k,
+    # maxbuffer.hpp:25), and every consumer of the k-th similarity (ball
+    # bounds, sketch threshold, failure check) subtracts the int8 dot's
+    # error bound sqrt(d)/127, so an overestimated k-th never prunes
+    queries_q8 = None
+    kk, q8_margin = k, 0.0
+    if index.vectors_q8 is not None:
+        from clann_tpu_torch.core.index import quantize_q8
+
+        queries_q8 = quantize_q8(queries_n)
+        kk, q8_margin = 2 * k, float(np.sqrt(d)) / 127.0
+
     delta = torch.as_tensor(delta, dtype=torch.float32, device=dev)
     stop_at = 1.0 - delta  # f32, as the JAX walk's 1.0 - delta
     blk_iota = torch.arange(WB, device=dev)
@@ -342,7 +385,7 @@ def search_batch_impl(
         # members >= 1 are checked where the cursor crosses into them),
         # active once the queue holds k results
         full0 = topk_ids[:, k - 1] >= 0
-        kth0 = torch.where(full0, 2.0 * (1.0 - topk_sims[:, k - 1]), torch.inf)
+        kth0 = torch.where(full0, 2.0 * (1.0 - (topk_sims[:, k - 1] - q8_margin)), torch.inf)
         stopped0 = stopped | (full0 & (minpos_g[:, 0] > kth0) & entry_chunk)
         dc0 = dc + (full0 & ~stopped & entry_chunk).to(torch.int32)  # index.rs:352
         visited0 = visited + (~stopped0 & entry_chunk).to(torch.int32)
@@ -372,7 +415,7 @@ def search_batch_impl(
                 cand_ids = index.sorted_idx[t_sel, slot]  # G = 1: WL == WB
                 cand_sk = index.sketches[cand_ids.to(torch.int64), t_sel % S][:, :, None, :]
 
-            kth_sim = topk_sims[:, k - 1]
+            kth_sim = topk_sims[:, k - 1] - q8_margin
             maxdiff = index.maxdiff_table[torch.clamp(
                 (kth_sim / index.sim_eps).to(torch.int64), 0,
                 index.maxdiff_table.shape[0] - 1)]
@@ -402,7 +445,7 @@ def search_batch_impl(
                 Q, WB, G).reshape(Q, WL)
             took = passes & in_window
             compact_ids = _compact_take(took, cand_ids, cap=CB, n_sentinel=n)
-            sims = _score_candidates(index, queries_n, None,
+            sims = _score_candidates(index, queries_n, queries_q8,
                                      torch.clamp(compact_ids, 0, n - 1))
             topk_sims, topk_ids = _merge_topk(topk_sims, topk_ids, compact_ids, sims,
                                               n_sentinel=n)
@@ -420,7 +463,7 @@ def search_batch_impl(
                                     min=min_depth)
             tables_consumed = (local_r % L).to(torch.float32)
 
-            kth_sim = topk_sims[:, k - 1]
+            kth_sim = topk_sims[:, k - 1] - q8_margin
             p_d = probs_lookup(index, depth_cur, kth_sim)
             p_d1 = probs_lookup(index, depth_cur + 1, kth_sim)
             # at the entry depth the unconsumed tables carry no guarantee
@@ -486,8 +529,8 @@ def search_batch_impl(
                 (iters, syncs), all_stopped)
 
     zq = torch.zeros((Q,), dtype=torch.int32, device=dev)
-    st = (torch.zeros((Q, k), dtype=torch.float32, device=dev),
-          torch.full((Q, k), -1, dtype=torch.int32, device=dev),
+    st = (torch.zeros((Q, kk), dtype=torch.float32, device=dev),
+          torch.full((Q, kk), -1, dtype=torch.int32, device=dev),
           torch.zeros((Q,), dtype=torch.bool, device=dev),
           torch.zeros((Q, RG), dtype=torch.bool, device=dev),
           zq, zq.clone(), zq.clone())

@@ -38,6 +38,22 @@ def index_arrays(index) -> Dict[str, object]:
     return out
 
 
+def jaccard_index_arrays(index) -> Dict[str, object]:
+    """Everything `core.jaccard.jaccard_index_from_arrays` takes, read off a
+    Jaccard index of either package (uint32 words carried as int32 bit
+    patterns on the way in)."""
+    from clann_tpu_torch.core.jaccard import JACCARD_FIELDS, JACCARD_META
+
+    def arr(v):
+        return None if v is None else np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+
+    out: Dict[str, object] = {f: arr(getattr(index, f, None)) for f in JACCARD_FIELDS}
+    out.update({f: getattr(index, f) for f in JACCARD_META})
+    for f in ("hash_params", "sketch_params"):
+        out[f] = {k: arr(v) for k, v in dict(getattr(index, f)).items()}
+    return out
+
+
 def quant_step(pg: int) -> float:
     """Decode quantization step of the packed kernel at pg rows per bin:
     the low log2(pg) mantissa bits of a float in [2, 4) (ulp 2^-22)."""

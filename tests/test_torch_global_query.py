@@ -14,6 +14,12 @@ JAX's results do not depend on stream_map, dead_block_routing, the map's
 length or the batch size (tests/test_stream_map.py pins that), so the
 port's runs with those knobs changed are held against one JAX run; the
 filter type and delta change results and get their own JAX runs.
+
+The continuous-batching driver (global_search_continuous) runs 70 queries
+through 16 lanes (a ragged last refill) and is held both to JAX's driver
+and to the port's own global_search. The int8 rescore runs on the carried
+index plus JAX's int8 shadow (quantize_q8). The entry-cap and tensored-
+source knobs each get their own JAX run.
 """
 
 import dataclasses
@@ -27,6 +33,7 @@ import jax.numpy as jnp
 import clann_tpu
 from clann_tpu.config import Config as JConfig
 from clann_tpu.core.index import build_index as jbuild
+from clann_tpu.core.index import quantize_q8 as jquantize_q8
 from clann_tpu.data.synthetic import make_synthetic_dataset
 from clann_tpu.ops import global_query as jgq
 
@@ -241,3 +248,134 @@ def test_search_without_global_tables_raises(world):
     with pytest.raises(DataError, match="global"):
         tgq.global_search(dataclasses.replace(world["tidx"], g_records=None),
                           world["ds"].test[:2])
+
+
+# ---------------------------------------------------------------------------
+# the continuous-batching driver
+
+
+def _stats_dict(st):
+    return {f: np.asarray(getattr(st, f)) for f in st._fields}
+
+
+@pytest.fixture(scope="module")
+def queries70(world):
+    """70 queries: the 48 test queries and 22 indexed points."""
+    ds = world["ds"]
+    return np.concatenate([ds.test, ds.train[:22]]).astype(np.float32)
+
+
+@pytest.mark.parametrize("lanes,step_iters", [(16, 2), (16, 3), (128, 8)])
+def test_continuous_matches_jax_and_global_search(world, queries70, lanes, step_iters):
+    """70 queries through 16 lanes, 2 or 3 iterations per step (with a
+    ragged last refill), and through 128 lanes (Q <= lanes: one batch of
+    global_search): ids, sims and every counter as JAX's continuous driver
+    and as the port's batched global_search."""
+    jd, ji, jst = jgq.global_search_continuous(world["jidx"], queries70, lanes=lanes,
+                                               step_iters=step_iters)
+    ls = tgq.LoopStats()
+    td, ti, tst = tgq.global_search_continuous(world["tidx"], queries70, lanes=lanes,
+                                               step_iters=step_iters, loop_stats=ls)
+    assert td.shape == (70, 10) and ti.dtype == np.int32
+    _assert_same((jd, ji, _stats_dict(jst)), td, ti, tst)
+    gd, gi, gst = tgq.global_search(world["tidx"], queries70)
+    _assert_same((gd, gi, _stats_dict(gst)), td, ti, tst)
+    assert ls.batches == 1
+    if lanes < 70:  # steps of at most step_iters iterations, each ending in a done-flag pull
+        assert ls.outer_steps >= 70 // lanes and ls.iterations <= step_iters * ls.outer_steps
+        assert ls.syncs >= 1 + 2 * ls.outer_steps
+    else:
+        assert ls.outer_steps == 0
+
+
+def test_continuous_without_stream_map(world, queries70):
+    """The continuous driver on the in-loop derivation (no stream map)."""
+    jd, ji, jst = jgq.global_search_continuous(world["jidx"], queries70, lanes=16,
+                                               step_iters=3)
+    td, ti, tst = tgq.global_search_continuous(_with(world["tidx"], stream_map=False),
+                                               queries70, lanes=16, step_iters=3)
+    _assert_same((jd, ji, _stats_dict(jst)), td, ti, tst)
+
+
+def test_continuous_write_back_keeps_other_rows(world):
+    """One packed step touches only the active rows of the full state."""
+    tidx = world["tidx"]
+    qn, qh, qs = world["tq"]
+    streams = tgq._prepare_streams(tidx, qn, qh, qs, min_depth=1)
+    state = tgq._init_state(48, 10, streams["total"])
+    before = tuple(t.clone() for t in state)
+    active = torch.tensor([5, 0, 17, 40])
+    state, done = tgq._global_step_packed(tidx, streams, state, active, 0.9, max_iters=2,
+                                          min_depth=1, filter_type="default", **KW)
+    assert done.shape == (4,)
+    rest = torch.ones(48, dtype=torch.bool)
+    rest[active] = False
+    for b, a in zip(before, state):
+        assert torch.equal(b[rest], a[rest])
+    assert (state[3][active] > 0).all()  # every active cursor moved
+
+
+# ---------------------------------------------------------------------------
+# the int8 rescore
+
+
+@pytest.fixture(scope="module")
+def int8_world(world):
+    """The carried index with the int8 shadow on both sides."""
+    j = world["jidx"].replace(config=world["jidx"].config.replace(rescore_dtype="int8"),
+                              vectors_q8=jquantize_q8(world["jidx"].vectors))
+    cfg = dict(world["cfg"], rescore_dtype="int8")
+    t = index_from_arrays(index_arrays(j), TConfig(**cfg), device="cpu")
+    assert t.vectors_q8.dtype == torch.int8
+    return j, t
+
+
+@pytest.mark.parametrize("filter_type", ["default", "none"])
+def test_engine_int8_matches_jax(world, int8_world, filter_type):
+    """The int8 engine: 2k buffer of int8 dots, the k-th lowered by
+    sqrt(d)/127, the buffer re-scored in f32."""
+    j, t = int8_world
+    s, i, st = jgq.global_search_batch_mapped(j, *world["jq"], 0.9, filter_type=filter_type,
+                                              **KW)
+    out = tgq.global_search_batch_mapped(t, *world["tq"], 0.9, filter_type=filter_type, **KW)
+    _assert_same((np.asarray(s), np.asarray(i), _stats_dict(st)), *out)
+    f32 = _jax_ref(world, 0.9, filter_type)
+    assert not np.array_equal(f32[2]["distance_computations"], np.asarray(st[0]))
+
+
+def test_continuous_int8_matches_jax(world, int8_world, queries70):
+    j, t = int8_world
+    jd, ji, jst = jgq.global_search_continuous(j, queries70, lanes=16, step_iters=3)
+    td, ti, tst = tgq.global_search_continuous(t, queries70, lanes=16, step_iters=3)
+    _assert_same((jd, ji, _stats_dict(jst)), td, ti, tst)
+
+
+# ---------------------------------------------------------------------------
+# knobs of the global engine
+
+
+@pytest.mark.parametrize("cap,sort", [(8, False), (12, False), (8, True)])
+def test_global_entry_cap_matches_jax(world, cap, sort):
+    """config.global_entry_cap enters the stream at a shallower depth, in
+    the engine and in the difficulty sort."""
+    j = world["jidx"].replace(config=world["jidx"].config.replace(global_entry_cap=cap))
+    t = _with(world["tidx"], global_entry_cap=cap)
+    assert tgq._entry_depth(t, 1) == cap
+    q = world["ds"].test
+    jd, ji, jst = jgq.global_search(j, q, k=10, delta=0.9, batch_size=16,
+                                    sort_by_difficulty=sort)
+    td, ti, tst = tgq.global_search(t, q, k=10, delta=0.9, batch_size=16,
+                                    sort_by_difficulty=sort)
+    _assert_same((jd, ji, _stats_dict(jst)), td, ti, tst)
+
+
+def test_tensored_source_matches_jax(world):
+    """hash_source="tensor": the tensored tables and their effective
+    collision table, built by JAX and carried across."""
+    ds = world["ds"]
+    cfg = dict(world["cfg"], hash_source="tensor")
+    jidx = jbuild(ds.train, JConfig(**cfg))
+    tidx = index_from_arrays(index_arrays(jidx), TConfig(**cfg), device="cpu")
+    jd, ji, jst = jgq.global_search(jidx, ds.test, k=10, delta=0.9)
+    td, ti, tst = tgq.global_search(tidx, ds.test, k=10, delta=0.9)
+    _assert_same((jd, ji, _stats_dict(jst)), td, ti, tst)

@@ -17,7 +17,9 @@ SLICE_MODULES = [
     "clann_tpu_torch.errors",
     "clann_tpu_torch.testing",
     "clann_tpu_torch.core.index",
+    "clann_tpu_torch.core.jaccard",
     "clann_tpu_torch.data.metricdata",
+    "clann_tpu_torch.data.setdata",
     "clann_tpu_torch.data.synthetic",
     "clann_tpu_torch.metrics.recall",
     "clann_tpu_torch.metrics.trace",
@@ -30,6 +32,7 @@ SLICE_MODULES = [
     "clann_tpu_torch.ops.gmm",
     "clann_tpu_torch.ops.hashing",
     "clann_tpu_torch.ops.ivf",
+    "clann_tpu_torch.ops.minhash",
     "clann_tpu_torch.ops.prefixmap",
     "clann_tpu_torch.ops.query",
     "clann_tpu_torch.ops.scan_topk",

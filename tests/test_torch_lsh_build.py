@@ -428,5 +428,38 @@ def test_own_build_meets_the_delta_contract(ds, own_build):
 
 
 def test_build_refuses_int8_rescore(ds):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tindex.build_index(ds.train[:300], TConfig(**CFG, rescore_dtype="int8"), device="cpu")
+    """(Named when the port refused rescore_dtype="int8".) The int8 build
+    keeps vectors_q8 = quantize_q8(vectors), JAX's values; the f32 build
+    taken through with_rescore_dtype is the same index, field for field;
+    memory_usage leaves the shadow out, as JAX's does."""
+    own = tindex.build_index(ds.train[:300], TConfig(**CFG, rescore_dtype="int8"), device="cpu")
+    f32 = tindex.build_index(ds.train[:300], TConfig(**CFG), device="cpu")
+    assert f32.vectors_q8 is None and own.vectors_q8.dtype == torch.int8
+    np.testing.assert_array_equal(
+        own.vectors_q8.numpy(), np.asarray(jindex.quantize_q8(jnp.asarray(own.vectors.numpy()))))
+    derived = tindex.with_rescore_dtype(f32, "int8")
+    assert derived.config == own.config
+    fields = tindex.GEOMETRY_FIELDS + tuple(tindex.LSH_FIELDS) + tuple(tindex.DENSE_FIELDS)
+    got, want = dict(derived._tensors(fields)), dict(own._tensors(fields))
+    assert got.keys() == want.keys() and "vectors_q8" in got
+    for f, t in want.items():
+        assert torch.equal(got[f], t), f
+    assert own.memory_usage() == f32.memory_usage()
+    assert tindex.with_rescore_dtype(own, "float32").vectors_q8 is None
+
+
+def test_quantize_q8_matches_jax():
+    """round(clip(x * 127, -127, 127)) to int8, halves to even: exact
+    half-integer products, +-1, beyond +-1, zeros and random values."""
+    halves = np.float32(np.arange(-127, 127) + 0.5) / np.float32(127)
+    cands = np.concatenate([halves, np.nextafter(halves, np.float32(2)),
+                            np.nextafter(halves, np.float32(-2))]).astype(np.float32)
+    exact = cands[(cands * np.float32(127)) % 1 == 0.5]
+    assert exact.size > 50  # products that land exactly on a half
+    rng = np.random.default_rng(0)
+    x = np.concatenate([exact, cands, [1, -1, 1.5, -1.5, 0, -0.0],
+                        rng.uniform(-1, 1, 1000)]).astype(np.float32)
+    got = tindex.quantize_q8(torch.from_numpy(x))
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jindex.quantize_q8(jnp.asarray(x))))
+    assert got[-1006 + 0].item() == 127 and got[-1006 + 1].item() == -127

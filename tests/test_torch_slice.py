@@ -1,7 +1,8 @@
 """The ported slice as a whole against the JAX package, on the CPU:
 cluster build, scan_search in every pull mode (kernel path pinned, plain
-path, certified exact), the Clann facade's "scan" / "scan-pallas" modes and
-the facade's error probes (the block modes are in test_torch_block_scan.py).
+path, certified exact), the Clann facade's "scan" / "scan-pallas" modes,
+the int8 rescore in five facade modes and the facade's error probes (the
+block modes are in test_torch_block_scan.py).
 
 Both packages search the SAME index: the JAX index's geometry fields are
 carried across with index_from_arrays. The port's own build is compared
@@ -27,7 +28,7 @@ from clann_tpu_torch.data.synthetic import clustered_unit_vectors, random_unit_v
 from clann_tpu_torch.errors import DataError
 from clann_tpu_torch.ops import ivf as tivf
 from clann_tpu_torch.ops import scan_topk as tst
-from clann_tpu_torch.testing import assert_topk_match
+from clann_tpu_torch.testing import assert_topk_match, index_arrays
 
 torch.set_num_threads(1)
 
@@ -188,15 +189,12 @@ def test_facade_single_query_search(world):
 
 
 # each mode in a configuration where it reaches a part that is not ported:
-# the int8 rescore (ROADMAP.md slice 11) refuses to build, whatever the mode;
 # the clustered walk ("lsh" on a clustered build, "lsh-clustered") refuses
 # an index with per-cluster hash functions (a faithful reference import,
 # slice 14)
-_INT8 = dict(rescore_dtype="int8")
 _UNPORTED = {
-    None: _INT8, "auto": _INT8, "dense": dict(_INT8, dense_layout=True),
-    "lsh": dict(lsh_engine="clustered"), "lsh-global": _INT8,
-    "lsh-clustered": dict(lsh_engine="clustered"), "adaptive": dict(_INT8, dense_layout=True),
+    "lsh": dict(lsh_engine="clustered"),
+    "lsh-clustered": dict(lsh_engine="clustered"),
 }
 
 
@@ -208,6 +206,37 @@ def test_unported_modes_raise(world, mode):
         t = clann_tpu_torch.init_with_config(train[:200], cfg, device="cpu").build()
         t.index.pc_hash_params = dict(t.index.hash_params)
         t.search_batch(train[:3], mode=mode)
+
+
+# the int8 rescore in every mode that the unported-mode probe once refused
+# with it: the default mode and "auto" (the global engine here), "dense",
+# "lsh-global" and "adaptive" (the dense modes build the int8 shadow and
+# score in f32, as in JAX)
+_INT8 = dict(rescore_dtype="int8")
+_INT8_MODES = {
+    None: _INT8, "auto": _INT8, "dense": dict(_INT8, dense_layout=True),
+    "lsh-global": _INT8, "adaptive": dict(_INT8, dense_layout=True),
+}
+
+
+@pytest.mark.parametrize("mode", list(_INT8_MODES))
+def test_int8_modes_match_jax(world, mode):
+    """JAX's int8 build carried across (its vectors_q8 included), both
+    facades searching it: distances within 1e-5, ids up to ties, counters
+    identical."""
+    train, queries = world[0][:600], world[1]
+    cfg = {**CFG, **_INT8_MODES[mode]}
+    j = clann_tpu.init_with_config(train, JConfig(**cfg)).build()
+    assert j.index.vectors_q8 is not None
+    t = clann_tpu_torch.init_with_config(train, TConfig(**cfg), device="cpu")
+    t.index = index_from_arrays(index_arrays(j.index), TConfig(**cfg), device="cpu")
+    np.testing.assert_array_equal(t.index.vectors_q8.numpy(), np.asarray(j.index.vectors_q8))
+    jd, ji, jst = j.search_batch(queries, mode=mode)
+    td, ti, tst = t.search_batch(queries, mode=mode)
+    assert_topk_match(ji, jd, ti, td)
+    for f in ("distance_computations", "candidates", "clusters_visited"):
+        np.testing.assert_array_equal(np.asarray(getattr(tst, f)), np.asarray(getattr(jst, f)),
+                                      err_msg=f)
 
 
 def test_facade_error_probes(world):
@@ -222,3 +251,25 @@ def test_facade_error_probes(world):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             clann_tpu_torch.init(train[:10])  # default device is CUDA: no CPU fallback
+
+
+@pytest.mark.parametrize("d", [100, 1040, 1041, 1500])
+def test_int8_dots_exact_on_both_sides_of_the_f32_bound(d):
+    """The int8 candidate dots (ops/query._int8_dots): an f32 bmm of the
+    int8 values up to Q8_F32_EXACT_D = 1,040 dimensions, an int32
+    multiply-and-sum above; both give the exact integer dot cast once to
+    f32 (JAX's int32 contraction, then astype), at the largest magnitudes
+    (+-127 everywhere, where partial f32 sums past 2^24 would round)."""
+    from clann_tpu_torch.ops.query import Q8_F32_EXACT_D, _int8_dots
+
+    assert Q8_F32_EXACT_D == 1040
+    rng = np.random.default_rng(d)
+    vecs = rng.integers(-127, 128, (3, 5, d)).astype(np.int8)
+    vecs[0] = 127
+    q = rng.integers(-127, 128, (3, d)).astype(np.int8)
+    q[0] = 127
+    q[1, : d // 2] = -127
+    got = _int8_dots(torch.from_numpy(vecs), torch.from_numpy(q))
+    want = np.einsum("qcd,qd->qc", vecs.astype(np.int64), q.astype(np.int64))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))

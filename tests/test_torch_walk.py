@@ -25,13 +25,14 @@ import jax.numpy as jnp
 import clann_tpu
 from clann_tpu.config import Config as JConfig
 from clann_tpu.core.index import build_index as jbuild
+from clann_tpu.core.index import quantize_q8 as jquantize_q8
 from clann_tpu.data.synthetic import make_synthetic_dataset
 from clann_tpu.ops import prefixmap as jpm
 from clann_tpu.ops import query as jq
 
 import clann_tpu_torch
 from clann_tpu_torch.config import Config as TConfig
-from clann_tpu_torch.core.index import index_from_arrays
+from clann_tpu_torch.core.index import index_from_arrays, with_rescore_dtype
 from clann_tpu_torch.metrics.recall import recall_values
 from clann_tpu_torch.ops import gather as tg
 from clann_tpu_torch.ops import prefixmap as tpm
@@ -71,14 +72,34 @@ def world():
     return dict(ds=ds, cfg=cfg, jidx=jidx, tidx=_carry(jidx, cfg), jq=jqs, tq=tqs, ref={})
 
 
-def _variant(world, records=True, level_chunk=0):
-    """(JAX index, port index) with the knobs changed on both sides."""
+def _variant(world, records=True, level_chunk=0, entry_cap=True, directory=True,
+             int8=False):
+    """(JAX index, port index) with the knobs changed on both sides:
+    lsh_level_chunk and lsh_entry_cap in the config, the slot records or
+    the prefix directory (prefix_dir_bits=0) dropped, or the int8 shadow
+    added (JAX's quantize_q8 on its side, the port's with_rescore_dtype on
+    its own)."""
     j, t = world["jidx"], world["tidx"]
+    knobs = {}
     if level_chunk:
-        j = j.replace(config=j.config.replace(lsh_level_chunk=level_chunk))
-        t = dataclasses.replace(t, config=t.config.replace(lsh_level_chunk=level_chunk))
+        knobs["lsh_level_chunk"] = level_chunk
+    if not entry_cap:
+        knobs["lsh_entry_cap"] = False
+    if not directory:
+        knobs["prefix_dir_bits"] = 0
+    if knobs:
+        j = j.replace(config=j.config.replace(**knobs))
+        t = dataclasses.replace(t, config=t.config.replace(**knobs))
     if not records:
         j, t = j.replace(slot_records=None), dataclasses.replace(t, slot_records=None)
+    if not directory:  # what a build with prefix_dir_bits=0 makes
+        j = j.replace(prefix_dir=None, dir_bits=0, dir_iters=0)
+        t = dataclasses.replace(t, prefix_dir=None, dir_bits=0, dir_iters=0)
+    if int8:
+        j = j.replace(config=j.config.replace(rescore_dtype="int8"),
+                      vectors_q8=jquantize_q8(j.vectors))
+        t = with_rescore_dtype(t, "int8")
+        np.testing.assert_array_equal(t.vectors_q8.numpy(), np.asarray(j.vectors_q8))
     return j, t
 
 
@@ -146,9 +167,9 @@ def test_chunk_stream_direct_matches_jax(world, lc, d_top, entry):
 
 
 def _walk(world, *, records=True, level_chunk=0, group_ranks=1, delta=0.9,
-          filter_type="default", queries=None):
+          filter_type="default", queries=None, entry_cap=True, directory=True, int8=False):
     """(JAX result, port result, port LoopStats) of one knob variant."""
-    j, t = _variant(world, records, level_chunk)
+    j, t = _variant(world, records, level_chunk, entry_cap, directory, int8)
     jqs, tqs = (world["jq"], world["tq"]) if queries is None else queries
     kw = dict(KW, group_ranks=group_ranks, filter_type=filter_type)
     js, ji, jst = jq.search_batch_jit(j, *jqs, jnp.float32(delta), **kw)
@@ -171,6 +192,11 @@ _WALKS = {
     "delta-0.5": dict(delta=0.5),
     "delta-0.99": dict(delta=0.99),
     "delta-0.99-group-ranks-4-level-chunk-1": dict(delta=0.99, group_ranks=4, level_chunk=1),
+    "no-entry-cap": dict(entry_cap=False),
+    "no-entry-cap-level-chunk-2": dict(entry_cap=False, level_chunk=2),
+    "no-directory": dict(directory=False),
+    "int8": dict(int8=True),
+    "int8-level-chunk-2-group-ranks-4": dict(int8=True, level_chunk=2, group_ranks=4),
 }
 
 
