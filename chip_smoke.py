@@ -129,6 +129,50 @@ and the Jaccard set index:
    128-query iteration) at every inflight and ragged, and timed as in
    phase 5.
 
+Phases 7d, 13, 13b and 14 drive closest pairs, insert / rebuild, the
+SQLite metrics sink and the upstream PUFFINN surface on the same data:
+
+7d. join (right after phase 7c, on the lsh index: L = 128, 435 clusters):
+   Clann.closest_pairs(k=100, delta=0.9); the pairs must be canonical
+   (i < j) and unique, their sims non-increasing and within 1e-4 of the
+   exact f32 (x_i . x_j + 1) / 2, and they must be the top 100 of the
+   pairs that sit within the sweep's final window in some table (JAX's
+   windowed join, recomputed table by table apart from ops.join). The
+   exact top 100 pairs of the data are the script's own oracle
+   (pair_oracle: every pair i < j by f32 products in blocks of 1,024
+   rows); the share of the returned pairs that reach the true 100th
+   similarity - 1e-6 and the recall of the true top 100 are readings, not
+   gated: JAX's window model stops at window 4 here and finds 0.39 of
+   them (PERF.md, PR 10), below the 0.5 its compat test reaches at 600
+   points. The windows of the sweep with their seconds and the peak
+   memory are printed.
+13. update (after phase 12): the lsh configuration with the SQLite sink on
+   (metrics_output=DB), built on the first 1,083,514 points; the last
+   100,000 inserted through Clann.insert in 4 calls; 100,000 pending, every
+   inserted point inside its (possibly grown) ball within 1e-5 and no
+   radius shrunk; mode="lsh" on 2,048 queries returns no pending id;
+   scan-pallas (K1, which reads the vectors and sees pending points) on the
+   10,000 queries gated recall@10 >= 0.9 and id-recall >= 0.8 against the
+   ground truth over all 1,183,514 points; rebuild(); the old points'
+   hashes and sketches unchanged bit for bit, mode="lsh" (K7) gated
+   recall@10 >= 0.8 * delta over all points, and 256 inserted points as
+   queries finding an inserted point at distance < 1e-5 at a rate >= 0.9
+   (JAX's bar). Seconds of each insert, the rebuild and the build, peak
+   memory.
+13b. metrics-db: save_metrics of that run to build/chip_smoke_metrics.db
+   (QUERY granularity), read back: one build row whose memory_used_bytes
+   is the build's memory_usage(), one cluster row per cluster, one query
+   row per query searched since reset_metrics.
+14. puffinn: puffinn.Index("angular", 100, 5,335,185,152), a budget the
+   byte model (parallel/capacity.py, the JAX package's) turns into L =
+   128, checked; the 1,183,514 points inserted one call each, rebuild();
+   256 single-query search(q, 10, 0.9) calls gated by the compat contract
+   (correct ids >= 0.8 * recall * k * queries), failing if K7 was not
+   launched; search_from_index on 3 ids excludes each; closest_pairs(10,
+   0.9) held to the windowed join as in 7d, its share in range of the
+   oracle's 10th pair a reading; a pickle round trip (its second build
+   lazy, on the first query) answers 2 queries identically.
+
 It prints the kernels as one JSON line (launches on the main paths, error
 against the plain version, ms, plain_ms, bound_ms / bound_by, library_ms),
 the nvidia-smi name / power limit line, and last {"ok": true, "device":
@@ -172,6 +216,14 @@ JACCARD_N, JACCARD_UNIVERSE, JACCARD_QUERIES, JACCARD_BATCH = 200_000, 50_000, 5
 JACCARD_DELTA = 0.9
 JACCARD_CUT_S, JACCARD_CUT_QUERIES = 120.0, 256  # a slower variant runs 256 queries
 BY_ID_POINTS = 256
+# [join]: Clann.closest_pairs on the lsh index, held to the exact top pairs
+JOIN_K, JOIN_DELTA, ORACLE_ROWS = 100, 0.9, 1024
+# [update]: build on the first N_UPDATE_OLD points, insert the rest in
+# UPDATE_CALLS calls, UPDATE_SELF inserted points searched as queries
+N_UPDATE_OLD, UPDATE_CALLS, UPDATE_SELF = 1_083_514, 4, 256
+# [puffinn]: the byte budget that the JAX package's model turns into L = 128
+# at 1,183,514 x 100 (1,088,035,072 B fixed + 33,180,860 B per table)
+PUFFINN_BUDGET, PUFFINN_QUERIES, PUFFINN_RECALL = 5_335_185_152, 256, 0.9
 DEVICE = "cuda"
 
 
@@ -225,8 +277,11 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    log(f"[device] {name}; count={torch.cuda.device_count()}; "
-        f"torch {torch.__version__} cuda {torch.version.cuda}; "
+    from clann_tpu_torch.parallel.capacity import HBM_H100
+
+    log(f"[device] {name}; count={torch.cuda.device_count()}; total_memory "
+        f"{torch.cuda.get_device_properties(0).total_memory} B (plan_capacity's default "
+        f"{HBM_H100}); torch {torch.__version__} cuda {torch.version.cuda}; "
         f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     log(f"[device] nvidia-smi name,power.limit: {smi}")
@@ -1805,6 +1860,426 @@ def phase_jaccard(card):
     return launches, k7
 
 
+def pair_oracle(x, k):
+    """The exact top-k pairs i < j of the unit rows x (a card tensor): every
+    pair scored by the f32 product (TF32 off) in blocks of ORACLE_ROWS rows
+    against the rows after them. The first block keeps its best k pairs
+    (row-wise top-k, then the best k of those); a later block keeps only
+    the pairs above the running k-th, merged into the running best k. These
+    are the top k pairs over each point's k nearest other points (a top-k
+    pair (i, j) has j among i's k nearest), for half the products. Returns
+    numpy (pairs (k, 2), sims (k,) descending)."""
+    import torch
+
+    n = x.shape[0]
+    best_s = torch.zeros((0,), device=x.device)
+    best_p = torch.zeros((0, 2), dtype=torch.int64, device=x.device)
+    for r0 in range(0, n - 1, ORACLE_ROWS):
+        r1 = min(n, r0 + ORACLE_ROWS)
+        b, m = r1 - r0, n - r0
+        dots = x[r0:r1] @ x[r0:].T  # (b, m): column c is row r0 + c
+        dots[:, :b].masked_fill_(torch.ones(b, b, dtype=torch.bool, device=x.device).tril(),
+                                 -2.0)
+        if best_s.numel() < k:
+            v, j = torch.topk(dots, min(k, m), dim=1)
+            flat = (j + torch.arange(b, device=x.device)[:, None] * m).reshape(-1)
+        else:
+            flat = torch.nonzero(dots.reshape(-1) > best_s[-1]).flatten()
+        vals = dots.reshape(-1)[flat]
+        del dots
+        pairs = torch.stack([flat // m + r0, flat % m + r0], dim=1)
+        best_s, sel = torch.topk(torch.cat([best_s, vals]), min(k, best_s.numel() + vals.numel()))
+        best_p = torch.cat([best_p, pairs])[sel]
+    return best_p.cpu().numpy(), ((best_s + 1.0) * 0.5).cpu().numpy()
+
+
+def pair_sims(x, pairs):
+    """Exact f32 (x_i . x_j + 1) / 2 of (m, 2) numpy pairs, on the card."""
+    import torch
+
+    p = torch.as_tensor(pairs, dtype=torch.int64, device=x.device)
+    return ((torch.sum(x[p[:, 0]] * x[p[:, 1]], dim=1) + 1.0) * 0.5).cpu().numpy()
+
+
+def timed_join(call):
+    """call() with ops.join's per-window function timed (the module's own
+    function, restored after). Returns (call's result, [(window, s)],
+    seconds, peak device bytes)."""
+    import torch
+
+    from clann_tpu_torch.ops import join as tjoin
+
+    windows = []
+    inner = tjoin._windowed_pairs
+
+    def timed(*args, window, **kw):
+        sync()
+        t = time.perf_counter()
+        out = inner(*args, window=window, **kw)
+        sync()
+        windows.append((window, time.perf_counter() - t))
+        return out
+
+    tjoin._windowed_pairs = timed
+    try:
+        sync()
+        reset_peak()
+        t0 = time.perf_counter()
+        out = call()
+        sync()
+        return out, windows, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    finally:
+        tjoin._windowed_pairs = inner
+
+
+def window_pairs_above(index, window, floor):
+    """Every distinct pair (i < j) that sits within `window` positions of
+    one table (index.sorted_idx) with f32 similarity (x_i . x_j + 1) / 2 >=
+    floor: a plain pass over the tables, apart from ops.join. Returns
+    {(i, j): sim}."""
+    import torch
+
+    x, out = index.vectors, {}
+    for t in range(index.sorted_idx.shape[0]):
+        order = index.sorted_idx[t].to(torch.int64)
+        rows = x[order]
+        for w in range(1, window + 1):
+            s = (torch.sum(rows[:-w] * rows[w:], dim=1) + 1.0) * 0.5
+            hit = torch.nonzero(s >= floor).flatten()
+            a, b = order[hit], order[hit + w]
+            for i, j, v in zip(torch.minimum(a, b).tolist(), torch.maximum(a, b).tolist(),
+                               s[hit].tolist()):
+                out[(i, j)] = v
+    return out
+
+
+def check_join(index, pairs, sims, window, k, label):
+    """The pairs must be canonical (i < j), unique, sims non-increasing and
+    within 1e-4 of the exact f32 ones, and they must be the top k of the
+    pairs within the final window of some table (JAX's windowed join,
+    independent of ops.join; a differing pair only where it ties the k-th
+    within 1e-6). Returns (max |sim - exact f32|, pairs of the window set
+    above the k-th)."""
+    import numpy as np
+
+    if pairs.shape != (k, 2) or sims.shape != (k,) or (pairs < 0).any():
+        fail(f"{label} result shapes {pairs.shape} {sims.shape} or missing pairs")
+    if not (pairs[:, 0] < pairs[:, 1]).all() or len({tuple(p) for p in pairs.tolist()}) != k:
+        fail(f"{label} pairs not canonical (i < j) or not unique")
+    if not (np.diff(sims) <= 0).all():
+        fail(f"{label} sims not non-increasing")
+    err = float(np.max(np.abs(pair_sims(index.vectors, pairs) - sims)))
+    if err > 1e-4:
+        fail(f"{label} sims differ from the exact f32 ones by {err:.2e}")
+    want = window_pairs_above(index, window, float(sims[-1]) - 1e-6)
+    got = {tuple(p) for p in pairs.tolist()}
+    stray = [p for p in got if p not in want]
+    missed = [v for p, v in want.items() if p not in got and v > sims[-1] + 1e-6]
+    if stray or missed:
+        fail(f"{label} is not the top {k} of the window-{window} pairs: {len(stray)} returned "
+             f"pairs outside the windows, {len(missed)} window pairs above the k-th missing")
+    return err, len(want)
+
+
+def phase_join(handle, card):
+    """Clann.closest_pairs(k=100, delta=0.9) on the lsh phase's index (L =
+    128, 435 clusters), held by check_join to JAX's windowed join at the
+    final window. The exact top 100 pairs (pair_oracle) give two readings,
+    not gated: the share of the returned pairs that reach the true 100th
+    similarity - 1e-6 (the JAX compat test's bar is half, at 600 points)
+    and the recall of the true top 100. Returns the oracle's pairs and
+    sims."""
+    import numpy as np
+
+    x = handle.index.vectors
+    sync()
+    reset_peak()
+    t0 = time.perf_counter()
+    o_pairs, o_sims = pair_oracle(x, JOIN_K)
+    sync()
+    oracle_s = time.perf_counter() - t0
+    log(f"[join] oracle: exact top {JOIN_K} pairs of {N_TRAIN} points ({N_TRAIN * (N_TRAIN - 1) // 2:,} "
+        f"pairs by f32 products in blocks of {ORACLE_ROWS} rows) in {oracle_s:.2f} s; true pair "
+        f"sims: 1st {o_sims[0]:.6f}, 10th {o_sims[9]:.6f}, 100th {o_sims[-1]:.6f} on {card}")
+
+    (pairs, sims), windows, join_s, peak = timed_join(
+        lambda: handle.closest_pairs(k=JOIN_K, delta=JOIN_DELTA))
+    t0 = time.perf_counter()
+    err, n_window = check_join(handle.index, pairs, sims, windows[-1][0], JOIN_K, "[join]")
+    check_s = time.perf_counter() - t0
+    in_range = float(np.mean(sims >= o_sims[-1] - 1e-6))
+    found = {tuple(p) for p in pairs.tolist()}
+    recall = len(found & {tuple(p) for p in o_pairs.tolist()}) / JOIN_K
+    # the windows pair points of one cluster segment: the true pairs whose
+    # points share a cluster, and how many of those the join found
+    assign = handle.index.assignment.cpu().numpy()
+    same = assign[o_pairs[:, 0]] == assign[o_pairs[:, 1]]
+    same_found = sum(tuple(p) in found for p in o_pairs[same].tolist())
+    log(f"[join] closest_pairs(k={JOIN_K}, delta={JOIN_DELTA}) on L={handle.index.num_tables}, "
+        f"{handle.index.n_clusters} clusters: {join_s:.3f} s, windows "
+        f"{', '.join(f'{w} ({s:.3f} s)' for w, s in windows)}, final window {windows[-1][0]}; "
+        f"peak device memory {peak / 1e9:.3f} GB (index resident); max |sim - exact f32| "
+        f"{err:.2e} (gate 1e-4); the top {JOIN_K} of the {n_window} window pairs at or above "
+        f"the k-th (checked in {check_s:.2f} s) on {card}")
+    log(f"[join] readings: pairs >= true 100th - 1e-6: {in_range:.2f} (the JAX compat test's "
+        f"0.5 at 600 points; not gated here); recall of the true top {JOIN_K}: {recall:.2f}; "
+        f"true pairs inside one cluster {int(same.sum())}, of those found {same_found}")
+    return o_pairs, o_sims
+
+
+def phase_update(train, test, gt_d, gt_i, card):
+    """insert / rebuild through the facade on the lsh configuration (with
+    the SQLite sink on): build on the first N_UPDATE_OLD points, insert the
+    rest in UPDATE_CALLS calls; the balls cover the new points; mode="lsh"
+    sees none of them, scan-pallas (K1) sees all; after rebuild the old
+    points' hashes and sketches are unchanged, mode="lsh" (K7) meets the
+    recall gate over all points and inserted points find themselves.
+    Returns (handle, K1 launches, K7 launches, queries searched since
+    reset_metrics, the build's memory_usage)."""
+    import numpy as np
+    import torch
+
+    import clann_tpu_torch
+    from clann_tpu_torch.config import MetricsOutput
+    from clann_tpu_torch.core.index import unsort_hashes
+    from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
+    from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.ops import scan_topk as st
+
+    cfg = lsh_config().replace(metrics_output=MetricsOutput.DB)
+    delta = cfg.delta
+    n_old = N_UPDATE_OLD
+    sync()
+    reset_peak()
+    h = clann_tpu_torch.init_with_config(train[:n_old], cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    h.build()
+    sync()
+    build_s = time.perf_counter() - t0
+    idx0 = h.index
+    build_bytes = idx0.memory_usage()
+    insert_s = []
+    for s in range(n_old, N_TRAIN, (N_TRAIN - n_old) // UPDATE_CALLS):
+        t0 = time.perf_counter()
+        h.insert(train[s:s + (N_TRAIN - n_old) // UPDATE_CALLS])
+        sync()
+        insert_s.append(time.perf_counter() - t0)
+    idx = h.index
+    if idx.num_pending != N_TRAIN - n_old or idx.n != N_TRAIN or h.data.num_points() != N_TRAIN:
+        fail(f"[update] {idx.num_pending} pending of {idx.n} after {len(insert_s)} inserts")
+    a = idx.assignment[n_old:].to(torch.int64)
+    cd = 1.0 - torch.sum(idx.vectors[n_old:] * idx.centers[a], dim=1)
+    over = float(torch.max(cd - idx.radii[a]))
+    grown = int((idx.radii > idx0.radii).sum())
+    shrank = bool((idx.radii < idx0.radii).any())
+    log(f"[update] L={cfg.num_tables}, {idx0.n_clusters} clusters: build on {n_old} points "
+        f"{build_s:.3f} s; {len(insert_s)} inserts of {(N_TRAIN - n_old) // UPDATE_CALLS} "
+        f"points: {', '.join(f'{s:.3f}' for s in insert_s)} s; {idx.num_pending} pending; "
+        f"largest distance beyond a ball {over:.2e} (gate 1e-5); {grown} radii grew, none "
+        f"shrank: {not shrank} on {card}")
+    if over > 1e-5 or shrank:
+        fail("[update] an inserted point lies outside its ball, or a radius shrank")
+
+    q, gd, gi = test[:LSH_QUERIES], gt_d[:LSH_QUERIES], gt_i[:LSH_QUERIES]
+    tg.reset_launches()
+    d, i, _ = h.search_batch(q, mode="lsh")
+    sync()
+    k7 = tg.ROWS_LAUNCHES
+    check_result(d, i, "update lsh before rebuild", LSH_QUERIES)
+    if i.max() >= n_old:
+        fail("[update] mode=lsh returned a pending point before rebuild")
+    st.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    d, i, _ = h.search_batch(test, mode="scan-pallas")
+    sync()
+    scan_s = time.perf_counter() - t0
+    k1 = st.KERNEL_LAUNCHES
+    check_result(d, i, "update scan-pallas", len(test))
+    rec, idr = recall_values(gt_d, d, K)[0], recall_by_ids(gt_i, i, K)
+    log(f"[update] before rebuild: lsh on {LSH_QUERIES} queries returns no pending id (largest "
+        f"{int(i.max())}); scan-pallas on {N_QUERIES} queries over all {N_TRAIN} points: "
+        f"recall@10 {rec:.4f} (gate {RECALL_GATE}), id-recall {idr:.4f} (gate "
+        f"{ID_RECALL_GATE}), {scan_s:.3f} s with the base re-staged, K1 launches {k1}, "
+        f"pending ids returned {int((i >= n_old).sum())}")
+    if k1 < 1:
+        fail("[update] scan-pallas did not launch the K1 kernel")
+    if rec < RECALL_GATE or idr < ID_RECALL_GATE:
+        fail("[update] scan-pallas recall below the gate")
+
+    sync()
+    t0 = time.perf_counter()
+    h.rebuild()
+    sync()
+    rebuild_s = time.perf_counter() - t0
+    idx = h.index
+    same_h = torch.equal(unsort_hashes(idx.sorted_hash, idx.sorted_idx)[:, :n_old],
+                         unsort_hashes(idx0.sorted_hash, idx0.sorted_idx))
+    same_sk = torch.equal(idx.sketches[:n_old], idx0.sketches)
+    del idx0
+    h.reset_metrics()
+    tg.reset_launches()
+    d, i, stats = h.search_batch(q, mode="lsh")
+    sync()
+    k7_after = tg.ROWS_LAUNCHES
+    check_result(d, i, "update lsh after rebuild", LSH_QUERIES)
+    rec, idr = recall_values(gd, d, K)[0], recall_by_ids(gi, i, K)
+    ids = n_old + np.arange(UPDATE_SELF) * ((N_TRAIN - n_old) // UPDATE_SELF)
+    tg.reset_launches()
+    sd, si, _ = h.search_batch(train[ids], mode="lsh")
+    sync()
+    k7_after += tg.ROWS_LAUNCHES
+    self_rate = float(np.mean((si[:, 0] >= n_old) & (sd[:, 0] < 1e-5)))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[update] rebuild {rebuild_s:.3f} s (build of {n_old} points {build_s:.3f} s); "
+        f"{idx.num_pending} pending; old hashes identical {same_h}, old sketches identical "
+        f"{same_sk}; lsh delta={delta} over all points: recall@10 {rec:.4f} (gate "
+        f"{0.8 * delta:.2f}), id-recall {idr:.4f}, dc/query "
+        f"{float(np.mean(stats.distance_computations)):.1f}, returned inserted ids "
+        f"{int((i >= n_old).sum())}, K7 launches {k7_after}; {UPDATE_SELF} inserted points "
+        f"as queries find themselves at < 1e-5: {self_rate:.4f} (gate 0.9); peak device memory "
+        f"{peak / 1e9:.3f} GB on {card}")
+    if idx.num_pending or not (same_h and same_sk):
+        fail("[update] rebuild left points pending or changed the old points' tables")
+    if k7_after < 1:
+        fail("[update] lsh after rebuild did not launch the K7 kernel")
+    if rec < 0.8 * delta:
+        fail(f"[update] lsh recall@10 {rec:.4f} below 0.8 * delta")
+    if self_rate < 0.9:
+        fail(f"[update] inserted points found themselves at a rate of {self_rate:.4f}")
+    return h, k1, k7 + k7_after, LSH_QUERIES + UPDATE_SELF, build_bytes, (gd, d)
+
+
+def phase_metrics_db(h, n_searched, build_bytes, gd, d, card):
+    """save_metrics of the update phase's run (metrics_output=DB) to a
+    SQLite file under build/, read back: one build row whose
+    memory_used_bytes is the build's memory_usage(), one cluster row per
+    cluster, one query row per query searched since reset_metrics."""
+    import sqlite3
+
+    from clann_tpu_torch.config import MetricsGranularity
+
+    db = os.path.join(HERE, "build", "chip_smoke_metrics.db")
+    os.makedirs(os.path.dirname(db), exist_ok=True)
+    if os.path.exists(db):
+        os.remove(db)
+    t0 = time.perf_counter()
+    h.save_metrics(db, MetricsGranularity.QUERY, ground_truth_distances=gd, run_distances=d)
+    save_s = time.perf_counter() - t0
+    conn = sqlite3.connect(db)
+    builds = conn.execute("SELECT memory_used_bytes, num_clusters, num_tables, dataset_len "
+                          "FROM build_metrics").fetchall()
+    n_cl = conn.execute("SELECT COUNT(*) FROM build_metrics_cluster").fetchone()[0]
+    n_q = conn.execute("SELECT COUNT(*) FROM search_metrics_query").fetchone()[0]
+    recall, qps_ = conn.execute(
+        "SELECT recall_mean, queries_per_second FROM search_metrics").fetchone()
+    mode = conn.execute("SELECT timing_mode FROM clann_timing_mode").fetchone()[0]
+    conn.close()
+    log(f"[metrics-db] {os.path.relpath(db, HERE)} ({os.path.getsize(db)} bytes) in "
+        f"{save_s:.3f} s: build rows {builds}, build memory_usage {build_bytes}; cluster rows "
+        f"{n_cl} of {h.index.n_clusters} clusters; query rows {n_q} of {n_searched} queries "
+        f"searched since reset_metrics; recall_mean {recall:.4f}, {qps_:.1f} QPS ({mode}) on "
+        f"{card}")
+    if len(builds) != 1 or builds[0][0] != build_bytes:
+        fail("[metrics-db] build row missing or memory_used_bytes != the build's memory_usage()")
+    if n_cl != h.index.n_clusters or n_q != n_searched:
+        fail("[metrics-db] cluster or query rows do not match the run")
+
+
+def phase_puffinn(train, test, gt_d, o_pairs, o_sims, card):
+    """The upstream PUFFINN surface at the glove shape: the budget derives L
+    = 128 from the byte model; every point inserted one call each, then
+    rebuild; single-query searches gated by the compat contract (correct ids
+    >= 0.8 * recall * k * queries), search_from_index, closest_pairs held to
+    the windowed join (check_join) and read against the join oracle, and a
+    pickle round trip (a second, lazy build) giving identical results.
+    Returns its K7 launches."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from clann_tpu_torch import puffinn
+    from clann_tpu_torch.ops import gather as tg
+
+    sync()
+    reset_peak()
+    pf = puffinn.Index("angular", DIMS, PUFFINN_BUDGET, device=DEVICE)
+    t0 = time.perf_counter()
+    for v in train:
+        pf.insert(v)
+    insert_s = time.perf_counter() - t0
+    L = pf._derive_num_tables(len(pf))
+    if L != 128:
+        fail(f"[puffinn] a budget of {PUFFINN_BUDGET} B derives L = {L}, not 128")
+    sync()
+    t0 = time.perf_counter()
+    pf.rebuild()
+    sync()
+    rebuild_s = time.perf_counter() - t0
+    idx = pf._index
+    log(f"[puffinn] Index('angular', {DIMS}, {PUFFINN_BUDGET}): L = {L} (memory_usage "
+        f"{idx.memory_usage() / 1e9:.3f} GB, {idx.n_clusters} cluster); {len(pf)} inserts "
+        f"{insert_s:.3f} s, rebuild {rebuild_s:.3f} s on {card}")
+
+    q = test[:PUFFINN_QUERIES]
+    kth_dot = 1.0 - gt_d[:PUFFINN_QUERIES, K - 1]
+    tg.reset_launches()
+    correct, times = 0, []
+    for qi in range(PUFFINN_QUERIES):
+        t0 = time.perf_counter()
+        res = pf.search(q[qi], K, PUFFINN_RECALL)
+        times.append(time.perf_counter() - t0)
+        if len(res) != K:
+            fail(f"[puffinn] search returned {len(res)} ids")
+        correct += int(np.sum(train[res] @ q[qi] >= kth_dot[qi] - 1e-6))
+    k7 = tg.ROWS_LAUNCHES
+    gate = 0.8 * PUFFINN_RECALL * K * PUFFINN_QUERIES
+    log(f"[puffinn] {PUFFINN_QUERIES} single-query search(q, {K}, {PUFFINN_RECALL}): correct "
+        f"ids {correct} (gate {gate:.0f}); ms per call median {np.median(times) * 1e3:.2f}, "
+        f"max {np.max(times) * 1e3:.2f}; K7 launches {k7}")
+    if k7 < 1:
+        fail("[puffinn] search did not launch the K7 kernel")
+    if correct < gate:
+        fail("[puffinn] the compat recall contract failed")
+
+    for i in (0, N_TRAIN // 2, N_TRAIN - 1):
+        res = pf.search_from_index(i, K, PUFFINN_RECALL)
+        if i in res or len(res) != K:
+            fail(f"[puffinn] search_from_index({i}) returned the point itself or {len(res)} ids")
+    tg.reset_launches()
+    pairs, windows, cp_s, _ = timed_join(lambda: np.asarray(pf.closest_pairs(10, PUFFINN_RECALL)))
+    sims = pair_sims(idx.vectors, pairs)
+    order = np.argsort(-sims, kind="stable")
+    check_join(idx, pairs[order], sims[order], windows[-1][0], 10, "[puffinn] closest_pairs")
+    in_range = float(np.mean(sims >= o_sims[9] - 1e-6))
+    log(f"[puffinn] search_from_index on 3 ids excludes each; closest_pairs(10, "
+        f"{PUFFINN_RECALL}) {cp_s:.3f} s, final window {windows[-1][0]}: the top 10 of the "
+        f"window pairs; readings: >= the true 10th pair sim {o_sims[9]:.6f} - 1e-6: "
+        f"{in_range:.2f} (the JAX compat test's 0.5 at 600 points; not gated here), of the "
+        f"true top 10: "
+        f"{len({tuple(p) for p in pairs.tolist()} & {tuple(p) for p in o_pairs[:10].tolist()})}")
+    k7 += tg.ROWS_LAUNCHES
+
+    t0 = time.perf_counter()
+    blob = pickle.dumps(pf)
+    pf2 = pickle.loads(blob)
+    pickle_s = time.perf_counter() - t0
+    tg.reset_launches()
+    t0 = time.perf_counter()
+    same = all(pf2.search(q[qi], K, PUFFINN_RECALL) == pf.search(q[qi], K, PUFFINN_RECALL)
+               for qi in range(2))
+    sync()
+    lazy_s = time.perf_counter() - t0
+    k7 += tg.ROWS_LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[puffinn] pickle round trip {len(blob) / 1e6:.1f} MB in {pickle_s:.3f} s; the lazy "
+        f"second build and 2 queries on each {lazy_s:.3f} s; identical results: {same}; peak "
+        f"device memory {peak / 1e9:.3f} GB (two indexes) on {card}")
+    if not same:
+        fail("[puffinn] the pickled index answers differently")
+    return k7
+
+
 def profile_lsh(handle, test, label="lsh", sessions=2, host_ops=True):
     """Device time by kernel for one 256-query batch of mode "lsh" (the
     global engine or the walk, whichever the index was built for). The
@@ -1883,6 +2358,7 @@ def main():
     # below sees the device as before
     launches_cont = phase_lsh_continuous(lsh, test, gt_d, gt_i, label)
     launches_lsh8 = phase_lsh_int8(lsh, test, gt_d, gt_i, label)
+    o_pairs, o_sims = phase_join(lsh, label)
     del lsh
     torch.cuda.empty_cache()
     walk = phase_walk_build(train, label)
@@ -1893,11 +2369,22 @@ def main():
     del walk
     torch.cuda.empty_cache()
     launches_jac, jaccard_k7 = phase_jaccard(label)
+    torch.cuda.empty_cache()
+    upd, k1_upd, k7_upd, n_searched, build_bytes, (gd_upd, d_upd) = phase_update(
+        train, test, gt_d, gt_i, label)
+    phase_metrics_db(upd, n_searched, build_bytes, gd_upd, d_upd, label)
+    del upd
+    torch.cuda.empty_cache()
+    launches_pf = phase_puffinn(train, test, gt_d, o_pairs, o_sims, label)
+    torch.cuda.empty_cache()
     counts = {"lsh": launches_lsh, "lsh-continuous": launches_cont, "lsh-int8": launches_lsh8,
-              "walk": launches_walk, "walk-int8": launches_walk8, "jaccard": launches_jac}
+              "walk": launches_walk, "walk-int8": launches_walk8, "jaccard": launches_jac,
+              "update": k7_upd, "puffinn": launches_pf}
     launches_k7 = sum(counts.values())
     log(f"[main] K7 launches: {launches_k7} = "
         + " + ".join(f"{k} {v}" for k, v in counts.items()))
+    log(f"[main] K1 launches: {launches_k1 + k1_upd} = main {launches_k1} + update {k1_upd}")
+    launches_k1 += k1_upd
     log(f"[main] peak device memory over the whole run, all paths "
         f"{max(PEAKS + [torch.cuda.max_memory_allocated()]) / 1e9:.3f} GB")
 

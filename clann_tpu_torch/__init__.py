@@ -12,7 +12,11 @@ rescore (`Config(rescore_dtype="int8")`) in every mode; and, from their
 modules as in the JAX package, the global engine's continuous-batching
 driver `ops.global_query.global_search_continuous` and the Jaccard set
 index `core.jaccard` (`build_jaccard_index`, `jaccard_search`,
-`jaccard_scan`). Their kernels are written by hand in CUDA for sm_90a
+`jaccard_scan`); closest pairs (`Clann.closest_pairs`, `ops.join`),
+`insert` / `rebuild` and the C = 1 index (`core.index.build_lsh_index`),
+the upstream PUFFINN surface (`clann_tpu_torch.puffinn`), the SQLite
+metrics sink (`Config(metrics_output=DB)`, `save_metrics`, `metrics.run`)
+and the capacity model (`plan_capacity`). Their kernels are written by hand in CUDA for sm_90a
 (csrc/), built with nvcc on first use: the dense scans K1-K3 share one
 Hopper main loop (TMA + wgmma, csrc/scan_hopper.cuh), and K4-K7 are row
 gathers (K7 is the record gather of the LSH engines, the Jaccard one
@@ -22,8 +26,18 @@ CPU.
 Public facade mirrors the reference API (reference: src/lib.rs:41-264).
 """
 
-from clann_tpu_torch.api import Clann, build, init, init_with_config, search
+from clann_tpu_torch.api import (
+    Clann,
+    build,
+    init,
+    init_with_config,
+    insert,
+    rebuild,
+    save_metrics,
+    search,
+)
 from clann_tpu_torch.config import Config, MetricsGranularity, MetricsOutput
+from clann_tpu_torch.parallel.capacity import CapacityPlan, plan_capacity
 from clann_tpu_torch.errors import (
     ClusteredIndexError,
     ConfigError,
@@ -44,10 +58,15 @@ __all__ = [
     "Config",
     "MetricsGranularity",
     "MetricsOutput",
+    "CapacityPlan",
+    "plan_capacity",
     "init",
     "init_with_config",
     "build",
+    "insert",
+    "rebuild",
     "search",
+    "save_metrics",
     "ClusteredIndexError",
     "ConfigError",
     "DataError",

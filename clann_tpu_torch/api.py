@@ -1,8 +1,10 @@
 """Public API facade (PyTorch port of ``clann_tpu.api``).
 
-`init` / `init_with_config` / `build` / `search`, `Clann.search_batch` and
-`Clann.search_by_id`, with an explicit `device`. The reference's facade is
-src/lib.rs:41-264.
+`init` / `init_with_config` / `build` / `search` / `insert` / `rebuild` /
+`save_metrics`, `Clann.search_batch`, `Clann.search_by_id`,
+`Clann.closest_pairs` and the metrics run (`reset_metrics`, with
+`Config(metrics_output=DB)`), with an explicit `device`. The reference's
+facade is src/lib.rs:41-264.
 
 Search modes, every mode of the JAX facade (clann_tpu/api.py:134-166):
 "dense" (IVF probing of the dense layout), "adaptive" (dense probing in
@@ -27,9 +29,10 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from clann_tpu_torch.config import Config, MetricsOutput
+from clann_tpu_torch.config import Config, MetricsGranularity, MetricsOutput
 from clann_tpu_torch.data.metricdata import MetricData, make_metric_data
 from clann_tpu_torch.errors import DataError
+from clann_tpu_torch.metrics.run import RunMetrics
 from clann_tpu_torch.ops.distances import resolve_device
 
 log = logging.getLogger("clann_tpu_torch")
@@ -49,13 +52,14 @@ class Clann:
             self.data = make_metric_data(data, metric)
         if self.data.num_points() == 0:
             raise DataError("empty dataset")  # reference: index.rs:74-76
-        if config.metrics_output == MetricsOutput.DB:
-            raise NotImplementedError(
-                "metrics_output=DB: the SQLite metrics sink comes with "
-                "ROADMAP.md slice 14 (interop, h5 and CLI)"
-            )
         self.config = config
         self.index = None
+        self.metrics: Optional[RunMetrics] = (
+            RunMetrics(config, self.data.num_points())
+            if config.metrics_output == MetricsOutput.DB
+            else None
+        )
+        self._last_dists = None
 
     def build(self) -> "Clann":
         """Build the index: GMM geometry, LSH tables, sketches, prefix
@@ -69,7 +73,11 @@ class Clann:
             self.data.raw, self.config, metric=self.data.metric,
             device=self.device,
         )
-        log.info("build completed in %.2fs", time.perf_counter() - t0)
+        elapsed = time.perf_counter() - t0
+        if self.metrics is not None:
+            self.metrics.log_index_building_time(elapsed)
+            self.metrics.ingest_build(self.index)
+        log.info("build completed in %.2fs", elapsed)
         return self
 
     def _require_built(self):
@@ -113,6 +121,7 @@ class Clann:
             mode = "dense" if index.seg_vectors is not None else "lsh"
         if mode == "lsh":
             mode = "lsh-global" if index.g_records is not None else "lsh-clustered"
+        t0 = time.perf_counter()
         if mode == "dense":
             dists, ids, stats = dense_search(index, queries, k=k, n_probe=n_probe)
         elif mode == "scan":
@@ -144,6 +153,10 @@ class Clann:
                                             filter_type=filter_type)
         else:
             raise DataError(f"unknown search mode {mode!r}")
+        elapsed = time.perf_counter() - t0
+        if self.metrics is not None:
+            self.metrics.ingest_search(stats, elapsed)
+        self._last_dists = dists
         return dists, ids, stats
 
     def search_by_id(self, point_ids, k: Optional[int] = None,
@@ -155,6 +168,71 @@ class Clann:
 
         return search_by_id(self._require_built(), point_ids, k=k,
                             exclude_self=exclude_self)
+
+    def closest_pairs(self, k: int, delta: Optional[float] = None, mesh=None):
+        """k most similar indexed pairs (collection.hpp:390-504; the
+        upstream python wrapper's Index.closest_pairs) on the index's
+        device. Returns numpy (pairs (k, 2) int32 with i < j, sims
+        descending). The table-sharded join (`mesh`) is not ported."""
+        from clann_tpu_torch.ops.join import closest_pairs
+
+        index = self._require_built()
+        if mesh is not None:
+            raise NotImplementedError(
+                "closest_pairs over a mesh: the sharded join comes with "
+                "ROADMAP.md slice 15 (parallel/*)")
+        delta = self.config.delta if delta is None else delta
+        return closest_pairs(index, k, delta=delta)
+
+    # -- incremental updates -------------------------------------------
+
+    def insert(self, points) -> "Clann":
+        """Append points; searchable through the tables after rebuild()
+        (collection.hpp:218-222; see core.index.insert). `self.data` is
+        re-made from the index's vectors, as in JAX: a copy of the whole
+        normalized dataset from the device to the host per call."""
+        from clann_tpu_torch.core.index import insert
+
+        self.index = insert(self._require_built(), points)
+        self.data = make_metric_data(self.index.vectors.cpu().numpy(), self.index.metric)
+        return self
+
+    def rebuild(self) -> "Clann":
+        """Index the pending points (collection.hpp:241-306)."""
+        from clann_tpu_torch.core.index import rebuild
+
+        t0 = time.perf_counter()
+        self.index = rebuild(self._require_built())
+        log.info("rebuild completed in %.2fs", time.perf_counter() - t0)
+        return self
+
+    # -- metrics --------------------------------------------------------
+
+    def reset_metrics(self) -> None:
+        """Start a new measured run: drop the per-query metrics that
+        search_batch calls have accumulated (mod.rs:22-34)."""
+        if self.metrics is not None:
+            self.metrics.reset_search()
+
+    def save_metrics(
+        self,
+        db_path: str,
+        granularity: MetricsGranularity = MetricsGranularity.RUN,
+        ground_truth_distances=None,
+        run_distances=None,
+        total_search_time_s: Optional[float] = None,
+    ) -> None:
+        """Persist run metrics to SQLite (reference: src/lib.rs:214-233)."""
+        if self.metrics is None:
+            raise DataError(
+                "metrics collection disabled (config.metrics_output != DB)"
+            )
+        if ground_truth_distances is not None:
+            rd = run_distances if run_distances is not None else self._last_dists
+            self.metrics.compute_run_statistics(ground_truth_distances, rd)
+        if total_search_time_s is not None:
+            self.metrics.total_search_time_s = total_search_time_s
+        self.metrics.save_metrics(db_path, granularity)
 
 
 def init(data, metric: str = "angular", device="cuda") -> Clann:
@@ -176,3 +254,28 @@ def build(handle: Clann) -> Clann:
 def search(handle: Clann, query) -> List[Tuple[float, int]]:
     """reference: lib.rs:183-189."""
     return handle.search(query)
+
+
+def insert(handle: Clann, points) -> Clann:
+    """Append points (searchable after rebuild); see Clann.insert."""
+    return handle.insert(points)
+
+
+def rebuild(handle: Clann) -> Clann:
+    """Index pending points; see Clann.rebuild."""
+    return handle.rebuild()
+
+
+def save_metrics(
+    handle: Clann,
+    db_path: str,
+    granularity: MetricsGranularity = MetricsGranularity.RUN,
+    ground_truth_distances=None,
+    run_distances=None,
+    total_search_time_s: Optional[float] = None,
+) -> None:
+    """reference: lib.rs:214-233."""
+    handle.save_metrics(
+        db_path, granularity, ground_truth_distances, run_distances,
+        total_search_time_s,
+    )

@@ -15,6 +15,10 @@ ops/ivf.py. With `config.rescore_dtype == "int8"` it keeps an int8 shadow
 of the vectors (`quantize_q8`), which the LSH engines score candidates
 against before an exact f32 re-score of their final top-k.
 
+`insert` appends points (pending until `rebuild`, which hashes only them
+with the stored functions and re-assembles the layouts);
+`build_lsh_index` is the single-cluster (C = 1) index.
+
 Random draws: the JAX package splits `jax.random.PRNGKey(config.seed)`
 into a hash key and a sketch key. The port seeds two `torch.Generator`s
 from `config.seed` instead, so its functions are its own; tests get the
@@ -37,7 +41,7 @@ import torch
 from clann_tpu_torch.config import Config
 from clann_tpu_torch.errors import DataError, IndexCreationError
 from clann_tpu_torch.ops.collision import HashSourceProbs
-from clann_tpu_torch.ops.distances import as_device_f32, l2_normalize
+from clann_tpu_torch.ops.distances import as_device_f32, exact_dot, l2_normalize
 from clann_tpu_torch.ops.gmm import greedy_minimum_maximum
 from clann_tpu_torch.ops.hashing import make_hash_family
 from clann_tpu_torch.ops.prefixmap import build_prefix_directory, sort_tables_segmented
@@ -144,7 +148,12 @@ class ClusteredIndex:
     dir_bits: int = 0  # prefix directory geometry
     dir_iters: int = 0
     g_dir_iters: int = 0
-    n_indexed: int = -1  # points in the hash tables; -1 = all
+    # points in the hash tables; -1 = all. Points that `insert` appends
+    # beyond this count are pending: in `vectors` (so the dense scans,
+    # which read it directly, see them) but invisible to the table-backed
+    # paths (the LSH engines, IVF probing) until `rebuild` (the reference's
+    # insert-then-rebuild contract, collection.hpp:218-222, 241-306)
+    n_indexed: int = -1
     # ops/ivf._pallas_base's padded bf16 copy of `vectors` (derived)
     pallas_base_cache: Dict = dataclasses.field(default_factory=dict, repr=False)
     # ops/block_scan.get_block_layout's BlockLayouts, by block_n (derived)
@@ -156,7 +165,13 @@ class ClusteredIndex:
 
     @property
     def num_indexed(self) -> int:
+        """Points searchable through the hash tables (see n_indexed)."""
         return self.n if self.n_indexed < 0 else self.n_indexed
+
+    @property
+    def num_pending(self) -> int:
+        """Points added by `insert` that wait for `rebuild`."""
+        return self.n - self.num_indexed
 
     @property
     def dims(self) -> int:
@@ -549,6 +564,83 @@ def _assemble_index(xn, hashes_T, sketches, assignment: np.ndarray,
         dir_iters=dir_iters,
         g_dir_iters=g_dir_iters,
     )
+
+
+def insert(index: ClusteredIndex, points) -> ClusteredIndex:
+    """Append points to the index's dataset; searchable through the tables
+    after `rebuild` (Index::insert, collection.hpp:218-222, appends to the
+    dataset only).
+
+    The clustered geometry absorbs them too, as in JAX: each new point
+    joins its nearest center (an f32 product, the first minimum on ties)
+    and that cluster's radius grows to cover it, so the ball bounds stay
+    valid without re-clustering (C = 1 is the reference's flat insert).
+    Centers never move. Until `rebuild` the new points are pending
+    (`num_pending`): in `vectors` (and `vectors_q8`) for the dense scans,
+    not in the tables or the dense IVF layout. The returned index has
+    caches of its own; `index` is left as it was.
+    """
+    if isinstance(points, torch.Tensor):
+        x = points.to(torch.float32)
+    else:
+        x = np.asarray(points, dtype=np.float32)
+    if x.ndim == 1:
+        x = x[None, :]
+    if x.ndim != 2 or x.shape[0] == 0:
+        raise DataError("insert needs a non-empty (p, d) array")
+    if x.shape[1] != index.dims:
+        raise DataError(f"point dimension {x.shape[1]} != index dimension {index.dims}")
+    if index.metric != "angular":
+        raise IndexCreationError("insert supports the angular metric")
+    xn_new = l2_normalize(as_device_f32(x, index.device))
+
+    # nearest existing center, and the ball grown to cover the point
+    cdist = torch.clamp(1.0 - exact_dot(xn_new, index.centers.T), 0.0, 2.0)
+    dist_new, assign_new = torch.min(cdist, dim=1)
+    radii = index.radii.clone().scatter_reduce_(0, assign_new, dist_new, "amax",
+                                                include_self=True)
+    return dataclasses.replace(
+        index,
+        vectors=torch.cat([index.vectors, xn_new]),
+        vectors_q8=(None if index.vectors_q8 is None
+                    else torch.cat([index.vectors_q8, quantize_q8(xn_new)])),
+        assignment=torch.cat([index.assignment, assign_new.to(torch.int32)]),
+        radii=radii,
+        n_indexed=index.num_indexed,
+        pallas_base_cache={}, block_layout_cache={},
+    )
+
+
+def rebuild(index: ClusteredIndex, hash_block: int = 8192) -> ClusteredIndex:
+    """Index the pending points (Index::rebuild, collection.hpp:241-306).
+
+    Only the pending rows are hashed and sketched, with the index's stored
+    functions, so the older points keep their exact hashes; the sorts and
+    every derived layout then cover all points, as the reference rebuilds
+    every PrefixMap (prefixmap.hpp:169-247).
+    """
+    n, n_idx = index.n, index.num_indexed
+    if n_idx >= n:
+        return index
+    source, filterer = index.rebuild_objects()
+    new_x = index.vectors[n_idx:]
+    h_new = _hash_in_blocks(source.hash, new_x, hash_block)  # (p, L)
+    sk_new = _hash_in_blocks(filterer.sketch, new_x, hash_block)
+    old_T = unsort_hashes(index.sorted_hash, index.sorted_idx, n=n_idx)
+    return _assemble_index(
+        index.vectors, torch.cat([old_T, h_new.T], dim=1),
+        torch.cat([index.sketches, sk_new]), index.assignment.cpu().numpy(),
+        index.center_ids.cpu().numpy(), index.radii, index.config, index.metric,
+        hash_params=index.hash_params, sketch_params=index.sketch_params,
+    )
+
+
+def build_lsh_index(data, config: Config, metric: str = "angular",
+                    device="cuda") -> ClusteredIndex:
+    """The single-cluster index, a plain PUFFINN LSH index (the reference's
+    standalone PuffinnIndex, src/puffinn_binds/puffinn.rs): the C = 1 case
+    of the clustered layout, one segment spanning every table."""
+    return build_index(data, config, metric=metric, n_clusters=1, device=device)
 
 
 def _as_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:

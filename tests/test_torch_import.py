@@ -21,7 +21,10 @@ SLICE_MODULES = [
     "clann_tpu_torch.data.metricdata",
     "clann_tpu_torch.data.setdata",
     "clann_tpu_torch.data.synthetic",
+    "clann_tpu_torch.metrics.csv",
     "clann_tpu_torch.metrics.recall",
+    "clann_tpu_torch.metrics.run",
+    "clann_tpu_torch.metrics.schema",
     "clann_tpu_torch.metrics.trace",
     "clann_tpu_torch.ops._build",
     "clann_tpu_torch.ops.block_scan",
@@ -32,14 +35,18 @@ SLICE_MODULES = [
     "clann_tpu_torch.ops.gmm",
     "clann_tpu_torch.ops.hashing",
     "clann_tpu_torch.ops.ivf",
+    "clann_tpu_torch.ops.join",
     "clann_tpu_torch.ops.minhash",
     "clann_tpu_torch.ops.prefixmap",
     "clann_tpu_torch.ops.query",
     "clann_tpu_torch.ops.scan_topk",
     "clann_tpu_torch.ops.sketches",
     "clann_tpu_torch.ops.sources",
+    "clann_tpu_torch.parallel",
+    "clann_tpu_torch.parallel.capacity",
     "clann_tpu_torch.probes",
     "clann_tpu_torch.probes.gather_rate",
+    "clann_tpu_torch.puffinn",
 ]
 
 _PROBE = """
@@ -64,6 +71,23 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "clean" in proc.stdout
+
+
+def test_exports_match_the_jax_package():
+    """The port exports the JAX package's facade names, save init_from_file
+    and serialize (interop and h5 come later), and the same errors."""
+    import clann_tpu
+    import clann_tpu_torch
+
+    later = {"init_from_file", "serialize"}
+    assert set(clann_tpu.__all__) - set(clann_tpu_torch.__all__) == later
+    assert set(clann_tpu_torch.__all__) <= set(clann_tpu.__all__)
+    for name in ("insert", "rebuild", "save_metrics", "plan_capacity", "CapacityPlan"):
+        assert callable(getattr(clann_tpu_torch, name)), name
+    from clann_tpu_torch.core.index import build_lsh_index, insert, rebuild  # noqa: F401
+    from clann_tpu_torch.ops.join import closest_pairs  # noqa: F401
+    for method in ("closest_pairs", "insert", "rebuild", "reset_metrics", "save_metrics"):
+        assert callable(getattr(clann_tpu_torch.Clann, method)), method
 
 
 def test_chip_smoke_imports_no_jax():
