@@ -144,8 +144,11 @@ SQLite metrics sink and the upstream PUFFINN surface on the same data:
    similarity - 1e-6 and the recall of the true top 100 are readings, not
    gated: JAX's window model stops at window 4 here and finds 0.39 of
    them (PERF.md, PR 10), below the 0.5 its compat test reaches at 600
-   points. The windows of the sweep with their seconds and the peak
-   memory are printed.
+   points; JAX's own join falls below half on one dense mode
+   (tests/test_torch_join.py), and the script prints how often a true
+   pair sits within the final window against the rule's model. The
+   windows of the sweep with their seconds and the peak memory are
+   printed.
 13. update (after phase 12): the lsh configuration with the SQLite sink on
    (metrics_output=DB), built on the first 1,083,514 points; the last
    100,000 inserted through Clann.insert in 4 calls; 100,000 pending, every
@@ -169,9 +172,10 @@ SQLite metrics sink and the upstream PUFFINN surface on the same data:
    256 single-query search(q, 10, 0.9) calls gated by the compat contract
    (correct ids >= 0.8 * recall * k * queries), failing if K7 was not
    launched; search_from_index on 3 ids excludes each; closest_pairs(10,
-   0.9) held to the windowed join as in 7d, its share in range of the
-   oracle's 10th pair a reading; a pickle round trip (its second build
-   lazy, on the first query) answers 2 queries identically.
+   0.9) (ids only) equal to ops.join.closest_pairs on the same index,
+   whose pairs and sims are held to the windowed join as in 7d, its share
+   in range of the oracle's 10th pair a reading; a pickle round trip (its
+   second build lazy, on the first query) answers 2 queries identically.
 
 It prints the kernels as one JSON line (launches on the main paths, error
 against the plain version, ms, plain_ms, bound_ms / bound_by, library_ms),
@@ -1987,9 +1991,13 @@ def phase_join(handle, card):
     final window. The exact top 100 pairs (pair_oracle) give two readings,
     not gated: the share of the returned pairs that reach the true 100th
     similarity - 1e-6 (the JAX compat test's bar is half, at 600 points)
-    and the recall of the true top 100. Returns the oracle's pairs and
-    sims."""
+    and the recall of the true top 100; beside them, how often a true pair
+    sits within the final window of a table against the probability the
+    window rule assumed (tests/test_torch_join.py pins the same trap in
+    JAX's join and the port's on one dense mode). Returns the oracle's
+    pairs and sims."""
     import numpy as np
+    import torch
 
     x = handle.index.vectors
     sync()
@@ -2015,6 +2023,18 @@ def phase_join(handle, card):
     assign = handle.index.assignment.cpu().numpy()
     same = assign[o_pairs[:, 0]] == assign[o_pairs[:, 1]]
     same_found = sum(tuple(p) in found for p in o_pairs[same].tolist())
+    # how often a true pair sits within the final window of a table, beside
+    # the rule's modelled probability of a shared prefix at the depth it took
+    idx, w_final = handle.index, windows[-1][0]
+    ids = idx.sorted_idx.to(torch.int64)
+    pos = torch.empty_like(ids).scatter_(
+        1, ids, torch.arange(ids.shape[1], device=ids.device).expand_as(ids))
+    op = torch.as_tensor(o_pairs, dtype=torch.int64, device=ids.device)
+    near = float(((pos[:, op[:, 0]] - pos[:, op[:, 1]]).abs() <= w_final).float().mean())
+    del ids, pos
+    depth = int(np.clip(np.log2(N_TRAIN / w_final), 1, idx.config.max_hashbits))
+    probs = idx.probs_table.cpu().numpy()
+    p_model = float(probs[depth, int(np.clip(o_sims[-1] / idx.sim_eps, 0, probs.shape[1] - 1))])
     log(f"[join] closest_pairs(k={JOIN_K}, delta={JOIN_DELTA}) on L={handle.index.num_tables}, "
         f"{handle.index.n_clusters} clusters: {join_s:.3f} s, windows "
         f"{', '.join(f'{w} ({s:.3f} s)' for w, s in windows)}, final window {windows[-1][0]}; "
@@ -2023,7 +2043,9 @@ def phase_join(handle, card):
         f"the k-th (checked in {check_s:.2f} s) on {card}")
     log(f"[join] readings: pairs >= true 100th - 1e-6: {in_range:.2f} (the JAX compat test's "
         f"0.5 at 600 points; not gated here); recall of the true top {JOIN_K}: {recall:.2f}; "
-        f"true pairs inside one cluster {int(same.sum())}, of those found {same_found}")
+        f"true pairs inside one cluster {int(same.sum())}, of those found {same_found}; a true "
+        f"pair within window {w_final} in {near:.4f} of the tables, the rule's model "
+        f"{p_model:.4f} (a shared {depth}-bit prefix at the true 100th similarity)")
     return o_pairs, o_sims
 
 
@@ -2189,10 +2211,11 @@ def phase_puffinn(train, test, gt_d, o_pairs, o_sims, card):
     """The upstream PUFFINN surface at the glove shape: the budget derives L
     = 128 from the byte model; every point inserted one call each, then
     rebuild; single-query searches gated by the compat contract (correct ids
-    >= 0.8 * recall * k * queries), search_from_index, closest_pairs held to
-    the windowed join (check_join) and read against the join oracle, and a
-    pickle round trip (a second, lazy build) giving identical results.
-    Returns its K7 launches."""
+    >= 0.8 * recall * k * queries), search_from_index, closest_pairs equal
+    to ops.join.closest_pairs on the same index, whose pairs and sims are
+    held to the windowed join (check_join) and read against the join
+    oracle, and a pickle round trip (a second, lazy build) giving identical
+    results. Returns its K7 launches."""
     import pickle
 
     import numpy as np
@@ -2200,6 +2223,7 @@ def phase_puffinn(train, test, gt_d, o_pairs, o_sims, card):
 
     from clann_tpu_torch import puffinn
     from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.ops import join as tjoin
 
     sync()
     reset_peak()
@@ -2248,13 +2272,17 @@ def phase_puffinn(train, test, gt_d, o_pairs, o_sims, card):
             fail(f"[puffinn] search_from_index({i}) returned the point itself or {len(res)} ids")
     tg.reset_launches()
     pairs, windows, cp_s, _ = timed_join(lambda: np.asarray(pf.closest_pairs(10, PUFFINN_RECALL)))
-    sims = pair_sims(idx.vectors, pairs)
-    order = np.argsort(-sims, kind="stable")
-    check_join(idx, pairs[order], sims[order], windows[-1][0], 10, "[puffinn] closest_pairs")
-    in_range = float(np.mean(sims >= o_sims[9] - 1e-6))
+    # the surface returns ids only: they must be ops.join's pairs on the same
+    # index, in its order, and those pairs with its sims go to check_join
+    j_pairs, j_sims = tjoin.closest_pairs(idx, k=10, delta=PUFFINN_RECALL)
+    if not np.array_equal(pairs, j_pairs):
+        fail("[puffinn] closest_pairs differs from ops.join.closest_pairs on its index")
+    err, _ = check_join(idx, j_pairs, j_sims, windows[-1][0], 10, "[puffinn] closest_pairs")
+    in_range = float(np.mean(j_sims >= o_sims[9] - 1e-6))
     log(f"[puffinn] search_from_index on 3 ids excludes each; closest_pairs(10, "
-        f"{PUFFINN_RECALL}) {cp_s:.3f} s, final window {windows[-1][0]}: the top 10 of the "
-        f"window pairs; readings: >= the true 10th pair sim {o_sims[9]:.6f} - 1e-6: "
+        f"{PUFFINN_RECALL}) {cp_s:.3f} s, final window {windows[-1][0]}: ops.join's pairs, "
+        f"max |sim - exact f32| {err:.2e}, the top 10 of the window pairs; readings: >= the "
+        f"true 10th pair sim {o_sims[9]:.6f} - 1e-6: "
         f"{in_range:.2f} (the JAX compat test's 0.5 at 600 points; not gated here), of the "
         f"true top 10: "
         f"{len({tuple(p) for p in pairs.tolist()} & {tuple(p) for p in o_pairs[:10].tolist()})}")

@@ -14,11 +14,11 @@ delta-recall rule (independent.hpp:108-119, with L tables at depth
 What changes from JAX, none of it in the results: JAX maps `table_pairs`
 over all L tables at once, which holds three (L, n * window) arrays (the
 sims and the pair ids: ~116 GB at L = 128, n = 1.18M, window 64); the port
-loops over chunks of tables under a byte budget (`budget_bytes`), which
-gives the same pairs because each table keeps its own top 4k. Inside a
-table it gathers the rows once and pairs shifted views of them
-(data[roll(order, -w)] == roll(data[order], -w)), and it derives the pair
-ids from the winners' positions only. Pairs are deduplicated by one exact
+loops over chunks of tables under a byte budget (`JOIN_BUDGET_BYTES`,
+`table_pairs`' `budget_bytes`), which gives the same pairs because each
+table keeps its own top 4k. Inside a table it gathers the rows once and
+pairs shifted views of them (data[roll(order, -w)] == roll(data[order],
+-w)), and it derives the pair ids from the winners' positions only. Pairs are deduplicated by one exact
 int64 key lo * 2^32 + hi (torch has int64 on every device; JAX sorts two
 int32 words because its packed key would truncate under x64=off).
 Positions past the end of a table (JAX's wrapped neighbours, scored -1)
@@ -122,12 +122,10 @@ def dedup_topk_pairs(sims_flat, lo_flat, hi_flat, *, k: int):
     return top_s, pairs
 
 
-def _windowed_pairs(data, sorted_idx, *, k: int, window: int, sim_fn=None,
-                    budget_bytes: int = JOIN_BUDGET_BYTES):
+def _windowed_pairs(data, sorted_idx, *, k: int, window: int, sim_fn=None):
     """Top-k pairs from hash adjacency in every table: (sims desc (k,),
     pairs (k, 2) int32)."""
-    sims, lo, hi = table_pairs(data, sorted_idx, k=k, window=window, sim_fn=sim_fn,
-                               budget_bytes=budget_bytes)
+    sims, lo, hi = table_pairs(data, sorted_idx, k=k, window=window, sim_fn=sim_fn)
     return dedup_topk_pairs(sims.reshape(-1), lo.reshape(-1), hi.reshape(-1), k=k)
 
 
@@ -162,11 +160,10 @@ def window_sweep(
         window *= 2
 
 
-def _sweep(data, index, sorted_idx, *, k, delta, max_window, sim_fn=None,
-           budget_bytes: int = JOIN_BUDGET_BYTES):
+def _sweep(data, index, sorted_idx, *, k, delta, max_window, sim_fn=None):
     def run(window):
         sims, pairs = _windowed_pairs(data, sorted_idx, k=k, window=window,
-                                      sim_fn=sim_fn, budget_bytes=budget_bytes)
+                                      sim_fn=sim_fn)
         return sims.cpu().numpy(), pairs.cpu().numpy()
 
     return window_sweep(
@@ -177,8 +174,9 @@ def _sweep(data, index, sorted_idx, *, k, delta, max_window, sim_fn=None,
     )
 
 
-def closest_pairs(index, k: int, delta: float = 0.9, max_window: int = 64, *,
-                  budget_bytes: int = JOIN_BUDGET_BYTES) -> Tuple[np.ndarray, np.ndarray]:
+def closest_pairs(
+    index, k: int, delta: float = 0.9, max_window: int = 64
+) -> Tuple[np.ndarray, np.ndarray]:
     """k most similar pairs in the indexed dataset (Index::closest_pairs,
     collection.hpp:390-504), on the index's device.
 
@@ -187,7 +185,7 @@ def closest_pairs(index, k: int, delta: float = 0.9, max_window: int = 64, *,
     reached.
     """
     return _sweep(index.vectors, index, index.sorted_idx, k=k, delta=delta,
-                  max_window=max_window, budget_bytes=budget_bytes)
+                  max_window=max_window)
 
 
 def global_bf_join(index, k: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -215,16 +213,16 @@ def _jaccard_rowwise(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return sims.reshape(lead)
 
 
-def jaccard_closest_pairs(index, k: int, delta: float = 0.9, max_window: int = 64, *,
-                          budget_bytes: int = JOIN_BUDGET_BYTES) -> Tuple[np.ndarray, np.ndarray]:
+def jaccard_closest_pairs(
+    index, k: int, delta: float = 0.9, max_window: int = 64
+) -> Tuple[np.ndarray, np.ndarray]:
     """k most similar pairs of an indexed set dataset (core.jaccard's
     JaccardIndex): closest_pairs over MinHash adjacency with an exact
     row-wise Jaccard re-score (the upstream SetIndex closest_pairs,
     python_wrapper.cpp:565-567). Returns numpy (pairs (k, 2) int32 with
     i < j, sims (k,) descending)."""
     return _sweep(index.tokens, index, index.sorted_idx, k=k, delta=delta,
-                  max_window=max_window, sim_fn=_jaccard_rowwise,
-                  budget_bytes=budget_bytes)
+                  max_window=max_window, sim_fn=_jaccard_rowwise)
 
 
 def jaccard_bf_join(data, k: int, device="cuda") -> Tuple[np.ndarray, np.ndarray]:

@@ -252,3 +252,59 @@ def test_facade_closest_pairs(pair):
     with pytest.raises(clann_tpu_torch.DataError):
         clann_tpu_torch.init_with_config(tidx.vectors.numpy(), tidx.config,
                                          device="cpu").closest_pairs(k=3)
+
+
+def _top_pairs(x: torch.Tensor, k: int, rows: int = 1024):
+    """Exact top-k pairs i < j of the unit rows x: f32 products in blocks
+    of rows against the rows after them, each block's pairs above the
+    running k-th merged into the running best k. Returns numpy (pairs
+    (k, 2), sims (k,) descending)."""
+    n = x.shape[0]
+    best_s, best_p = torch.zeros(0), torch.zeros((0, 2), dtype=torch.int64)
+    for r0 in range(0, n - 1, rows):
+        b, m = min(n, r0 + rows) - r0, n - r0
+        dots = x[r0:r0 + b] @ x[r0:].T  # column c is row r0 + c
+        dots[:, :b].masked_fill_(torch.ones(b, b, dtype=torch.bool).tril(), -2.0)
+        floor = best_s[-1] if best_s.numel() == k else -2.0
+        flat = torch.nonzero(dots.reshape(-1) > floor).flatten()
+        vals = dots.reshape(-1)[flat]
+        pairs = torch.stack([flat // m + r0, flat % m + r0], dim=1)
+        best_s, sel = torch.topk(torch.cat([best_s, vals]), min(k, best_s.numel() + vals.numel()))
+        best_p = torch.cat([best_p, pairs])[sel]
+    return best_p.numpy(), ((best_s + 1.0) * 0.5).numpy()
+
+
+def test_window_rule_stops_short_on_one_dense_mode(monkeypatch):
+    """A trap of the reference's window model, pinned in both packages: on
+    12,000 points of one mode (100 wide, C = 1, L = 64) the delta rule
+    accepts window 4 for the 100th pair, taking a window of w for a shared
+    prefix of log2(n / w) bits, but an 11-bit bucket of one dense mode
+    holds far more than 4 points, so the true close pairs sit within 4
+    positions in few tables. JAX's closest_pairs and the port's stop at the
+    same window with the same pairs, and fewer than half of those reach the
+    true 100th similarity (the compat test's bar, met at 600 points)."""
+    k, delta = 100, 0.9
+    x = clustered_unit_vectors(12_000, 100, n_modes=1, spread=0.7, seed=0)
+    kw = dict(num_tables=64, k=10, seed=0)
+    jidx = jindex.build_lsh_index(x, JConfig(**kw))
+    tidx = tindex.index_from_arrays(index_arrays(jidx), TConfig(**kw), device="cpu")
+    jw, tw = _windows(monkeypatch, jjoin), _windows(monkeypatch, tjoin)
+    jp, js = jjoin.closest_pairs(jidx, k=k, delta=delta)
+    tp, ts = tjoin.closest_pairs(tidx, k=k, delta=delta)
+    assert tw == jw == [4]
+    assert_pairs_match(tp, ts, jp, js)
+
+    true_p, true_s = _top_pairs(tidx.vectors, k)
+    j_share = float(np.mean(np.asarray(js) >= true_s[-1] - 1e-6))
+    t_share = float(np.mean(ts >= true_s[-1] - 1e-6))
+    # how often a true pair sits within the window, against the model's
+    # probability of a shared prefix at the depth the rule assumed
+    pos = torch.argsort(tidx.sorted_idx.to(torch.int64), dim=1).numpy()  # (L, n) slot of each id
+    near = np.abs(pos[:, true_p[:, 0]] - pos[:, true_p[:, 1]]) <= tw[-1]
+    depth = int(np.clip(np.log2(12_000 / tw[-1]), 1, tidx.config.max_hashbits))
+    p_model = float(tidx.probs_table[depth, int(true_s[-1] / tidx.sim_eps)])
+    print(f"window {tw[-1]}; share >= true {k}th: JAX {j_share:.2f}, port {t_share:.2f}; "
+          f"a true pair within the window in {near.mean():.3f} of the tables, model "
+          f"{p_model:.3f} at depth {depth}")
+    assert j_share == t_share < 0.5
+    assert near.mean() < p_model
