@@ -100,8 +100,8 @@ caught):
    on 256 indexed points, which must agree with search on those vectors at
    k + 1.
 
-Phases 7b, 7c, 11b and 12 drive the continuous driver, the int8 rescore
-and the Jaccard set index:
+Phases 7b, 7c, 11b, 11c and 12 drive the continuous driver, the int8
+rescore, the reference's index files and the Jaccard set index:
 
 7b. lsh-continuous (right after phase 7, on its index, so that the walk's
    build sees the device as before): global_search_continuous (256 lanes,
@@ -117,6 +117,23 @@ and the Jaccard set index:
    CUDA operands (not relied on).
 11b. walk-int8: one 256-query batch of the walk under int8, gated like
    the walk.
+11c. interop (right after phase 11b, on the walk's index; the card has no
+   HDF5 library, so io/interop's in-memory halves run, not its file
+   wrappers): the codec built with g++ from clann_tpu_torch/native/codec.cpp;
+   the index exported to the Rust reference's per-cluster streams
+   (seconds, bytes); the faithful import with data=train, whose
+   per-cluster hash and sketch params must have a leading C axis and whose
+   tables, ids and sketches must equal the source's bit for bit over the
+   non-brute clusters (radii and center ids equal); the re-export, every
+   stream byte-identical to the export; one 256-query batch of the walk
+   on the import through ops.query.search, the per-cluster branch, gated
+   recall@10 >= 0.8 * delta and the source walk's id sets on >= 0.95 of
+   the queries, failing if K7 was not launched (the per-cluster hashing
+   seconds, dc and batch seconds beside the source walk's). After phase
+   12, on its corpus and configuration with the tabulation functions the
+   format needs: a flat build, the reference Jaccard stream, its import
+   (arrays equal, re-stream byte-identical) and one 128-query batch on
+   both with equal ids (K7).
 12. jaccard: scripts/jaccard_baseline.py's corpus (clustered_sets of
    200,000 sets over a universe of 50,000, mean size 64, 1024 modes) and
    512 queries, ground truth by brute_force_jaccard_topk on the card; the
@@ -214,6 +231,9 @@ LSH_BIG_BATCH = 1_024  # compared with the engine's default batch of 256
 IVF_SWEEP = (8, 12, 16, 24, 32, 48, 64, 96, 128)  # bench.py's n_probe sweep
 IVF_SWEEP_QUERIES, IVF_BATCH = 2_000, 2_048  # bench.py's sub-sample and BATCH
 WALK_QUERIES, WALK_DELTA = 512, 0.9
+# [interop]: one walk batch on the faithful import; the share of its queries
+# whose id set equals the source walk's (JAX on the CPU reads 1.0)
+INTEROP_QUERIES, INTEROP_SAME_IDS = 256, 0.95
 CONT_LANES, CONT_STEP_ITERS = 256, 8  # global_search_continuous's defaults
 # scripts/jaccard_baseline.py's set corpus, queries and batches
 JACCARD_N, JACCARD_UNIVERSE, JACCARD_QUERIES, JACCARD_BATCH = 200_000, 50_000, 512, 128
@@ -1408,8 +1428,9 @@ def phase_walk_build(train, card):
 def phase_walk(handle, test, gt_d, gt_i, card):
     """mode="lsh" on a clustered build (the walk) through the facade, gated;
     its loop counts from a second call; K7 at the walk's shape; then
-    search_by_id. Returns the walk's K7 launches and check_walk_gather's
-    readings."""
+    search_by_id. Returns the walk's K7 launches, check_walk_gather's
+    readings and its first 256 queries' ids and dc with the seconds per
+    batch (for [interop])."""
     import numpy as np
     import torch
 
@@ -1465,7 +1486,10 @@ def phase_walk(handle, test, gt_d, gt_i, card):
         f"{agree}")
     if (bi == pts[:, None]).any() or not agree:
         fail("search_by_id returned a point's own id or disagrees with search at k + 1")
-    return launches, walk_k7
+    # the first batch of 256 as [interop] compares it (batches are independent)
+    source = dict(ids=i[:INTEROP_QUERIES], dc=np.asarray(st.distance_computations)[:INTEROP_QUERIES],
+                  batch_s=walk_s / nb)
+    return launches, walk_k7, source
 
 
 def check_walk_gather(idx, card):
@@ -1733,6 +1757,183 @@ def phase_walk_int8(handle, test, gt_d, gt_i, card):
     return launches
 
 
+def phase_interop(handle, train, test, gt_d, gt_i, source, card):
+    """The Rust reference's index files on the walk's index, in memory (the
+    card has no HDF5 library; io/interop's file functions are thin wrappers
+    around these halves): export to reference streams through the port's
+    g++-built codec, the faithful import with data=train, checked bit for
+    bit against the source, the re-export byte-identical to the export,
+    and one 256-query batch of the walk through its per-cluster branch
+    (K7), gated recall@10 >= 0.8 * delta and the source's id sets on >=
+    INTEROP_SAME_IDS of the queries. Returns its K7 launches."""
+    import numpy as np
+    import torch
+
+    from clann_tpu_torch.io import interop, refcodec
+    from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
+    from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.ops.distances import as_device_f32, l2_normalize
+    from clann_tpu_torch.ops.query import search
+    from clann_tpu_torch.ops.sources import hash_per_cluster
+
+    t_phase = time.perf_counter()
+    src = handle.index
+    t0 = time.perf_counter()
+    lib = refcodec.build()
+    log(f"[interop] codec {os.path.relpath(lib, HERE)} (g++ from "
+        f"{os.path.relpath(refcodec.CODEC_SOURCE, HERE)}) ready in "
+        f"{time.perf_counter() - t0:.3f} s")
+    sync()
+    reset_peak()
+    t0 = time.perf_counter()
+    streams = interop._reference_datasets(src)
+    export_s = time.perf_counter() - t0
+    blobs = sorted(k for k in streams if k.startswith("index_"))
+    blob_bytes = sum(len(streams[k]) for k in blobs)
+    n_brute = int(src.brute.sum())
+    log(f"[interop] export of the walk index ({src.n_clusters} clusters, {n_brute} brute, "
+        f"{src.config.hash_family}): {len(blobs)} reference streams, {blob_bytes} bytes "
+        f"({blob_bytes / 1e9:.3f} GB; clusters JSON {len(streams['clusters']) / 1e6:.1f} MB) "
+        f"in {export_s:.3f} s")
+    if len(blobs) != src.n_clusters - n_brute:
+        fail("[interop] the export wrote a stream count other than the non-brute clusters")
+
+    sync()
+    t0 = time.perf_counter()
+    imp = interop._index_from_reference(streams, data=train, device=DEVICE)
+    sync()
+    import_s = time.perf_counter() - t0
+    C = src.n_clusters
+    pc_dims = {f"{f}.{k}": tuple(v.shape) for f in ("pc_hash_params", "pc_sketch_params")
+               for k, v in (getattr(imp, f) or {}).items()}
+    live_pt = ~src.brute[src.assignment.long()]
+    slot_cluster = torch.repeat_interleave(
+        torch.arange(C, device=src.device),
+        (src.cluster_starts[1:] - src.cluster_starts[:-1]).long())
+    live_slot = ~src.brute[slot_cluster]
+    same = {
+        "sorted_hash": torch.equal(imp.sorted_hash[:, live_slot], src.sorted_hash[:, live_slot]),
+        "sorted_idx": torch.equal(imp.sorted_idx[:, live_slot], src.sorted_idx[:, live_slot]),
+        "sketches": torch.equal(imp.sketches[live_pt], src.sketches[live_pt]),
+        "radii": torch.equal(imp.radii, src.radii),
+        "center_ids": torch.equal(imp.center_ids, src.center_ids),
+    }
+    log(f"[interop] faithful import (data=train) in {import_s:.3f} s: {imp.config.hash_family} "
+        f"/ {imp.config.hash_source}, {imp.max_hashbits} bits; per-cluster params {pc_dims}; "
+        f"equal to the source over the {int(live_slot.sum())} slots of non-brute clusters: "
+        f"{same}")
+    if (not pc_dims or any(v[0] != C for v in pc_dims.values())
+            or imp.pc_sketch_params is None):
+        fail("[interop] the import's per-cluster params lack a leading C axis")
+    if not all(same.values()):
+        fail(f"[interop] the import differs from the source: {same}")
+
+    t0 = time.perf_counter()
+    again = interop._reference_datasets(imp)
+    reexport_s = time.perf_counter() - t0
+    differ = [k for k in blobs if again.get(k) != streams[k]]
+    log(f"[interop] re-export of the import in {reexport_s:.3f} s: {len(blobs) - len(differ)} of "
+        f"{len(blobs)} streams byte-identical, clusters JSON "
+        f"{'equal' if again['clusters'] == streams['clusters'] else 'DIFFERENT'}")
+    if differ or sorted(again) != sorted(streams) or again["clusters"] != streams["clusters"]:
+        fail(f"[interop] re-export is not byte-identical ({differ[:5]})")
+    del streams, again
+
+    q, gd, gi = test[:INTEROP_QUERIES], gt_d[:INTEROP_QUERIES], gt_i[:INTEROP_QUERIES]
+    hsrc, filterer = imp.rebuild_objects()
+    qn = l2_normalize(as_device_f32(q, imp.device))
+    sync()
+    t0 = time.perf_counter()
+    qh = hash_per_cluster(hsrc, imp.pc_hash_params, qn)
+    qs = hash_per_cluster(filterer, imp.pc_sketch_params, qn)
+    sync()
+    hash_s = time.perf_counter() - t0
+    tg.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    d, i, st = search(imp, q, delta=WALK_DELTA)
+    sync()
+    batch_s = time.perf_counter() - t0
+    launches = tg.ROWS_LAUNCHES
+    check_result(d, i, "interop walk", INTEROP_QUERIES)
+    rec, idr = recall_values(gd, d, K)[0], recall_by_ids(gi, i, K)
+    same_ids = float(np.mean([set(a.tolist()) == set(b.tolist())
+                              for a, b in zip(i, source["ids"])]))
+    dc = float(np.mean(st.distance_computations))
+    log(f"[interop] walk on the import, one {INTEROP_QUERIES}-query batch, delta={WALK_DELTA}: "
+        f"recall@10 {rec:.4f} (gate {0.8 * WALK_DELTA:.2f}), id-recall {idr:.4f}; id sets equal to the source "
+        f"walk's on {same_ids:.4f} of the queries (gate {INTEROP_SAME_IDS}); dc/query {dc:.1f}, "
+        f"{dc / float(np.mean(source['dc'])):.5f} x the source's; per-cluster hashing and "
+        f"sketching of the batch (qh {tuple(qh.shape)}, qs {tuple(qs.shape)}) {hash_s:.4f} s; "
+        f"{batch_s:.3f} s per batch against the source walk's {source['batch_s']:.3f} s; K7 "
+        f"launches {launches}; peak device memory of the phase "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; phase {time.perf_counter() - t_phase:.1f} "
+        f"s on {card}")
+    if launches < 1:
+        fail("[interop] the walk on the import did not launch the K7 kernel")
+    if rec < 0.8 * WALK_DELTA:
+        fail(f"[interop] walk: recall@10 {rec:.4f} below 0.8 * delta")
+    if same_ids < INTEROP_SAME_IDS:
+        fail(f"[interop] walk: id sets equal to the source's on {same_ids:.4f} < "
+             f"{INTEROP_SAME_IDS} of the queries")
+    return launches
+
+
+def phase_interop_jaccard(data, queries, card):
+    """The reference Jaccard round trip on [jaccard]'s corpus and
+    configuration with the tabulation functions the format needs (a
+    flat build): stream, import, re-stream byte-identical, and one
+    128-query batch on both with equal ids. Returns its K7 launches."""
+    import numpy as np
+
+    from clann_tpu_torch.core import jaccard as tj
+    from clann_tpu_torch.io import interop, refcodec
+    from clann_tpu_torch.ops import gather as tg
+
+    t_phase = time.perf_counter()
+    cfg = jaccard_config()
+    sync()
+    t0 = time.perf_counter()
+    src = tj.build_jaccard_index(data, cfg, table_hash="tabulation_minhash", device=DEVICE)
+    sync()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    buf = interop.jaccard_to_reference_stream(src)
+    stream_s = time.perf_counter() - t0
+    sync()
+    t0 = time.perf_counter()
+    imp = interop.jaccard_index_from_parsed(
+        refcodec.parse_reference_stream(buf, family=refcodec.FAMILY_MINHASH), cfg, device=DEVICE)
+    sync()
+    import_s = time.perf_counter() - t0
+    stable = interop.jaccard_to_reference_stream(imp) == buf
+    same = {f: bool((getattr(imp, f) == getattr(src, f)).all())
+            for f in ("sorted_hash", "sorted_idx", "sketches", "set_sizes", "g_records")}
+    q = queries[:JACCARD_BATCH]
+    launches, res = 0, []
+    for idx in (src, imp):
+        tg.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        res.append((*tj.jaccard_search(idx, q), time.perf_counter() - t0))
+        sync()
+        launches += tg.ROWS_LAUNCHES
+    log(f"[interop] jaccard: tabulation build of the {data.num_points()} sets {build_s:.3f} s; "
+        f"reference stream {len(buf)} bytes in {stream_s:.3f} s; import {import_s:.3f} s, "
+        f"arrays equal {same}; re-stream byte-identical {stable}; one {JACCARD_BATCH}-query batch "
+        f"{res[0][3]:.3f} s (source) / {res[1][3]:.3f} s (import), ids equal "
+        f"{np.array_equal(res[0][1], res[1][1])}, dc equal "
+        f"{np.array_equal(res[0][2].distance_computations, res[1][2].distance_computations)}; "
+        f"K7 launches {launches}; {time.perf_counter() - t_phase:.1f} s on {card}")
+    if not (stable and all(same.values())):
+        fail("[interop] jaccard: the import or its re-stream differs from the source")
+    if not np.array_equal(res[0][1], res[1][1]):
+        fail("[interop] jaccard: the import's ids differ from the source's")
+    if launches < 2:
+        fail("[interop] jaccard: a search did not launch the K7 kernel")
+    return launches
+
+
 def jaccard_config():
     """scripts/jaccard_baseline.py's configuration with JACCARD_KNOBS.json's
     best row (gather_block 16, chunk 512, filter_expand 8)."""
@@ -1751,7 +1952,8 @@ def phase_jaccard(card):
     jaccard_search in batches of 128, gated threshold recall@10 >= 0.8 *
     delta, clustered ids equal to flat; jaccard_scan held to the ground
     truth; K7 at the engine's 256-byte record rows. Returns (K7 launches,
-    K7's kernels-line numbers at this shape)."""
+    K7's kernels-line numbers at this shape, (the corpus, the queries)) for
+    [interop]'s Jaccard round trip."""
     import numpy as np
     import torch
 
@@ -1861,7 +2063,7 @@ def phase_jaccard(card):
         fail("jaccard_scan is not exact")
     k7 = check_record_gather(flat.g_records, cfg, JACCARD_BATCH, "jaccard", "set records", 3,
                              card)
-    return launches, k7
+    return launches, k7, (data, queries)
 
 
 def pair_oracle(x, k):
@@ -2390,13 +2592,17 @@ def main():
     del lsh
     torch.cuda.empty_cache()
     walk = phase_walk_build(train, label)
-    launches_walk, walk_k7 = phase_walk(walk, test, gt_d, gt_i, label)
+    launches_walk, walk_k7, walk_source = phase_walk(walk, test, gt_d, gt_i, label)
     if args.profile:
         profile_lsh(walk, test, "walk (lsh -> lsh-clustered)", sessions=1, host_ops=False)
     launches_walk8 = phase_walk_int8(walk, test, gt_d, gt_i, label)
+    launches_interop = phase_interop(walk, train, test, gt_d, gt_i, walk_source, label)
     del walk
     torch.cuda.empty_cache()
-    launches_jac, jaccard_k7 = phase_jaccard(label)
+    launches_jac, jaccard_k7, (jac_data, jac_queries) = phase_jaccard(label)
+    torch.cuda.empty_cache()
+    launches_interop += phase_interop_jaccard(jac_data, jac_queries, label)
+    del jac_data, jac_queries
     torch.cuda.empty_cache()
     upd, k1_upd, k7_upd, n_searched, build_bytes, (gd_upd, d_upd) = phase_update(
         train, test, gt_d, gt_i, label)
@@ -2406,7 +2612,8 @@ def main():
     launches_pf = phase_puffinn(train, test, gt_d, o_pairs, o_sims, label)
     torch.cuda.empty_cache()
     counts = {"lsh": launches_lsh, "lsh-continuous": launches_cont, "lsh-int8": launches_lsh8,
-              "walk": launches_walk, "walk-int8": launches_walk8, "jaccard": launches_jac,
+              "walk": launches_walk, "walk-int8": launches_walk8, "interop": launches_interop,
+              "jaccard": launches_jac,
               "update": k7_upd, "puffinn": launches_pf}
     launches_k7 = sum(counts.values())
     log(f"[main] K7 launches: {launches_k7} = "

@@ -15,8 +15,12 @@ index `core.jaccard` (`build_jaccard_index`, `jaccard_search`,
 `jaccard_scan`); closest pairs (`Clann.closest_pairs`, `ops.join`),
 `insert` / `rebuild` and the C = 1 index (`core.index.build_lsh_index`),
 the upstream PUFFINN surface (`clann_tpu_torch.puffinn`), the SQLite
-metrics sink (`Config(metrics_output=DB)`, `save_metrics`, `metrics.run`)
-and the capacity model (`plan_capacity`). Their kernels are written by hand in CUDA for sm_90a
+metrics sink (`Config(metrics_output=DB)`, `save_metrics`, `metrics.run`),
+the capacity model (`plan_capacity`), the native h5 format
+(`serialize`, `init_from_file`, `io.h5`) and the Rust reference's index
+files (`io.interop`: export, and a faithful import whose per-cluster hash
+functions the walk hashes queries with; `io.refcodec`, a C++ codec built
+with g++ on first use). Their kernels are written by hand in CUDA for sm_90a
 (csrc/), built with nvcc on first use: the dense scans K1-K3 share one
 Hopper main loop (TMA + wgmma, csrc/scan_hopper.cuh), and K4-K7 are row
 gathers (K7 is the record gather of the LSH engines, the Jaccard one
@@ -30,11 +34,13 @@ from clann_tpu_torch.api import (
     Clann,
     build,
     init,
+    init_from_file,
     init_with_config,
     insert,
     rebuild,
     save_metrics,
     search,
+    serialize,
 )
 from clann_tpu_torch.config import Config, MetricsGranularity, MetricsOutput
 from clann_tpu_torch.parallel.capacity import CapacityPlan, plan_capacity
@@ -62,10 +68,12 @@ __all__ = [
     "plan_capacity",
     "init",
     "init_with_config",
+    "init_from_file",
     "build",
     "insert",
     "rebuild",
     "search",
+    "serialize",
     "save_metrics",
     "ClusteredIndexError",
     "ConfigError",

@@ -1,8 +1,8 @@
 """Public API facade (PyTorch port of ``clann_tpu.api``).
 
-`init` / `init_with_config` / `build` / `search` / `insert` / `rebuild` /
-`save_metrics`, `Clann.search_batch`, `Clann.search_by_id`,
-`Clann.closest_pairs` and the metrics run (`reset_metrics`, with
+`init` / `init_with_config` / `init_from_file` / `build` / `search` /
+`insert` / `rebuild` / `serialize` / `save_metrics`, `Clann.search_batch`,
+`Clann.search_by_id`, `Clann.closest_pairs` and the metrics run (`reset_metrics`, with
 `Config(metrics_output=DB)`), with an explicit `device`. The reference's
 facade is src/lib.rs:41-264.
 
@@ -206,6 +206,28 @@ class Clann:
         log.info("rebuild completed in %.2fs", time.perf_counter() - t0)
         return self
 
+    # -- persistence ----------------------------------------------------
+
+    def serialize(self, directory: str) -> str:
+        """Write the index in the native h5 format (io/h5.py; reference:
+        src/lib.rs:255-264). Returns the file written."""
+        from clann_tpu_torch.io.h5 import save_index
+
+        return save_index(self._require_built(), directory)
+
+    @classmethod
+    def from_file(cls, data, path: str, metric: str = "angular",
+                  device="cuda") -> "Clann":
+        """A handle on an index loaded from a native h5 file onto `device`
+        (reference: src/lib.rs:41-47); `data` is the dataset it was built
+        on."""
+        from clann_tpu_torch.io.h5 import load_index
+
+        index = load_index(np.asarray(data, np.float32), path, device=device)
+        handle = cls(data, index.config, metric=metric, device=device)
+        handle.index = index
+        return handle
+
     # -- metrics --------------------------------------------------------
 
     def reset_metrics(self) -> None:
@@ -246,6 +268,12 @@ def init_with_config(data, config: Config, metric: str = "angular",
     return Clann(data, config, metric=metric, device=device)
 
 
+def init_from_file(data, file_path: str, metric: str = "angular",
+                   device="cuda") -> Clann:
+    """reference: lib.rs:41-47."""
+    return Clann.from_file(data, file_path, metric=metric, device=device)
+
+
 def build(handle: Clann) -> Clann:
     """reference: lib.rs:142-148."""
     return handle.build()
@@ -264,6 +292,11 @@ def insert(handle: Clann, points) -> Clann:
 def rebuild(handle: Clann) -> Clann:
     """Index pending points; see Clann.rebuild."""
     return handle.rebuild()
+
+
+def serialize(handle: Clann, directory: str) -> str:
+    """reference: lib.rs:255-264."""
+    return handle.serialize(directory)
 
 
 def save_metrics(

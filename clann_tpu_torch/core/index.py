@@ -84,6 +84,21 @@ _MEMORY_FIELDS = GEOMETRY_FIELDS + (
     "sorted_hash", "sorted_idx", "sketches", "slot_records", "prefix_dir",
     "g_sorted_hash", "g_records", "g_dir",
 )
+# the JAX package's dtype of every hash / sketch parameter leaf, by name
+# (the port holds the integer leaves as int32, uint32 words as their bit
+# patterns): what the native h5 format writes and what a JAX index takes
+PARAM_DTYPES = {
+    "dirs": np.float32,  # SimHash planes (tables and sketches)
+    "signs": np.float32,  # FHT cross-polytope +-1 diagonals
+    "rot": np.float32,  # cross-polytope rotations
+    "pool_indices": np.int32,  # the pooled source's per-table sampling
+    "rank_seed": np.uint32,  # MinHash, MinHash1Bit
+    "scramble_seed": np.uint32,
+    "tab_hi": np.uint32,  # tabulation MinHash (the reference's functions)
+    "tab_lo": np.uint32,
+    "perm": np.uint32,
+}
+PARAM_FIELDS = ("hash_params", "sketch_params", "pc_hash_params", "pc_sketch_params")
 # static metadata (python scalars), JAX's names and defaults
 META_FIELDS = {
     "sim_eps": 5e-3, "max_seg_len": 0, "dir_bits": 0, "dir_iters": 0,
@@ -113,9 +128,11 @@ class ClusteredIndex:
     sketch_params: Any = None  # dict of the sketch family's tensors
     probs_table: Optional[torch.Tensor] = None  # (D+2, B) f32 collision probs
     maxdiff_table: Optional[torch.Tensor] = None  # (B,) int32 sketch thresholds
-    # per-cluster hash functions of a faithful reference import (JAX's
-    # io/interop.py); no port path sets them yet (ROADMAP slice 14)
+    # per-cluster hash and sketch functions of a faithful reference import
+    # (io/interop.py): dicts of tensors with a leading C axis; the walk
+    # hashes and sketches queries with each cluster's own (ops/query.search)
     pc_hash_params: Any = None
+    pc_sketch_params: Any = None
     # --- packed per-(table, slot) [id, sketch words] records of the
     # clustered walk (config.pack_slot_records) ---
     slot_records: Optional[torch.Tensor] = None  # (L, n_pad, 1+W) int32
@@ -652,11 +669,39 @@ def _as_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a, copy=True), device=device).to(dtype)
 
 
+def _param_dtype(name: str):
+    if name not in PARAM_DTYPES:
+        raise DataError(f"unknown hash parameter {name!r}")
+    return np.dtype(PARAM_DTYPES[name])
+
+
 def _params(p, device):
+    """Parameter dict (numpy arrays of either package) -> tensors: integer
+    leaves int32 (uint32 words as bit patterns), float leaves float32."""
     if p is None:
         return None
-    return {k: _as_tensor(v, torch.int32 if np.asarray(v).dtype.kind in "iu" else torch.float32,
+    return {k: _as_tensor(v, torch.int32 if _param_dtype(k).kind in "iu" else torch.float32,
                           device) for k, v in dict(p).items()}
+
+
+def host_array(t, dtype=None) -> np.ndarray:
+    """A tensor (or array) as numpy, in `dtype` if given: int32 words are
+    viewed as uint32 with the same bits (the JAX package's words)."""
+    a = np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t)
+    if dtype is None:
+        return a
+    if np.dtype(dtype) == np.uint32 and a.dtype == np.int32:
+        return a.view(np.uint32)
+    return a.astype(dtype, copy=False)
+
+
+def params_numpy(p) -> Optional[Dict[str, np.ndarray]]:
+    """Parameter dict (tensors or arrays) -> numpy arrays in the JAX
+    package's dtypes (PARAM_DTYPES), keys sorted (the order JAX flattens a
+    dict in)."""
+    if p is None:
+        return None
+    return {k: host_array(p[k], _param_dtype(k)) for k in sorted(p)}
 
 
 def index_from_arrays(arrays: Dict[str, Any], config: Config, device="cuda",
@@ -664,10 +709,10 @@ def index_from_arrays(arrays: Dict[str, Any], config: Config, device="cuda",
     """A ClusteredIndex on `device` from numpy arrays.
 
     `arrays` holds GEOMETRY_FIELDS and, optionally, any of LSH_FIELDS,
-    DENSE_FIELDS, "hash_params" / "sketch_params" (dicts of numpy arrays) and the
-    META_FIELDS scalars, e.g. taken whole from an index built by the JAX
-    package (uint32 words are carried as int32 bit patterns), so both
-    packages can search the same index.
+    DENSE_FIELDS, PARAM_FIELDS (dicts of numpy arrays; the per-cluster ones
+    with a leading C axis) and the META_FIELDS scalars, e.g. taken whole
+    from an index built by the JAX package (uint32 words are carried as
+    int32 bit patterns), so both packages can search the same index.
     """
     missing = [f for f in GEOMETRY_FIELDS if f not in arrays]
     if missing:
@@ -683,8 +728,7 @@ def index_from_arrays(arrays: Dict[str, Any], config: Config, device="cuda",
         kw[f] = type(default)(arrays.get(f, default))
     return ClusteredIndex(
         **kw,
-        hash_params=_params(arrays.get("hash_params"), device),
-        sketch_params=_params(arrays.get("sketch_params"), device),
+        **{f: _params(arrays.get(f), device) for f in PARAM_FIELDS},
         config=config,
         metric=metric,
     )

@@ -180,6 +180,15 @@ class CrossPolytope(FHTCrossPolytope):
         return encode_closest_axis(v, self.log_dim).T
 
 
+def family_hash_clusters(family, pc_params: dict, x: torch.Tensor) -> torch.Tensor:
+    """(n, Cc, F) function hashes of x under Cc clusters' family
+    parameters (every leaf (Cc, F, ...)): the clusters' functions are
+    independent, so they are one family product of Cc * F functions."""
+    cc = next(iter(pc_params.values())).shape[0]
+    h = family.hash({k: v.flatten(0, 1) for k, v in pc_params.items()}, x)  # (n, Cc * F)
+    return h.reshape(h.shape[0], cc, -1)
+
+
 def make_hash_family(name: str, dimensions: int, *, num_rotations: int = 3,
                      estimation_repetitions: int = 1000,
                      estimation_eps: float = 5e-3):

@@ -52,6 +52,7 @@ from clann_tpu_torch.ops.prefixmap import (
     depth_bounds,
 )
 from clann_tpu_torch.ops.sketches import popcount32
+from clann_tpu_torch.ops.sources import hash_per_cluster
 
 # body steps between two host reads of a loop's stop flag
 SYNC_EVERY = 4
@@ -560,11 +561,12 @@ def search(index, queries, k: int = None, delta: float = None, batch_size: int =
     """Full clustered-walk search: hash + sketch the queries, walk the
     clusters, return k-NN (clann::search, lib.rs:183-189 -> index.rs:311-439,
     over a batch). Returns numpy (distances ascending (Q, k), ids (Q, k),
-    SearchStats); `loop_stats` accumulates the walk's loop counts."""
-    if index.pc_hash_params is not None:
-        raise NotImplementedError(
-            "per-cluster hash functions (a faithful reference import): ROADMAP.md "
-            "slice 14 (interop, h5 and CLI)")
+    SearchStats); `loop_stats` accumulates the walk's loop counts.
+
+    An index with per-cluster functions (a faithful reference import,
+    io/interop.py) hashes and sketches every query with each cluster's own
+    (ops/sources.hash_per_cluster: (Q, C, L) hashes, (Q, C, S, W)
+    sketches), and the walk takes the current cluster's row per rank."""
     cfg = index.config
     k = cfg.k if k is None else k
     delta = cfg.delta if delta is None else delta
@@ -574,11 +576,17 @@ def search(index, queries, k: int = None, delta: float = None, batch_size: int =
         q = q[None, :]
     qn = l2_normalize(q)
 
+    per_cluster = index.pc_hash_params is not None
+    if per_cluster and index.pc_sketch_params is None:
+        raise ValueError("an index with per-cluster hash functions needs pc_sketch_params")
+
     def run_block(block):
         with TRACER.span("search/hashing"):
-            qh = source.hash(block)
+            qh = (hash_per_cluster(source, index.pc_hash_params, block) if per_cluster
+                  else source.hash(block))
         with TRACER.span("search/sketching"):
-            qs = filterer.sketch(block)
+            qs = (hash_per_cluster(filterer, index.pc_sketch_params, block) if per_cluster
+                  else filterer.sketch(block))
         with TRACER.span("search/scan"):
             out = search_batch_impl(
                 index, block, qh, qs, delta, k=k, chunk=cfg.candidate_chunk,

@@ -22,7 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from clann_tpu_torch.ops.hashing import SimHash
+from clann_tpu_torch.ops.hashing import SimHash, family_hash_clusters
 
 NUM_SKETCHES = 32  # reference: filterer.hpp:16
 SKETCH_BITS = 64  # reference: typedefs.hpp NUM_FILTER_HASHBITS
@@ -86,6 +86,14 @@ class SketchFilterer:
         bits = self.family.hash(params, x)  # (n, S*B) of {0,1}
         bits = bits.reshape(bits.shape[0], self.num_sketches, self.sketch_bits)
         return pack_bits_u32(bits)
+
+    def hash_clusters(self, pc_params, x: torch.Tensor) -> torch.Tensor:
+        """(n, Cc, num_sketches, words): sketch_with under each of Cc
+        clusters' planes (pc_params["dirs"] (Cc, S*B, d); called through
+        ops/sources.hash_per_cluster)."""
+        bits = family_hash_clusters(self.family, pc_params, x)  # (n, Cc, S*B)
+        return pack_bits_u32(bits.reshape(*bits.shape[:2], self.num_sketches,
+                                          self.sketch_bits))
 
     @staticmethod
     def hamming(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

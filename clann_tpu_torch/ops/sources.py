@@ -9,7 +9,9 @@ Port of ``clann_tpu.ops.sources``:
 - Tensored (reference: hash_source/tensor.hpp:19-163): two half-length hash
   sets of size ~sqrt(T) combined pairwise by bit interleaving.
 
-All sources expose ``hash(x: (n, d)) -> (n, L) int32`` and ``probs``. The
+All sources expose ``hash(x: (n, d)) -> (n, L) int32`` and ``probs``;
+`hash_per_cluster` hashes with per-cluster functions (a faithful reference
+import's, leading C axis) into (n, C, L) through their `hash_clusters`. The
 JAX package computes in uint32, whose shifts wrap at 32 bits; torch has no
 uint32 shifts, so the bit arithmetic runs in int64 masked to 32 bits after
 every left shift, which keeps the wrap (with bpf * fph > 32 the top bits
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from clann_tpu_torch.ops.collision import HashSourceProbs
+from clann_tpu_torch.ops.hashing import family_hash_clusters
 
 _U32 = 0xFFFFFFFF
 
@@ -75,8 +78,15 @@ class IndependentHashSource:
         return self.hash_with(self.params, x)
 
     def hash_with(self, params, x: torch.Tensor) -> torch.Tensor:
-        h = self.family.hash(params, x)  # (n, L*fph)
-        h = h.reshape(h.shape[0], self.num_hashers, self.functions_per_hasher)
+        return self._combine(self.family.hash(params, x))
+
+    def hash_clusters(self, pc_params, x: torch.Tensor) -> torch.Tensor:
+        """(n, Cc, L): hash_with under each of Cc clusters' parameters."""
+        return self._combine(family_hash_clusters(self.family, pc_params, x))
+
+    def _combine(self, h: torch.Tensor) -> torch.Tensor:
+        """(..., L * fph) function hashes -> (..., L) table hashes."""
+        h = h.reshape(*h.shape[:-1], self.num_hashers, self.functions_per_hasher)
         return _combine_bits(
             h, self.functions_per_hasher, self.family.bits_per_function, self.bits_to_cut
         )
@@ -126,6 +136,17 @@ class PooledHashSource:
         h = pool[:, params["pool_indices"].long()]  # (n, L, fph)
         return _combine_bits(
             h, self.functions_per_hasher, self.family.bits_per_function, self.bits_to_cut
+        )
+
+    def hash_clusters(self, pc_params, x: torch.Tensor) -> torch.Tensor:
+        """(n, Cc, L): hash_with under each of Cc clusters' parameters."""
+        idx = pc_params["pool_indices"].long()  # (Cc, L, fph)
+        fam = {k: v for k, v in pc_params.items() if k != "pool_indices"}
+        pool = family_hash_clusters(self.family, fam, x)  # (n, Cc, pool_size)
+        c = torch.arange(idx.shape[0], device=idx.device)[:, None, None]
+        return _combine_bits(
+            pool[:, c, idx], self.functions_per_hasher, self.family.bits_per_function,
+            self.bits_to_cut,
         )
 
 
@@ -186,22 +207,44 @@ class TensoredHashSource:
         return self.hash_with(self.params, x)
 
     def hash_with(self, params, x: torch.Tensor) -> torch.Tensor:
-        h = self.family.hash(params, x)  # (n, halves*fph)
-        h = h.reshape(h.shape[0], self.num_halves, self.fph)
+        return self._combine(self.family.hash(params, x))
+
+    def hash_clusters(self, pc_params, x: torch.Tensor) -> torch.Tensor:
+        """(n, Cc, T): hash_with under each of Cc clusters' parameters."""
+        return self._combine(family_hash_clusters(self.family, pc_params, x))
+
+    def _combine(self, h: torch.Tensor) -> torch.Tensor:
+        """(..., halves * fph) function hashes -> (..., T) table hashes."""
+        h = h.reshape(*h.shape[:-1], self.num_halves, self.fph)
         halves = _combine_bits(
             h, self.fph, self.family.bits_per_function, self.bits_to_cut
-        ).to(torch.int64)  # (n, halves), half_bits bits each
+        ).to(torch.int64)  # (..., halves), half_bits bits each
         inter = _intersperse_zero(halves, self.half_bits)
         right_start = self.num_halves // 2
         if self.num_bits % 2 == 0:
-            left = (inter[:, :right_start] << 1) & _U32
-            right = inter[:, right_start:]
+            left = (inter[..., :right_start] << 1) & _U32
+            right = inter[..., right_start:]
         else:
-            left = inter[:, :right_start]
-            right = inter[:, right_start:] >> 1
-        pl = torch.as_tensor(self.pair_idx[:, 0], dtype=torch.int64, device=x.device)
-        pr = torch.as_tensor(self.pair_idx[:, 1], dtype=torch.int64, device=x.device)
-        return (left[:, pl] | right[:, pr]).to(torch.int32)
+            left = inter[..., :right_start]
+            right = inter[..., right_start:] >> 1
+        pl = torch.as_tensor(self.pair_idx[:, 0], dtype=torch.int64, device=h.device)
+        pr = torch.as_tensor(self.pair_idx[:, 1], dtype=torch.int64, device=h.device)
+        return (left[..., pl] | right[..., pr]).to(torch.int32)
+
+
+def hash_per_cluster(source, pc_params, x: torch.Tensor, cluster_block: int = 16):
+    """(n, C, L) int32 hashes of x under each cluster's own functions, or
+    with the SketchFilterer as `source` (n, C, S, W) sketches
+    (`pc_params`: its parameter dict with a leading C axis on every leaf,
+    a faithful reference import's). The JAX package vmaps hash_with /
+    sketch_with over C; here blocks of `cluster_block` clusters are one
+    batched family product each, which bounds the (functions, n, padded
+    dims) floats of cross-polytope hashing."""
+    C = next(iter(pc_params.values())).shape[0]
+    return torch.cat([
+        source.hash_clusters({k: v[c : c + cluster_block] for k, v in pc_params.items()}, x)
+        for c in range(0, C, cluster_block)
+    ], dim=1)
 
 
 def make_hash_source(

@@ -24,7 +24,7 @@ def index_arrays(index) -> Dict[str, object]:
     scalars, read off an index of either package (e.g. a JAX-built one:
     its uint32 words are carried across as int32 bit patterns)."""
     from clann_tpu_torch.core.index import (
-        DENSE_FIELDS, GEOMETRY_FIELDS, LSH_FIELDS, META_FIELDS)
+        DENSE_FIELDS, GEOMETRY_FIELDS, LSH_FIELDS, META_FIELDS, PARAM_FIELDS)
 
     def arr(v):
         return None if v is None else np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
@@ -32,7 +32,7 @@ def index_arrays(index) -> Dict[str, object]:
     out: Dict[str, object] = {f: arr(getattr(index, f)) for f in GEOMETRY_FIELDS}
     out.update({f: arr(getattr(index, f, None)) for f in (*LSH_FIELDS, *DENSE_FIELDS)})
     out.update({f: getattr(index, f) for f in META_FIELDS if hasattr(index, f)})
-    for f in ("hash_params", "sketch_params"):
+    for f in PARAM_FIELDS:
         p = getattr(index, f, None)
         out[f] = None if p is None else {k: arr(v) for k, v in dict(p).items()}
     return out

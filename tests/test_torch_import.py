@@ -21,6 +21,10 @@ SLICE_MODULES = [
     "clann_tpu_torch.data.metricdata",
     "clann_tpu_torch.data.setdata",
     "clann_tpu_torch.data.synthetic",
+    "clann_tpu_torch.io",
+    "clann_tpu_torch.io.h5",
+    "clann_tpu_torch.io.interop",
+    "clann_tpu_torch.io.refcodec",
     "clann_tpu_torch.metrics.csv",
     "clann_tpu_torch.metrics.recall",
     "clann_tpu_torch.metrics.run",
@@ -74,19 +78,21 @@ def test_port_imports_no_jax():
 
 
 def test_exports_match_the_jax_package():
-    """The port exports the JAX package's facade names, save init_from_file
-    and serialize (interop and h5 come later), and the same errors."""
+    """The port exports the JAX package's facade names (init_from_file and
+    serialize with the native h5 format), and the same errors."""
     import clann_tpu
     import clann_tpu_torch
 
-    later = {"init_from_file", "serialize"}
+    later = set()
     assert set(clann_tpu.__all__) - set(clann_tpu_torch.__all__) == later
-    assert set(clann_tpu_torch.__all__) <= set(clann_tpu.__all__)
-    for name in ("insert", "rebuild", "save_metrics", "plan_capacity", "CapacityPlan"):
+    assert set(clann_tpu_torch.__all__) == set(clann_tpu.__all__)
+    for name in ("insert", "rebuild", "save_metrics", "plan_capacity", "CapacityPlan",
+                 "init_from_file", "serialize"):
         assert callable(getattr(clann_tpu_torch, name)), name
     from clann_tpu_torch.core.index import build_lsh_index, insert, rebuild  # noqa: F401
     from clann_tpu_torch.ops.join import closest_pairs  # noqa: F401
-    for method in ("closest_pairs", "insert", "rebuild", "reset_metrics", "save_metrics"):
+    for method in ("closest_pairs", "insert", "rebuild", "reset_metrics", "save_metrics",
+                   "serialize", "from_file"):
         assert callable(getattr(clann_tpu_torch.Clann, method)), method
 
 

@@ -308,3 +308,46 @@ def test_window_rule_stops_short_on_one_dense_mode(monkeypatch):
           f"{p_model:.3f} at depth {depth}")
     assert j_share == t_share < 0.5
     assert near.mean() < p_model
+
+
+def test_wrapped_slots_keep_a_pair_that_jax_drops():
+    """A JAX-side loss, pinned as a witness of the port's answer: JAX's
+    table_pairs gives a position past a table's end the wrapped neighbour
+    (a real pair of ids) at sim -1, and when kk = min(4k, n * window)
+    reaches those slots, dedup_topk_pairs can keep that -1 copy first and
+    mask a valid copy of the same pair from a later table. The port gives
+    those slots the pair (-1, -1), so it keeps the pair. On 6 unit vectors
+    with k = 6 and window 1, JAX drops (0, 5), the second-best pair
+    (sim 0.8112); the port returns it second."""
+    x = np.random.default_rng(0).standard_normal((6, 8)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    sorted_idx = np.asarray([[0, 1, 2, 3, 4, 5], [1, 2, 5, 0, 3, 4]], np.int32)
+    kw = dict(k=6, window=1)
+
+    js, jlo, jhi = jjoin.table_pairs(jnp.asarray(x), jnp.asarray(sorted_idx), **kw)
+    j_sims, j_pairs = jjoin.dedup_topk_pairs(
+        js.reshape(-1), jlo.reshape(-1), jhi.reshape(-1), k=6)
+    ts, tlo, thi = tjoin.table_pairs(torch.as_tensor(x), torch.as_tensor(sorted_idx), **kw)
+    t_sims, t_pairs = tjoin.dedup_topk_pairs(
+        ts.reshape(-1), tlo.reshape(-1), thi.reshape(-1), k=6)
+
+    # the slot past table 0's end (id 5): JAX pairs it with the wrapped
+    # neighbour, id 0, at sim -1; the port gives it (-1, -1). Table 1
+    # holds (0, 5) as real neighbours (5 then 0)
+    assert float(js[0, -1]) == float(ts[0, -1]) == -1.0
+    assert (int(jlo[0, -1]), int(jhi[0, -1])) == (0, 5)
+    assert (int(tlo[0, -1]), int(thi[0, -1])) == (-1, -1)
+
+    truth = float((x[0] @ x[5] + 1.0) * 0.5)
+    assert abs(truth - 0.8112) < 1e-4
+    j_list = np.asarray(j_pairs).tolist()
+    assert [0, 5] not in j_list
+    assert j_list == [[4, 5], [1, 2], [2, 5], [2, 3], [0, 1], [3, 4]]
+    t_list = t_pairs.numpy().tolist()
+    assert t_list[1] == [0, 5]
+    assert abs(float(t_sims[1]) - truth) < 1e-6
+    # every other pair the port returns is one JAX returns too, at its sim
+    j_by = {tuple(p): float(s) for p, s in zip(j_list, np.asarray(j_sims))}
+    for p, s in zip(t_list, t_sims.numpy()):
+        if tuple(p) != (0, 5) and tuple(p) in j_by:
+            assert abs(j_by[tuple(p)] - float(s)) < 1e-6

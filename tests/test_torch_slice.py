@@ -188,24 +188,46 @@ def test_facade_single_query_search(world):
                       [[i for _, i in th]], [[d for d, _ in th]])
 
 
-# each mode in a configuration where it reaches a part that is not ported:
-# the clustered walk ("lsh" on a clustered build, "lsh-clustered") refuses
-# an index with per-cluster hash functions (a faithful reference import,
-# slice 14)
+# the walk modes ("lsh" on a clustered build, "lsh-clustered") on an index
+# with per-cluster hash functions, a faithful import of a reference file:
+# once refused as unported, now held to JAX on the same file
 _UNPORTED = {
     "lsh": dict(lsh_engine="clustered"),
     "lsh-clustered": dict(lsh_engine="clustered"),
 }
 
 
-@pytest.mark.parametrize("mode", list(_UNPORTED))
-def test_unported_modes_raise(world, mode):
+@pytest.fixture(scope="module")
+def imported(world, tmp_path_factory):
+    """(JAX's faithful import, the port's) of one reference file that JAX
+    wrote from its clustered build."""
+    from clann_tpu.core.index import build_index as jbuild
+    from clann_tpu.io.interop import load_reference_h5 as jload, save_reference_h5
+
+    from clann_tpu_torch.io.interop import load_reference_h5 as tload
+
     train = world[0]
-    cfg = TConfig(**{**CFG, **_UNPORTED[mode]})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t = clann_tpu_torch.init_with_config(train[:200], cfg, device="cpu").build()
-        t.index.pc_hash_params = dict(t.index.hash_params)
-        t.search_batch(train[:3], mode=mode)
+    path = str(tmp_path_factory.mktemp("ref") / "ref.h5")
+    save_reference_h5(jbuild(train, JConfig(**{**CFG, "lsh_engine": "clustered"})), path)
+    return jload(path, data=train), tload(path, data=train, device="cpu")
+
+
+@pytest.mark.parametrize("mode", list(_UNPORTED))
+def test_unported_modes_raise(world, imported, mode):
+    """The walk with per-cluster hash functions (a faithful reference
+    import) runs the per-cluster branch and returns JAX's results."""
+    train, queries = world[0], world[1]
+    jimp, timp = imported
+    assert timp.pc_hash_params is not None and timp.pc_sketch_params is not None
+    j = clann_tpu.init_with_config(train, jimp.config)
+    j.index = jimp
+    t = clann_tpu_torch.init_with_config(train, timp.config, device="cpu")
+    t.index = timp
+    jd, ji, jst = j.search_batch(queries, mode=mode)
+    td, ti, tst_ = t.search_batch(queries, mode=mode)
+    assert_topk_match(ji, jd, ti, td)
+    np.testing.assert_array_equal(np.asarray(jst.distance_computations),
+                                  tst_.distance_computations)
 
 
 # the int8 rescore in every mode that the unported-mode probe once refused

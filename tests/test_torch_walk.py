@@ -311,9 +311,30 @@ def test_search_by_id_matches_jax(world, exclude_self):
 
 
 def test_search_per_cluster_params_raise(world):
-    t = dataclasses.replace(world["tidx"], pc_hash_params={"w": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="slice 14"):
-        tq.search(t, world["ds"].test[:2])
+    """search on an index with per-cluster functions (a faithful import's)
+    hashes and sketches the queries with each cluster's own, as JAX's does:
+    here cluster c's planes are the shared ones with the function axis
+    rolled by c. Once refused as unported; now held to JAX. Per-cluster
+    hash functions without per-cluster sketch functions are refused."""
+    j, t = world["jidx"], world["tidx"]
+    C = j.centers.shape[0]
+    pc = {name: {"dirs": np.stack([np.roll(np.asarray(p["dirs"]), c, axis=0)
+                                   for c in range(C)])}
+          for name, p in (("pc_hash_params", j.hash_params),
+                          ("pc_sketch_params", j.sketch_params))}
+    jpc = j.replace(**{k: {"dirs": jnp.asarray(v["dirs"])} for k, v in pc.items()})
+    tpc = dataclasses.replace(t, **{k: {"dirs": torch.from_numpy(v["dirs"])}
+                                    for k, v in pc.items()})
+    q = world["ds"].test
+    jd, ji, jst = jq.search(jpc, q, k=10, delta=0.9)
+    td, ti, tst = tq.search(tpc, q, k=10, delta=0.9)
+    assert_topk_match(ji, jd, ti, td, atol=1e-5)
+    for f in jst._fields:
+        np.testing.assert_array_equal(getattr(tst, f), np.asarray(getattr(jst, f)), err_msg=f)
+    _, _, plain = tq.search(t, q, k=10, delta=0.9)
+    assert not np.array_equal(tst.candidates, plain.candidates)
+    with pytest.raises(ValueError, match="pc_sketch_params"):
+        tq.search(dataclasses.replace(tpc, pc_sketch_params=None), q[:2])
 
 
 @pytest.fixture(scope="module")
