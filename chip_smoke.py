@@ -194,6 +194,45 @@ SQLite metrics sink and the upstream PUFFINN surface on the same data:
    in range of the oracle's 10th pair a reading; a pickle round trip (its
    second build lazy, on the first query) answers 2 queries identically.
 
+Phases 9b, 7e, 11d, 12b, 15 and 16 drive the sharded paths (a 4-shard
+mesh on the one card, make_mesh(4, devices=["cuda:0"] * 4): the shard
+bodies run one after another), the CLI and the benchmark harness:
+
+9b. sharded (right after phase 9, on the main-path index): shard_index
+   over 4 shards, assert_balanced and shard_report printed;
+   sharded_scan_search(use_pallas=True) on the 10,000 queries, failing
+   unless K1 launched once per shard, gated recall@10 >= 0.9 and
+   id-recall >= 0.8, its QPS (median of 3) beside the single-device
+   scan-pallas; exact=True, its ids equal to the single-device exact scan
+   up to ties; build_sharded with the main path's config, equal on every
+   real slot to the shards of the built index (seconds and peak memory of
+   each step).
+7e. sharded lsh (right after phase 7d, on the lsh index):
+   sharded_global_search on the 2,048 lsh queries at delta 0.95, gated
+   recall@10 >= 0.8 * delta, failing if K7 was not launched; a 2 x 2
+   make_mesh_2d equal to its 1-D 2-shard mesh on 256 queries;
+   sharded_closest_pairs(k=100, delta=0.9) equal to ops.join.closest_pairs.
+11d. sharded walk (right after phase 11c, on the walk index, whose shards
+   keep slot records): one 256-query sharded_search batch at delta 0.9,
+   gated recall@10 >= 0.8 * delta, failing if K7 was not launched.
+12b. sharded jaccard (after phase 12's round trip, on its corpus):
+   shard_jaccard_index of the flat build and build_jaccard_sharded, equal
+   shard for shard; sharded_jaccard_search of the 512 queries in batches
+   of 128, gated threshold recall@10 >= 0.8 * delta, failing if K7 was not
+   launched.
+15. cli (after phase 14): clann_tpu_torch.__main__.main in-process on a
+   1,183,514 x 100 synthetic set, 10,000 queries, L = 50, mode
+   scan-pallas, --no-cache, --save build/cli_metrics.db: its printed
+   recall@10 gated >= 0.9, failing if K1 was not launched, the saved query
+   rows counted; then python -m clann_tpu_torch --plan as a subprocess.
+16. bench (on the main-path data): minibench; run_benchmark_config_puffinn
+   (the flat L = 50 walk with slot records, 256 queries: a cut of the
+   10,000, printed) into build/bench_metrics.db, gated recall@10 >= 0.8 *
+   delta and failing if K7 was not launched; compare_implementations_time
+   (10 sampled queries, 3 repetitions: a cut of the reference's 15,
+   printed); the ann-benchmarks adapter ClannTPU: fit, batch_query of the
+   10,000 queries and one query.
+
 It prints the kernels as one JSON line (launches on the main paths, error
 against the plain version, ms, plain_ms, bound_ms / bound_by, library_ms),
 the nvidia-smi name / power limit line, and last {"ok": true, "device":
@@ -248,6 +287,9 @@ N_UPDATE_OLD, UPDATE_CALLS, UPDATE_SELF = 1_083_514, 4, 256
 # [puffinn]: the byte budget that the JAX package's model turns into L = 128
 # at 1,183,514 x 100 (1,088,035,072 B fixed + 33,180,860 B per table)
 PUFFINN_BUDGET, PUFFINN_QUERIES, PUFFINN_RECALL = 5_335_185_152, 256, 0.9
+# the sharded paths: a mesh of SHARDS shards on the one card; the walk's
+# sharded batch
+SHARDS, SHARD_WALK_QUERIES, MESH_2D_QUERIES = 4, 256, 256
 DEVICE = "cuda"
 
 
@@ -1946,6 +1988,26 @@ def jaccard_config():
     )
 
 
+def jaccard_exact_sims(data, queries, ids):
+    """Exact Jaccard of each returned id against its query (-1 for none)."""
+    import numpy as np
+
+    from clann_tpu_torch.data.setdata import jaccard_similarity_rowwise
+
+    rows = data.tokens[np.maximum(ids, 0).reshape(-1)]
+    s = jaccard_similarity_rowwise(rows, np.repeat(queries[: len(ids)], K, axis=0),
+                                   device=DEVICE).cpu().numpy().reshape(ids.shape)
+    return np.where(ids < 0, -1.0, s)
+
+
+def jaccard_threshold_recall(data, queries, gt_s, ids):
+    """scripts/jaccard_baseline.py's: J >= the true 10th - 1e-3"""
+    import numpy as np
+
+    return float(np.mean(jaccard_exact_sims(data, queries, ids)
+                         >= gt_s[: len(ids), K - 1 : K] - 1e-3))
+
+
 def phase_jaccard(card):
     """The Jaccard set index on scripts/jaccard_baseline.py's data: ground
     truth by the port's brute force on the card; builds flat and clustered;
@@ -1958,8 +2020,7 @@ def phase_jaccard(card):
     import torch
 
     from clann_tpu_torch.core import jaccard as tj
-    from clann_tpu_torch.data.setdata import (JaccardData, brute_force_jaccard_topk,
-                                              jaccard_similarity_rowwise)
+    from clann_tpu_torch.data.setdata import JaccardData, brute_force_jaccard_topk
     from clann_tpu_torch.data.synthetic import clustered_sets
     from clann_tpu_torch.ops import gather as tg
     from clann_tpu_torch.testing import assert_topk_match
@@ -1981,16 +2042,6 @@ def phase_jaccard(card):
     log(f"[jaccard] ground truth (brute_force_jaccard_topk on the card) in "
         f"{time.perf_counter() - t0:.3f} s; true 10th similarity min/median "
         f"{float(gt_s[:, K - 1].min()):.4f}/{float(np.median(gt_s[:, K - 1])):.4f}")
-
-    def exact_sims(ids):
-        rows = data.tokens[np.maximum(ids, 0).reshape(-1)]
-        s = jaccard_similarity_rowwise(rows, np.repeat(queries[: len(ids)], K, axis=0),
-                                       device=DEVICE).cpu().numpy().reshape(ids.shape)
-        return np.where(ids < 0, -1.0, s)
-
-    def threshold_recall(ids):
-        """scripts/jaccard_baseline.py's: J >= the true 10th - 1e-3"""
-        return float(np.mean(exact_sims(ids) >= gt_s[: len(ids), K - 1 : K] - 1e-3))
 
     cfg = jaccard_config()
     B, nq = JACCARD_BATCH, JACCARD_QUERIES
@@ -2024,7 +2075,7 @@ def phase_jaccard(card):
               ("distance_computations", "candidates", "clusters_visited")]
         rate, times = qps(lambda: [tj.jaccard_search(idx, queries[s : s + B])
                                    for s in range(0, nq, B)], reps=1, n_queries=nq)
-        rec = threshold_recall(ids)
+        rec = jaccard_threshold_recall(data, queries, gt_s, ids)
         log(f"[jaccard] {variant}: build {build_s:.3f} s (peak device memory "
             f"{build_peak / 1e9:.3f} GB{f', {idx.center_ids.shape[0]} clusters' if clustered else ''}); "
             f"{nq} queries in batches of {B}: threshold recall@10 {rec:.4f} (gate "
@@ -2037,7 +2088,8 @@ def phase_jaccard(card):
             fail(f"jaccard {variant} did not launch the K7 kernel")
         if rec < 0.8 * JACCARD_DELTA:
             fail(f"jaccard {variant}: threshold recall@10 {rec:.4f} below 0.8 * delta")
-        if not np.allclose(sims, np.where(ids >= 0, exact_sims(ids), 0.0), atol=0, rtol=0):
+        if not np.allclose(sims, np.where(ids >= 0, jaccard_exact_sims(data, queries, ids), 0.0),
+                           atol=0, rtol=0):
             fail(f"jaccard {variant}: returned similarities are not the exact Jaccard")
         out[variant] = (idx, ids)
     if not np.array_equal(out["clustered"][1], out["flat"][1]):
@@ -2052,7 +2104,7 @@ def phase_jaccard(card):
     sync()
     first_s = time.perf_counter() - t0
     assert_topk_match(gt_i, gt_s, si, ss, atol=0.0)
-    scan_rec = threshold_recall(si)
+    scan_rec = jaccard_threshold_recall(data, queries, gt_s, si)
     rate, times = qps(lambda: tj.jaccard_scan(flat, queries), reps=3,
                       n_queries=JACCARD_QUERIES)
     log(f"[jaccard] jaccard_scan of {JACCARD_QUERIES} queries: ids equal to the ground truth "
@@ -2063,7 +2115,7 @@ def phase_jaccard(card):
         fail("jaccard_scan is not exact")
     k7 = check_record_gather(flat.g_records, cfg, JACCARD_BATCH, "jaccard", "set records", 3,
                              card)
-    return launches, k7, (data, queries)
+    return launches, k7, (data, queries, gt_s)
 
 
 def pair_oracle(x, k):
@@ -2539,6 +2591,432 @@ def profile_lsh(handle, test, label="lsh", sessions=2, host_ops=True):
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
+def shard_mesh(n):
+    """A mesh of n shards on the one card."""
+    from clann_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n, devices=[f"{DEVICE}:0"] * n)
+
+
+def phase_sharded_scan(handle, train, test, gt_d, gt_i, card):
+    """[sharded] on the main-path index: shard_index over SHARDS shards on
+    the card, the fused scan per shard (K1), the exact scan, build_sharded.
+    Returns the K1 launches of the sharded scan-pallas path."""
+    import numpy as np
+    import torch
+
+    from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
+    from clann_tpu_torch.ops import scan_topk as st
+    from clann_tpu_torch.ops.ivf import scan_search
+    from clann_tpu_torch.parallel import sharded as sh
+    from clann_tpu_torch.testing import assert_topk_match, sharded_real_slot_mismatches
+
+    mesh = shard_mesh(SHARDS)
+    idx = handle.index
+    sync()
+    reset_peak()
+    t0 = time.perf_counter()
+    shards = sh.shard_index(idx, SHARDS, mesh=mesh)
+    sync()
+    shard_s = time.perf_counter() - t0
+    bound_ = sh.assert_balanced(shards, np.diff(idx.cluster_starts.cpu().numpy()))
+    log(f"[sharded] shard_index of the main-path index over {SHARDS} shards on "
+        f"{mesh.cluster_devices()[0]}: {shard_s:.3f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; balanced (spread bound {bound_}); "
+        f"shard_report {json.dumps(sh.shard_report(shards, Q=N_QUERIES, k=K))}")
+
+    def fused():
+        return sh.sharded_scan_search(shards, test, k=K, use_pallas=True, mesh=mesh)
+
+    reset_peak()
+    st.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    d, i, stats = fused()
+    sync()
+    first_s = time.perf_counter() - t0
+    launches = st.KERNEL_LAUNCHES
+    check_result(d, i, "sharded scan-pallas")
+    rec, idr = recall_values(gt_d, d, K)[0], recall_by_ids(gt_i, i, K)
+    rate, times = qps(fused, reps=3)
+    rate_1, times_1 = qps(lambda: handle.search_batch(test, mode="scan-pallas"), reps=3)
+    log(f"[sharded] sharded_scan_search(use_pallas=True), {N_QUERIES} queries: recall@10 "
+        f"{rec:.4f} (gate {RECALL_GATE}), id-recall {idr:.4f} (gate {ID_RECALL_GATE}); dc/query "
+        f"{float(np.mean(stats.distance_computations)):.0f}; K1 launches {launches} "
+        f"({SHARDS} shards); first call {first_s:.3f} s (the shards' bf16 bases built); "
+        f"{rate:.0f} QPS (median of 3: {_qps_line(times)}) beside the single-device "
+        f"scan-pallas {rate_1:.0f} QPS ({_qps_line(times_1)}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB on {card}")
+    if launches != SHARDS:
+        fail(f"the sharded scan launched K1 {launches} times, not once per shard ({SHARDS})")
+    if rec < RECALL_GATE or idr < ID_RECALL_GATE:
+        fail("sharded scan-pallas recall below the gate")
+
+    t0 = time.perf_counter()
+    de, ie, _ = sh.sharded_scan_search(shards, test, k=K, exact=True, mesh=mesh)
+    sync()
+    exact_s = time.perf_counter() - t0
+    d1, i1, _ = scan_search(idx, test, exact=True)
+    assert_topk_match(ie, de, i1, d1, atol=1e-5)
+    log(f"[sharded] exact=True: {exact_s:.3f} s; ids equal to the single-device exact scan "
+        f"up to ties ({float(np.mean(ie == i1)):.5f} identical), recall@10 "
+        f"{recall_values(gt_d, de, K)[0]:.4f}")
+    del d1, i1
+
+    sync()
+    reset_peak()
+    t0 = time.perf_counter()
+    direct = sh.build_sharded(train, idx.config, mesh=mesh)
+    sync()
+    build_s = time.perf_counter() - t0
+    bad = sharded_real_slot_mismatches(shards, direct)
+    log(f"[sharded] build_sharded (sharded GMM, per-shard hashing, sorts, global tables) "
+        f"with the main path's config: {build_s:.3f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; n_max {direct.n_max} "
+        f"(shard_index's {shards.n_max}); real slots equal to shard_index(build_index): "
+        f"{not bad}{'' if not bad else ' ' + str(bad[:8])}")
+    if bad:
+        fail(f"build_sharded differs from shard_index(build_index) in {bad[:8]}")
+    del shards, direct
+    sh._SHARD_BASE_CACHE.clear()
+    return launches
+
+
+def phase_sharded_lsh(lsh, test, gt_d, gt_i, card):
+    """[sharded] on the lsh index: the global engine per shard (K7), the
+    2 x 2 mesh against its 1-D mesh, the table-sharded join. Returns the
+    K7 launches of the sharded paths."""
+    import numpy as np
+    import torch
+
+    from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
+    from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.ops.join import closest_pairs
+    from clann_tpu_torch.parallel import sharded as sh
+    from clann_tpu_torch.parallel.join import sharded_closest_pairs
+    from clann_tpu_torch.parallel.mesh import make_mesh_2d
+
+    mesh = shard_mesh(SHARDS)
+    delta = LSH_DELTAS[0]
+    q, gd, gi = test[:LSH_QUERIES], gt_d[:LSH_QUERIES], gt_i[:LSH_QUERIES]
+    sync()
+    reset_peak()
+    t0 = time.perf_counter()
+    shards = sh.shard_index(lsh.index, SHARDS, mesh=mesh)
+    sync()
+    shard_s = time.perf_counter() - t0
+    tg.reset_launches()
+    t0 = time.perf_counter()
+    d, i, st = sh.sharded_global_search(shards, q, delta=delta, mesh=mesh)
+    sync()
+    search_s = time.perf_counter() - t0
+    launches = tg.ROWS_LAUNCHES
+    check_result(d, i, "sharded global", LSH_QUERIES)
+    rec, idr = recall_values(gd, d, K)[0], recall_by_ids(gi, i, K)
+    log(f"[sharded] lsh index over {SHARDS} shards: shard_index {shard_s:.3f} s; "
+        f"sharded_global_search delta={delta}, {LSH_QUERIES} queries in one batch: recall@10 "
+        f"{rec:.4f} (gate {0.8 * delta:.2f}), id-recall {idr:.4f}; dc/query "
+        f"{float(np.mean(st.distance_computations)):.1f} (summed over shards); K7 launches "
+        f"{launches}; {search_s:.3f} s, {LSH_QUERIES / search_s:.1f} QPS; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB on {card}")
+    if launches < 1:
+        fail("the sharded global engine did not launch the K7 kernel")
+    if rec < 0.8 * delta:
+        fail(f"sharded global: recall@10 {rec:.4f} below 0.8 * delta")
+    del shards
+
+    # a 2 x 2 (query, cluster) mesh against its 1-D cluster mesh
+    mesh1 = shard_mesh(2)
+    half = sh.shard_index(lsh.index, 2, mesh=mesh1)
+    q2 = q[:MESH_2D_QUERIES]
+    tg.reset_launches()
+    a = sh.sharded_global_search(half, q2, delta=delta, mesh=mesh1)
+    b = sh.sharded_global_search(half, q2, delta=delta,
+                                 mesh=make_mesh_2d(2, 2, devices=[f"{DEVICE}:0"] * 4))
+    sync()
+    launches_2d = tg.ROWS_LAUNCHES
+    same = (np.array_equal(a[1], b[1]) and np.array_equal(a[0], b[0])
+            and all(np.array_equal(x, y) for x, y in zip(a[2], b[2])))
+    log(f"[sharded] 2 x 2 make_mesh_2d against its 1-D 2-shard mesh, {MESH_2D_QUERIES} "
+        f"queries: ids, distances and stats equal: {same}; K7 launches {launches_2d}")
+    if not same:
+        fail("the 2-D mesh's results differ from the 1-D mesh's")
+    del half
+
+    t0 = time.perf_counter()
+    p1, s1 = closest_pairs(lsh.index, JOIN_K, delta=JOIN_DELTA)
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p2, s2 = sharded_closest_pairs(lsh.index, JOIN_K, delta=JOIN_DELTA, mesh=mesh)
+    join_s = time.perf_counter() - t0
+    same = np.array_equal(p1, p2) and np.array_equal(s1, s2)
+    log(f"[sharded] sharded_closest_pairs(k={JOIN_K}, delta={JOIN_DELTA}) over {SHARDS} "
+        f"shards: {join_s:.3f} s (unsharded {one_s:.3f} s); pairs and sims equal to "
+        f"ops.join.closest_pairs: {same}")
+    if not same:
+        fail("the sharded join differs from ops.join.closest_pairs")
+    return launches + launches_2d
+
+
+def phase_sharded_walk(walk, test, gt_d, gt_i, source, card):
+    """[sharded] on the walk index: one SHARD_WALK_QUERIES batch of the walk
+    per shard over slot records (K7). Returns its K7 launches."""
+    import numpy as np
+    import torch
+
+    from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
+    from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.parallel import sharded as sh
+
+    mesh = shard_mesh(SHARDS)
+    q, gd, gi = test[:SHARD_WALK_QUERIES], gt_d[:SHARD_WALK_QUERIES], gt_i[:SHARD_WALK_QUERIES]
+    sync()
+    reset_peak()
+    t0 = time.perf_counter()
+    shards = sh.shard_index(walk.index, SHARDS, mesh=mesh)
+    sync()
+    shard_s = time.perf_counter() - t0
+    if shards.slot_records is None:
+        fail("the walk index's shards have no slot records")
+    tg.reset_launches()
+    t0 = time.perf_counter()
+    d, i, st = sh.sharded_search(shards, q, delta=WALK_DELTA, mesh=mesh)
+    sync()
+    walk_s = time.perf_counter() - t0
+    launches = tg.ROWS_LAUNCHES
+    check_result(d, i, "sharded walk", SHARD_WALK_QUERIES)
+    rec, idr = recall_values(gd, d, K)[0], recall_by_ids(gi, i, K)
+    log(f"[sharded] walk index over {SHARDS} shards ({shards.c_max} cluster slots each): "
+        f"shard_index {shard_s:.3f} s; sharded_search delta={WALK_DELTA}, one batch of "
+        f"{SHARD_WALK_QUERIES}: recall@10 {rec:.4f} (gate {0.8 * WALK_DELTA:.2f}), id-recall "
+        f"{idr:.4f}; dc/query {float(np.mean(st.distance_computations)):.1f}, clusters "
+        f"visited/query {float(np.mean(st.clusters_visited)):.2f}; K7 launches {launches}; "
+        f"{walk_s:.3f} s (single-device walk {source['batch_s']:.3f} s per batch of 256); "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB on {card}")
+    if launches < 1:
+        fail("the sharded walk did not launch the K7 kernel")
+    if rec < 0.8 * WALK_DELTA:
+        fail(f"sharded walk: recall@10 {rec:.4f} below 0.8 * delta")
+    return launches
+
+
+def phase_sharded_jaccard(data, queries, gt_s, card):
+    """[sharded] on the Jaccard corpus: shard_jaccard_index of the flat
+    build against build_jaccard_sharded, then the sharded search (K7) in
+    batches of JACCARD_BATCH. Returns its K7 launches."""
+    import numpy as np
+    import torch
+
+    from clann_tpu_torch.core import jaccard as tj
+    from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.parallel import jaccard as pj
+
+    mesh = shard_mesh(SHARDS)
+    cfg = jaccard_config()
+    sync()
+    reset_peak()
+    flat = tj.build_jaccard_index(data, cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    shj = pj.shard_jaccard_index(flat, SHARDS, mesh=mesh)
+    sync()
+    shard_s = time.perf_counter() - t0
+    del flat
+    t0 = time.perf_counter()
+    direct = pj.build_jaccard_sharded(data, data.universe, cfg, mesh=mesh)
+    sync()
+    build_s = time.perf_counter() - t0
+    bad = [f"{f}[{s}]" for f in pj.SHARD_FIELDS for s in range(SHARDS)
+           if not torch.equal(getattr(shj, f)[s], getattr(direct, f)[s])]
+    log(f"[sharded] jaccard corpus over {SHARDS} shards: shard_jaccard_index {shard_s:.3f} s, "
+        f"build_jaccard_sharded {build_s:.3f} s, equal shard for shard: {not bad}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    if bad:
+        fail(f"build_jaccard_sharded differs from shard_jaccard_index in {bad[:8]}")
+    del direct
+    B, nq = JACCARD_BATCH, JACCARD_QUERIES
+    reset_peak()
+    tg.reset_launches()
+    t0 = time.perf_counter()
+    res = [pj.sharded_jaccard_search(shj, queries[s : s + B], mesh=mesh)
+           for s in range(0, nq, B)]
+    sync()
+    search_s = time.perf_counter() - t0
+    launches = tg.ROWS_LAUNCHES
+    ids = np.concatenate([r[1] for r in res])
+    dc = np.concatenate([r[2].distance_computations for r in res])
+    rec = jaccard_threshold_recall(data, queries, gt_s, ids)
+    log(f"[sharded] sharded_jaccard_search, {nq} queries in batches of {B}: threshold "
+        f"recall@10 {rec:.4f} (gate {0.8 * JACCARD_DELTA:.2f}); dc/query {float(dc.mean()):.1f}; "
+        f"K7 launches {launches}; {search_s:.3f} s, {nq / search_s:.2f} QPS; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB on {card}")
+    if launches < 1:
+        fail("the sharded Jaccard search did not launch the K7 kernel")
+    if rec < 0.8 * JACCARD_DELTA:
+        fail(f"sharded jaccard: threshold recall@10 {rec:.4f} below 0.8 * delta")
+    return launches
+
+
+def phase_cli(card):
+    """[cli] python -m clann_tpu_torch's main() in-process (so that K1's
+    launches can be read) at the main path's shape, gated on its printed
+    recall; then --plan as a subprocess. Returns the K1 launches."""
+    import io
+    import re
+    import sqlite3
+
+    import torch
+
+    from clann_tpu_torch import __main__ as cli
+    from clann_tpu_torch.ops import scan_topk as st
+
+    db = os.path.join(HERE, "build", "cli_metrics.db")
+    os.makedirs(os.path.dirname(db), exist_ok=True)
+    if os.path.exists(db):
+        os.remove(db)
+    argv = ["--synthetic-n", str(N_TRAIN), "--synthetic-d", str(DIMS), "--queries",
+            str(N_QUERIES), "-L", "50", "--mode", "scan-pallas", "--no-cache", "--save", db,
+            "--device", DEVICE]
+    sync()
+    reset_peak()
+    st.KERNEL_LAUNCHES = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    sync()
+    cli_s = time.perf_counter() - t0
+    launches = st.KERNEL_LAUNCHES
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(f"[cli] | {line}")
+    m = re.search(r"^recall@10: ([0-9.]+)", text, re.M)
+    conn = sqlite3.connect(db)
+    try:
+        n_q = conn.execute("SELECT COUNT(*) FROM search_metrics_query").fetchone()[0]
+    finally:
+        conn.close()
+    log(f"[cli] main({' '.join(os.path.relpath(a, HERE) if a == db else a for a in argv)}): "
+        f"rc {rc} in {cli_s:.3f} s (data, ground truth, build, search, save); K1 launches "
+        f"{launches}; {n_q} query rows saved; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB on {card}")
+    if rc != 0 or m is None:
+        fail("[cli] main failed or printed no recall")
+    if float(m.group(1)) < RECALL_GATE:
+        fail(f"[cli] recall@10 {m.group(1)} below {RECALL_GATE}")
+    if launches < 1:
+        fail("[cli] scan-pallas did not launch the K1 kernel")
+    if n_q != N_QUERIES:
+        fail(f"[cli] --save wrote {n_q} query rows, not {N_QUERIES}")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "clann_tpu_torch", "--plan", "--synthetic-n",
+                           str(N_TRAIN), "--synthetic-d", str(DIMS), "-L", "50"],
+                          cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
+    for line in proc.stdout.splitlines():
+        log(f"[cli] --plan | {line}")
+    log(f"[cli] python -m clann_tpu_torch --plan: rc {proc.returncode} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    if proc.returncode != 0 or "fits one chip" not in proc.stdout:
+        fail(f"[cli] --plan failed: {proc.stderr[-2000:]}")
+    return launches
+
+
+def phase_bench(train, test, gt_d, gt_i, card):
+    """[bench] the harness and the ann-benchmarks adapter on the main-path
+    data (run_benchmark_config_clann caches its index in HDF5 files and is
+    tested on the host). Returns the K7 launches of its LSH paths."""
+    import sqlite3
+
+    import numpy as np
+    import torch
+
+    import clann_tpu_torch
+    from clann_tpu_torch.bench import harness as hb
+    from clann_tpu_torch.bench.ann_adapter import ClannTPU
+    from clann_tpu_torch.data.hdf5 import AnnDataset
+    from clann_tpu_torch.metrics.recall import recall_by_ids
+    from clann_tpu_torch.ops import gather as tg
+
+    name = f"glove-{DIMS}-angular-synthetic"
+    ds = AnnDataset(train, test, gt_d, gt_i, name=name)
+    build_dir = os.path.join(HERE, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    mini_db, db = (os.path.join(build_dir, f) for f in ("minibench.db", "bench_metrics.db"))
+    for f in (mini_db, db):
+        if os.path.exists(f):
+            os.remove(f)
+
+    sync()
+    reset_peak()
+    t0 = time.perf_counter()
+    row = hb.minibench(ds, db_path=mini_db, device=DEVICE)
+    log(f"[bench] minibench (L = 50, default mode, {N_QUERIES} queries): "
+        f"{time.perf_counter() - t0:.3f} s; row {json.dumps(row)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB on {card}")
+
+    flat_cfg = clann_tpu_torch.Config(num_tables=50, num_clusters_factor=0.4, k=K, delta=0.9,
+                                      seed=0, lsh_engine="clustered", dense_layout=False,
+                                      dataset_name=name)
+    reset_peak()
+    tg.reset_launches()
+    t0 = time.perf_counter()
+    res = hb.run_benchmark_config_puffinn(flat_cfg, ds, db_path=db, device=DEVICE)
+    sync()
+    flat_s = time.perf_counter() - t0
+    launches = tg.ROWS_LAUNCHES
+    conn = sqlite3.connect(db)
+    try:
+        rows = (conn.execute("SELECT COUNT(*) FROM puffinn_results").fetchone()[0],
+                conn.execute("SELECT COUNT(*) FROM puffinn_results_query").fetchone()[0])
+    finally:
+        conn.close()
+    log(f"[bench] run_benchmark_config_puffinn (flat C = 1, L = 50, the walk over slot "
+        f"records), {N_QUERIES} queries: {flat_s:.3f} s (build "
+        f"{res.build_seconds:.3f} s); recall@10 {res.recall:.4f} (gate "
+        f"{0.8 * flat_cfg.delta:.2f}), dc/query {res.distance_computations:.1f}, "
+        f"{res.qps:.1f} QPS; K7 launches {launches}; rows {rows[0]} run + {rows[1]} query in "
+        f"{os.path.relpath(db, HERE)}; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    if launches < 1:
+        fail("[bench] the flat baseline did not launch the K7 kernel")
+    if res.recall < 0.8 * flat_cfg.delta:
+        fail(f"[bench] flat baseline recall@10 {res.recall:.4f} below 0.8 * delta")
+    if rows != (1, N_QUERIES):
+        fail(f"[bench] the flat baseline wrote {rows} rows, not (1, {N_QUERIES})")
+
+    cfg = clann_tpu_torch.Config(num_tables=50, num_clusters_factor=0.4, k=K, delta=0.9,
+                                 seed=0, dataset_name=name)
+    tg.reset_launches()
+    t0 = time.perf_counter()
+    times = hb.compare_implementations_time(cfg, ds, device=DEVICE)
+    sync()
+    launches_t = tg.ROWS_LAUNCHES
+    log(f"[bench] compare_implementations_time (the reference's 10 sampled queries, 15 "
+        f"repetitions): {json.dumps(times)} in "
+        f"{time.perf_counter() - t0:.3f} s (two builds included); K7 launches {launches_t}")
+    if launches_t < 1:
+        fail("[bench] compare_implementations_time's lsh search did not launch K7")
+
+    t0 = time.perf_counter()
+    algo = ClannTPU(metric="angular", num_tables=50, num_clusters_factor=0.4, device=DEVICE)
+    algo.fit(train)
+    fit_s = time.perf_counter() - t0
+    algo.set_query_arguments(0.9)
+    t0 = time.perf_counter()
+    algo.batch_query(test, K)
+    batch = algo.get_batch_results()
+    batch_s = time.perf_counter() - t0
+    one = algo.query(test[0], K)
+    ids = np.stack([r[:K] for r in batch])
+    log(f"[bench] ClannTPU ({algo}): fit {fit_s:.3f} s; batch_query of {N_QUERIES} "
+        f"{batch_s:.3f} s ({N_QUERIES / batch_s:.0f} QPS), id-recall "
+        f"{recall_by_ids(gt_i, ids, K):.4f} (the default dense mode, not gated); query(test[0]) "
+        f"equal to its batch row: {np.array_equal(one, batch[0])}; memory usage "
+        f"{algo.get_memory_usage()} kB")
+    if len(batch) != N_QUERIES or any(len(r) != K for r in batch):
+        fail("[bench] ClannTPU batch results are not K ids per query")
+    algo.done()
+    return launches + launches_t
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2575,6 +3053,7 @@ def main():
     if args.profile:
         for mode in ("scan-pallas", "scan-block", "dense"):
             profile_search(handle, test, mode)
+    sh_k1 = phase_sharded_scan(handle, train, test, gt_d, gt_i, label)
     del handle
     torch.cuda.empty_cache()
 
@@ -2589,6 +3068,7 @@ def main():
     launches_cont = phase_lsh_continuous(lsh, test, gt_d, gt_i, label)
     launches_lsh8 = phase_lsh_int8(lsh, test, gt_d, gt_i, label)
     o_pairs, o_sims = phase_join(lsh, label)
+    sh_lsh = phase_sharded_lsh(lsh, test, gt_d, gt_i, label)
     del lsh
     torch.cuda.empty_cache()
     walk = phase_walk_build(train, label)
@@ -2597,11 +3077,13 @@ def main():
         profile_lsh(walk, test, "walk (lsh -> lsh-clustered)", sessions=1, host_ops=False)
     launches_walk8 = phase_walk_int8(walk, test, gt_d, gt_i, label)
     launches_interop = phase_interop(walk, train, test, gt_d, gt_i, walk_source, label)
+    sh_walk = phase_sharded_walk(walk, test, gt_d, gt_i, walk_source, label)
     del walk
     torch.cuda.empty_cache()
-    launches_jac, jaccard_k7, (jac_data, jac_queries) = phase_jaccard(label)
+    launches_jac, jaccard_k7, (jac_data, jac_queries, jac_gt) = phase_jaccard(label)
     torch.cuda.empty_cache()
     launches_interop += phase_interop_jaccard(jac_data, jac_queries, label)
+    sh_jac = phase_sharded_jaccard(jac_data, jac_queries, jac_gt, label)
     del jac_data, jac_queries
     torch.cuda.empty_cache()
     upd, k1_upd, k7_upd, n_searched, build_bytes, (gd_upd, d_upd) = phase_update(
@@ -2611,15 +3093,22 @@ def main():
     torch.cuda.empty_cache()
     launches_pf = phase_puffinn(train, test, gt_d, o_pairs, o_sims, label)
     torch.cuda.empty_cache()
+    cli_k1 = phase_cli(label)
+    torch.cuda.empty_cache()
+    bench_k7 = phase_bench(train, test, gt_d, gt_i, label)
+    torch.cuda.empty_cache()
     counts = {"lsh": launches_lsh, "lsh-continuous": launches_cont, "lsh-int8": launches_lsh8,
               "walk": launches_walk, "walk-int8": launches_walk8, "interop": launches_interop,
               "jaccard": launches_jac,
-              "update": k7_upd, "puffinn": launches_pf}
+              "update": k7_upd, "puffinn": launches_pf, "sharded lsh": sh_lsh,
+              "sharded walk": sh_walk, "sharded jaccard": sh_jac, "bench": bench_k7}
     launches_k7 = sum(counts.values())
     log(f"[main] K7 launches: {launches_k7} = "
         + " + ".join(f"{k} {v}" for k, v in counts.items()))
-    log(f"[main] K1 launches: {launches_k1 + k1_upd} = main {launches_k1} + update {k1_upd}")
-    launches_k1 += k1_upd
+    k1_counts = {"main": launches_k1, "update": k1_upd, "sharded": sh_k1, "cli": cli_k1}
+    launches_k1 = sum(k1_counts.values())
+    log(f"[main] K1 launches: {launches_k1} = "
+        + " + ".join(f"{k} {v}" for k, v in k1_counts.items()))
     log(f"[main] peak device memory over the whole run, all paths "
         f"{max(PEAKS + [torch.cuda.max_memory_allocated()]) / 1e9:.3f} GB")
 

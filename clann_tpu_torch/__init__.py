@@ -1,7 +1,7 @@
 """clann_tpu_torch — the PyTorch / CUDA port of clann_tpu.
 
 A second package beside the JAX one (which stays the reference the port is
-tested against). It imports torch and never jax. Ported so far: the whole
+tested against). It imports torch and never jax. It holds the whole
 index build (GMM geometry, LSH hash tables, sketches, prefix directories,
 the global engine's tables, the clustered walk's slot records and the dense
 IVF layout) and every search mode of the JAX facade: "auto" (the default),
@@ -20,7 +20,11 @@ the capacity model (`plan_capacity`), the native h5 format
 (`serialize`, `init_from_file`, `io.h5`) and the Rust reference's index
 files (`io.interop`: export, and a faithful import whose per-cluster hash
 functions the walk hashes queries with; `io.refcodec`, a C++ codec built
-with g++ on first use). Their kernels are written by hand in CUDA for sm_90a
+with g++ on first use), the ann-benchmarks dataset files (`data.hdf5`),
+the benchmark harness and adapter (`bench.*`), the CLI (`python -m
+clann_tpu_torch`) and the sharded paths (`parallel.*`: a single-controller
+mesh of torch devices, several shards per device allowed). Every module of
+the JAX package has its counterpart here. Their kernels are written by hand in CUDA for sm_90a
 (csrc/), built with nvcc on first use: the dense scans K1-K3 share one
 Hopper main loop (TMA + wgmma, csrc/scan_hopper.cuh), and K4-K7 are row
 gathers (K7 is the record gather of the LSH engines, the Jaccard one

@@ -173,15 +173,15 @@ class Clann:
         """k most similar indexed pairs (collection.hpp:390-504; the
         upstream python wrapper's Index.closest_pairs) on the index's
         device. Returns numpy (pairs (k, 2) int32 with i < j, sims
-        descending). The table-sharded join (`mesh`) is not ported."""
+        descending). Pass a mesh (parallel/mesh.py) to split the join's
+        tables across its shards (parallel/join.py; the same pairs)."""
         from clann_tpu_torch.ops.join import closest_pairs
+        from clann_tpu_torch.parallel.join import sharded_closest_pairs
 
         index = self._require_built()
-        if mesh is not None:
-            raise NotImplementedError(
-                "closest_pairs over a mesh: the sharded join comes with "
-                "ROADMAP.md slice 15 (parallel/*)")
         delta = self.config.delta if delta is None else delta
+        if mesh is not None:
+            return sharded_closest_pairs(index, k, delta=delta, mesh=mesh)
         return closest_pairs(index, k, delta=delta)
 
     # -- incremental updates -------------------------------------------

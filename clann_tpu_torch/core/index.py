@@ -420,11 +420,14 @@ def build_index(
     n_clusters: Optional[int] = None,
     hash_block: int = 8192,
     device="cuda",
+    gmm_mesh=None,
 ) -> ClusteredIndex:
     """Build the clustered LSH index on `device` (reference:
     src/core/index.rs:177-289).
 
-    1. GMM clustering (ops/gmm.py) on the normalized data.
+    1. GMM clustering (ops/gmm.py) on the normalized data; with `gmm_mesh`
+       (parallel/mesh.Mesh) the points are split over its shards
+       (parallel/gmm.py, bit-identical to the single-device clustering).
     2. Cluster bookkeeping: radii, brute-force flags (index.rs:204-205).
     3. One hashing pass over all points for the L tables.
     4. One sketching pass.
@@ -450,9 +453,15 @@ def build_index(
     from clann_tpu_torch.metrics.trace import TRACER
 
     with TRACER.span("build/gmm", block_on=xn):
-        centers_idx, assignment, radii = greedy_minimum_maximum(
-            xn, n_clusters, metric, assume_normalized=True
-        )
+        if gmm_mesh is not None:
+            from clann_tpu_torch.parallel.gmm import sharded_gmm
+
+            centers_idx, assignment, radii = sharded_gmm(
+                xn, n_clusters, mesh=gmm_mesh, metric=metric, assume_normalized=True)
+        else:
+            centers_idx, assignment, radii = greedy_minimum_maximum(
+                xn, n_clusters, metric, assume_normalized=True
+            )
 
     g_hash, g_sketch = _generators(config.seed)
     family = make_hash_family(

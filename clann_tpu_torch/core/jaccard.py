@@ -248,17 +248,19 @@ def _pack_jaccard_records(sorted_idx: torch.Tensor, sketches: torch.Tensor,
     return rec
 
 
-def hash_tables(tokens: torch.Tensor, source, sketch_family, sketch_params, config: Config):
+def hash_tables(tokens: torch.Tensor, source, sketch_family, sketch_params, config: Config,
+                budget_bytes: int = 1 << 30):
     """(sorted_hash (L, n), sorted_idx (L, n), sketches (n, S, W)) of the
     sets under `source`'s table functions and the sketch family's
-    functions: one hashing pass in point blocks, one sketching pass, and a
-    stable sort of each table by hash (one segment)."""
+    functions: one hashing pass in point blocks (under `budget_bytes`), one
+    sketching pass, and a stable sort of each table by hash (one segment)."""
     n = tokens.shape[0]
     hashes = _map_point_blocks(source.hash, tokens,
-                               source.num_hashers * source.functions_per_hasher)  # (n, L)
+                               source.num_hashers * source.functions_per_hasher,
+                               budget_bytes)  # (n, L)
     n_fns = config.num_sketches * config.sketch_bits
     bits = _map_point_blocks(lambda tk: sketch_family.hash(sketch_params, tk), tokens,
-                             n_fns)  # (n, S*B) of {0, 1}
+                             n_fns, budget_bytes)  # (n, S*B) of {0, 1}
     sketches = pack_bits_u32(bits.reshape(n, config.num_sketches, config.sketch_bits))
     sorted_hash, sorted_idx = sort_tables_segmented(
         hashes.T.contiguous(), torch.zeros((n,), dtype=torch.int32, device=tokens.device))

@@ -11,21 +11,9 @@ clustered mixtures mimic the strongly clustered real embedding datasets
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Optional
-
 import numpy as np
 
-
-@dataclasses.dataclass
-class AnnDataset:
-    """An ann-benchmarks dataset triple (reference: src/utils/mod.rs:18-23)."""
-
-    train: np.ndarray  # (n, d) float32
-    test: np.ndarray  # (q, d) float32
-    distances: Optional[np.ndarray]  # (q, k_gt) float32 ground-truth distances
-    neighbors: Optional[np.ndarray]  # (q, k_gt) int32 ground-truth ids (extra)
-    name: str = ""
+from clann_tpu_torch.data.hdf5 import AnnDataset
 
 
 def random_unit_vectors(n: int, d: int, seed: int = 0) -> np.ndarray:

@@ -12,12 +12,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SLICE_MODULES = [
     "clann_tpu_torch",
+    "clann_tpu_torch.__main__",
     "clann_tpu_torch.api",
+    "clann_tpu_torch.bench",
+    "clann_tpu_torch.bench.ann_adapter",
+    "clann_tpu_torch.bench.harness",
     "clann_tpu_torch.config",
     "clann_tpu_torch.errors",
     "clann_tpu_torch.testing",
     "clann_tpu_torch.core.index",
     "clann_tpu_torch.core.jaccard",
+    "clann_tpu_torch.data.hdf5",
     "clann_tpu_torch.data.metricdata",
     "clann_tpu_torch.data.setdata",
     "clann_tpu_torch.data.synthetic",
@@ -48,6 +53,12 @@ SLICE_MODULES = [
     "clann_tpu_torch.ops.sources",
     "clann_tpu_torch.parallel",
     "clann_tpu_torch.parallel.capacity",
+    "clann_tpu_torch.parallel.distributed",
+    "clann_tpu_torch.parallel.gmm",
+    "clann_tpu_torch.parallel.jaccard",
+    "clann_tpu_torch.parallel.join",
+    "clann_tpu_torch.parallel.mesh",
+    "clann_tpu_torch.parallel.sharded",
     "clann_tpu_torch.probes",
     "clann_tpu_torch.probes.gather_rate",
     "clann_tpu_torch.puffinn",
@@ -75,6 +86,20 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "clean" in proc.stdout
+
+
+def test_every_jax_module_has_a_counterpart():
+    """The port does all the JAX package does: each module of clann_tpu has
+    a module of the same path in clann_tpu_torch (the Pallas kernels'
+    modules, ops/pallas/X, map to ops/X, beside their CUDA kernels)."""
+    def modules(pkg):
+        root = os.path.join(REPO, pkg)
+        return {os.path.relpath(os.path.join(d, f), root)
+                for d, _, files in os.walk(root) for f in files if f.endswith(".py")}
+
+    want = {m.replace("ops/pallas/", "ops/") for m in modules("clann_tpu")}
+    missing = sorted(want - modules("clann_tpu_torch"))
+    assert not missing, missing
 
 
 def test_exports_match_the_jax_package():

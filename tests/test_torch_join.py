@@ -238,8 +238,8 @@ def test_jaccard_bf_join_matches_jax(set_pair):
 
 
 def test_facade_closest_pairs(pair):
-    """Clann.closest_pairs is ops.join.closest_pairs at config.delta; a
-    mesh raises (the sharded join is not ported)."""
+    """Clann.closest_pairs is ops.join.closest_pairs at config.delta; over
+    a mesh it is parallel.join.sharded_closest_pairs, with the same pairs."""
     jidx, tidx = pair
     h = clann_tpu_torch.init_with_config(tidx.vectors.numpy(), tidx.config, device="cpu")
     h.index = tidx
@@ -247,8 +247,16 @@ def test_facade_closest_pairs(pair):
     p2, s2 = tjoin.closest_pairs(tidx, k=10, delta=tidx.config.delta)
     np.testing.assert_array_equal(p, p2)
     np.testing.assert_array_equal(s, s2)
-    with pytest.raises(NotImplementedError, match="slice 15"):
-        h.closest_pairs(k=10, mesh=object())
+    from clann_tpu_torch.parallel.join import sharded_closest_pairs
+    from clann_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(4, devices=["cpu"] * 4)
+    p3, s3 = h.closest_pairs(k=10, mesh=mesh)
+    p4, s4 = sharded_closest_pairs(tidx, 10, delta=tidx.config.delta, mesh=mesh)
+    np.testing.assert_array_equal(p3, p4)
+    np.testing.assert_array_equal(s3, s4)
+    np.testing.assert_array_equal(p3, p)
+    np.testing.assert_array_equal(s3, s)
     with pytest.raises(clann_tpu_torch.DataError):
         clann_tpu_torch.init_with_config(tidx.vectors.numpy(), tidx.config,
                                          device="cpu").closest_pairs(k=3)
