@@ -28,7 +28,11 @@ caught):
    K3: one cuBLAS bf16 torch.bmm of its live (query tile, block)
    products; K4-K7: one torch.index_select of the same rows):
    K1 (packed scan; 1,183,514 x 100 -> dpad 128, block_n 32768, 64 bins,
-   2,048 queries), K2 (unpacked scan; pallas_scan_topk's block_n 16384,
+   2,048 queries; then its options, JAX's group_r and acc_bf16, at
+   (group_r, acc_bf16) = (2, F), (8, F), (32, F), (1, T), (8, T) there, at
+   ragged shapes through both epilogue branches and dpad 64 to 384, and on
+   exact-integer operands with negative maxima, held identical; each
+   option timed beside group_r = 1), K2 (unpacked scan; pallas_scan_topk's block_n 16384,
    128 bins, 2,048 queries, and timed again at its own batch of 4,096;
    its ragged shapes include exact-integer operands with negative and
    +-0.0 scores and exact ties, held to identical rows and values), K3
@@ -44,7 +48,10 @@ caught):
    modes: "scan-block" at the auto budget (no gate), "scan-block" at every
    block and "scan-block-adaptive" (both gated). Each path is run with the
    launch counts set to 0 just before it and read just after, and fails if
-   its kernel was not launched.
+   its kernel was not launched. Right after scan-pallas, [scan-options]
+   drives K1's options end to end: fused_scan_topk_e2e as scan_search runs
+   it, with (group_r, acc_bf16) = (4, F) and (1, T), gated like
+   scan-pallas, their QPS beside scan-pallas's.
 5. gather: K4-K7 against their plain versions on the card, bit-exact at
    every inflight, at the gather-rate probe's shapes (131,072 rows: 4 KB
    pages, 8-row groups and 128-word slices of the (1,849,250, 128) word
@@ -258,6 +265,11 @@ KERNEL_QUERIES = 2_048  # one search batch (scan_search's batch_q)
 BLOCK_QUERIES = 4_096  # one block-scan batch (block_scan_search's batch_q)
 RECALL_GATE, ID_RECALL_GATE = 0.9, 0.8  # bench.py's gates
 SAME_WINNER_GATE = 0.99
+BF16_STEP = 2.0 ** -6  # one bf16 step in [2, 4): K1's value tolerance under acc_bf16
+# K1's options (group_r, acc_bf16) held to the plain version and timed at the
+# main path's operands, and the two driven end to end by [scan-options]
+K1_OPTIONS = ((2, False), (8, False), (32, False), (1, True), (8, True))
+SCAN_OPTIONS = ((4, False), (1, True))
 K2_VALUE_TOL = 1e-5  # f32 sums of exact bf16 products in another order
 # one H100 SXM's published dense peaks (NVIDIA's data sheet, at 700 W): the
 # least time a kernel's work could take is the larger of its operations over
@@ -443,22 +455,29 @@ def _norm(x):
     return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-30)
 
 
-def compare_kernel(base, qp, per_bin, biased, label):
+def compare_kernel(base, qp, per_bin, biased, label, group_r=1, acc_bf16=False, exact=False):
     """K1 vs its plain version on the same device tensors."""
     from clann_tpu_torch.ops import scan_topk as st
 
-    got = st.scan_candidates_packed(base, qp, per_bin=per_bin, biased=biased)
+    kw = dict(per_bin=per_bin, biased=biased, group_r=group_r, acc_bf16=acc_bf16)
+    got = st.scan_candidates_packed(base, qp, **kw)
     sync()
-    ref = st.packed_candidates_plain(base, qp, per_bin=per_bin, biased=biased)
+    ref = st.packed_candidates_plain(base, qp, **kw)
     sync()
-    return check_packed(got, ref, per_bin, label)
+    return check_packed(got, ref, per_bin, label, group_r=group_r, acc_bf16=acc_bf16,
+                        exact=exact)
 
 
-def check_packed(got, ref, per_bin, label, live_only=False):
+def check_packed(got, ref, per_bin, label, live_only=False, group_r=1, acc_bf16=False,
+                 exact=False):
     """Gates of a packed kernel (K1, K3) against its plain version. With
     `live_only`, the winners of live slots are compared (the plain
     version's value >= bitcast(1.0)); every other winner, of dead slots and
-    pad rows, must be bit-identical."""
+    pad rows, must be bit-identical. K1's options: the winners name groups
+    of `group_r` rows, and under `acc_bf16` a value may move by one bf16
+    step (f32 sums in another order can cross a rounding midpoint).
+    `exact`: operands whose scores every summation order gives exactly, so
+    every key must be identical."""
     import torch
 
     from clann_tpu_torch.ops.block_scan import _VALID_FLOOR
@@ -472,12 +491,19 @@ def check_packed(got, ref, per_bin, label, live_only=False):
             fail(f"{label}: kernel and plain version differ on dead slots or pad rows")
         got, ref = got[live], ref[live]
         label = f"{label} ({live.float().mean().item():.3f} of winners live)"
-    agree = packed_agreement(got, ref, per_bin)
-    tol = quant_step(per_bin) + 1e-5
+    agree = packed_agreement(got, ref, per_bin, group_r=group_r)
+    if exact:
+        log(f"[kernel-vs-plain] {label}: identical packed {agree['identical']:.6f} "
+            f"(tolerance: identical)")
+        if agree["identical"] < 1.0:
+            fail(f"{label}: kernel disagrees with its plain version: {agree}")
+        return agree
+    tol, rule = ((BF16_STEP, "one bf16 step 2^-6") if acc_bf16 else
+                 (quant_step(per_bin // group_r) + 1e-5, "pg*2^-22 + 1e-5"))
     log(f"[kernel-vs-plain] {label}: same winner {agree['same_winner']:.6f}, "
         f"identical packed {agree['identical']:.6f}, max |value diff| "
         f"{agree['max_abs_err']:.3e} (tolerance: same winner >= {SAME_WINNER_GATE}, "
-        f"|diff| <= pg*2^-22 + 1e-5 = {tol:.3e})")
+        f"|diff| <= {rule} = {tol:.3e})")
     if agree["same_winner"] < SAME_WINNER_GATE or agree["max_abs_err"] > tol:
         fail(f"{label}: kernel disagrees with its plain version: {agree}")
     return agree
@@ -521,7 +547,9 @@ def time_cuda(fn, reps):
 
 def phase_kernel(train, test, card):
     """K1 against its plain version at the main path's shapes and at small
-    ragged ones; then both timed at the main path's shapes."""
+    ragged ones, with group_r = 1 and then with each of its options; then
+    both timed at the main path's shapes, the options beside group_r = 1.
+    Returns K1's numbers, with the options' under "options"."""
     import torch
 
     from clann_tpu_torch.data.synthetic import random_unit_vectors
@@ -563,23 +591,102 @@ def phase_kernel(train, test, card):
         if int(ti.max()) >= rng_rows or not bool(torch.isfinite(tv[ti >= 0]).all()):
             fail("decoded candidates past n_real or non-finite")
 
+    opt_err = phase_kernel_options(base, qp, per_bin)
+
     # times at the main path's shapes, kernel and plain in turns
+    out = k1_time(base, qp, per_bin, card)
+    out["max_abs_err"] = bench["max_abs_err"]
+    out["options"] = []
+    for g, bf in K1_OPTIONS:
+        t = k1_time(base, qp, per_bin, card, group_r=g, acc_bf16=bf)
+        out["options"].append({"group_r": g, "acc_bf16": bf,
+                               "source": "clann_tpu_torch/csrc/scan_options.cuh",
+                               "max_abs_err": opt_err[(g, bf)], **t})
+    return out
+
+
+def phase_kernel_options(base, qp, per_bin):
+    """K1's options (JAX's group_r > 1 and acc_bf16) against the plain
+    version: at the main path's operands; at ragged shapes through both
+    epilogue branches (per_bin < 64, whole bins in a 64-row tile; per_bin >=
+    64, a bin across tiles, and groups of 64 rows or more across tiles
+    too), biased and not, dpad 64 to 384 (the resident loop's four
+    instances and the streamed one); and on exact-integer operands with
+    negative maxima (the warp vote's exact pass), held identical. Returns
+    {(group_r, acc_bf16): max |value diff|} at the main path's operands."""
+    import torch
+
+    from clann_tpu_torch.data.synthetic import random_unit_vectors
+    from clann_tpu_torch.ops import scan_topk as st
+    from clann_tpu_torch.ops.ivf import make_pallas_base
+
+    dev = torch.device(DEVICE)
+    err = {}
+    for g, bf in K1_OPTIONS:
+        err[(g, bf)] = compare_kernel(base, qp, per_bin, True,
+                                      f"main path group_r={g} acc_bf16={bf}",
+                                      group_r=g, acc_bf16=bf)["max_abs_err"]
+    rng_rows = 3001
+    for per_bin_s, g, biased, d, dpad in ((16, 2, False, 37, 64), (16, 2, True, 130, 256),
+                                          (16, 4, False, 130, 192), (16, 4, True, 37, 128),
+                                          (16, 1, False, 37, 128), (512, 8, False, 130, 256),
+                                          (512, 8, True, 37, 64), (512, 1, True, 130, 192),
+                                          (512, 32, False, 300, 384), (2048, 128, True, 37, 128),
+                                          (512, 512, False, 130, 192)):
+        v = _norm(torch.from_numpy(random_unit_vectors(rng_rows, d, seed=per_bin_s + g)).to(dev))
+        b = make_pallas_base(v, 4096)[:, :dpad].contiguous()
+        if not biased:
+            b[:rng_rows, d] = 0.0
+        q = st.pad_queries(_norm(torch.from_numpy(random_unit_vectors(77, d, seed=7)).to(dev)),
+                           b.shape[1], 32, biased=biased)
+        for bf in ((True,) if g == 1 else (False, True)):
+            compare_kernel(b, q, per_bin_s, biased,
+                           f"ragged n_real={rng_rows} n_pad={b.shape[0]} d={d} "
+                           f"dpad={b.shape[1]} q_pad={q.shape[0]} per_bin={per_bin_s} "
+                           f"biased={biased} group_r={g} acc_bf16={bf}", group_r=g, acc_bf16=bf)
+            tv, ti = st.fused_scan_candidates_packed(
+                b, q, n_real=rng_rows, num_bins=4096 // per_bin_s, block_n=4096,
+                q_tile=32, biased=biased, group_r=g, acc_bf16=bf)
+            if (int(ti.max()) >= rng_rows or bool((ti[ti >= 0] % g != 0).any())
+                    or not bool(torch.isfinite(tv[ti >= 0]).all())):
+                fail("K1 options: decoded candidates past n_real, not group starts or non-finite")
+    # scores exact in any summation order, a third of the queries with
+    # negative maxima over the first half of the rows (every shifted score
+    # of those bins below 0)
+    b, q = signed_tie_operands(4096, 37, 128, 77, seed=5)
+    for per_bin_s, g, bf in ((16, 2, False), (16, 4, False), (16, 8, True), (64, 32, False),
+                             (512, 8, False), (512, 16, True), (512, 128, False), (16, 1, True)):
+        compare_kernel(b, q, per_bin_s, False,
+                       f"negative / tied scores n_pad=4096 d=37 dpad=128 q_pad=77 "
+                       f"per_bin={per_bin_s} group_r={g} acc_bf16={bf}",
+                       group_r=g, acc_bf16=bf, exact=True)
+    return err
+
+
+def k1_time(base, qp, per_bin, card, group_r=1, acc_bf16=False):
+    """K1 and its plain version timed in turns at the main path's shapes,
+    beside its bound and the cuBLAS GEMM of the same product."""
+    from clann_tpu_torch.ops import scan_topk as st
+
+    kw = dict(per_bin=per_bin, biased=True, group_r=group_r, acc_bf16=acc_bf16)
     ms, plain_ms, t_kern, t_plain = time_pair(
-        lambda: st.scan_candidates_packed(base, qp, per_bin=per_bin, biased=True),
-        lambda: st.packed_candidates_plain(base, qp, per_bin=per_bin, biased=True))
+        lambda: st.scan_candidates_packed(base, qp, **kw),
+        lambda: st.packed_candidates_plain(base, qp, **kw))
     flop = 2.0 * base.shape[0] * base.shape[1] * qp.shape[0]
     out_bytes = 4.0 * (base.shape[0] // per_bin) * qp.shape[0]
     b_ms, b_by = bound(flop, 2.0 * (base.numel() + qp.numel()) + out_bytes)
     lib_ms = library_gemm_ms(base, qp)
-    log(f"[kernel-time] K1 at base {tuple(base.shape)} x queries {tuple(qp.shape)}: "
+    opts = "" if (group_r, acc_bf16) == (1, False) else (
+        f" group_r={group_r} acc_bf16={acc_bf16}")
+    log(f"[kernel-time] K1{opts} at base {tuple(base.shape)} x queries {tuple(qp.shape)}: "
         f"kernel {ms:.3f} ms ({t_kern[0]:.3f}, {t_kern[1]:.3f}; "
         f"{flop / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the {b_ms:.3f} ms bound by "
         f"{b_by}), plain {plain_ms:.3f} ms ({t_plain[0]:.3f}, {t_plain[1]:.3f}), library "
         f"{lib_ms:.3f} ms (cuBLAS bf16 torch.matmul, GEMM only: writes the "
         f"{2.0 * base.shape[0] * qp.shape[0] / 1e9:.2f} GB of scores the kernel never "
         f"writes) on {card}")
-    return {"max_abs_err": bench["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
 
 
 def library_gemm_ms(base, qp):
@@ -1020,6 +1127,63 @@ def phase_main_path(train, test, card):
     if rec_s < RECALL_GATE or rec_e < RECALL_GATE:
         fail("scan / exact recall below the gate")
     return handle, gt_d, gt_i, launches, build_spans
+
+
+def phase_scan_options(handle, test, gt_d, gt_i, card):
+    """[scan-options] K1's options end to end on the main path's index:
+    fused_scan_topk_e2e as scan_search runs it (the plan of
+    pallas_scan_plan, batches of 2,048, the biased base) with each
+    (group_r, acc_bf16) of SCAN_OPTIONS, gated like scan-pallas, their QPS
+    (median of 5, the results brought to the host as search_batch brings
+    them) beside scan-pallas's in the same phase. Returns {(group_r,
+    acc_bf16): K1 launches}."""
+    import numpy as np
+    import torch
+
+    from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
+    from clann_tpu_torch.ops import scan_topk as st
+    from clann_tpu_torch.ops.distances import as_device_f32
+    from clann_tpu_torch.ops.ivf import make_pallas_base, pallas_scan_plan
+
+    idx = handle.index
+    n = idx.vectors.shape[0]
+    block_n, num_bins, rescore_m, q_tile = pallas_scan_plan(n, K, d=DIMS)
+    base_p = make_pallas_base(idx.vectors, block_n)
+    qn = as_device_f32(test, idx.vectors.device)
+
+    def search(g, bf):
+        outs = [st.fused_scan_topk_e2e(
+            base_p, idx.vectors, qn[s : s + KERNEL_QUERIES], n_real=n, k=K,
+            rescore_m=rescore_m, num_bins=num_bins, block_n=block_n, q_tile=q_tile,
+            normalize=True, biased=True, group_r=g, acc_bf16=bf)
+            for s in range(0, qn.shape[0], KERNEL_QUERIES)]
+        sims = torch.cat([o[0] for o in outs]).cpu().numpy()
+        ids = torch.cat([o[1] for o in outs]).cpu().numpy().astype(np.int32)
+        return np.where(ids >= 0, np.clip(1.0 - sims, 0.0, 2.0), np.inf), ids
+
+    qps_p, _ = qps(lambda: handle.search_batch(test, mode="scan-pallas"))
+    launches = {}
+    for g, bf in SCAN_OPTIONS:
+        label = f"group_r={g} acc_bf16={bf}"
+        st.KERNEL_LAUNCHES = 0
+        d, i = search(g, bf)
+        sync()
+        launches[(g, bf)] = st.KERNEL_LAUNCHES
+        check_result(d, i, f"[scan-options] {label}")
+        rec, idr = recall_values(gt_d, d, K)[0], recall_by_ids(gt_i, i, K)
+        q, times = qps(lambda: search(g, bf))
+        log(f"[scan-options] fused_scan_topk_e2e {label} (block_n {block_n}, {num_bins} bins, "
+            f"rescore_m {rescore_m}: {rescore_m * g} rows rescored per query): recall@10 "
+            f"{rec:.4f} (gate {RECALL_GATE}), id-recall {idr:.4f} (gate {ID_RECALL_GATE}); "
+            f"K1 launches {launches[(g, bf)]}; {q:.0f} QPS (median of 5, s/call "
+            f"{', '.join(f'{x:.4f}' for x in times)}) beside scan-pallas {qps_p:.0f} on {card}")
+        if launches[(g, bf)] < 1:
+            fail(f"[scan-options] {label} did not launch the K1 kernel")
+        if rec < RECALL_GATE or idr < ID_RECALL_GATE:
+            fail(f"[scan-options] {label}: recall below the gate")
+    del base_p
+    torch.cuda.empty_cache()
+    return launches
 
 
 def profile_search(handle, test, mode):
@@ -3043,6 +3207,7 @@ def main():
     k2 = phase_k2(train, test, label)
     phase_k3_ragged()
     handle, gt_d, gt_i, launches_k1, build_spans = phase_main_path(train, test, label)
+    opt_k1 = phase_scan_options(handle, test, gt_d, gt_i, label)
     launches_k2 = phase_pallas_scan_topk(train, test, gt_d, gt_i, label)
     k3 = phase_k3_bench(handle.index, test, label)
     launches_k3 = phase_block_modes(handle, test, gt_d, gt_i, label)
@@ -3105,7 +3270,8 @@ def main():
     launches_k7 = sum(counts.values())
     log(f"[main] K7 launches: {launches_k7} = "
         + " + ".join(f"{k} {v}" for k, v in counts.items()))
-    k1_counts = {"main": launches_k1, "update": k1_upd, "sharded": sh_k1, "cli": cli_k1}
+    k1_counts = {"main": launches_k1, "scan-options": sum(opt_k1.values()), "update": k1_upd,
+                 "sharded": sh_k1, "cli": cli_k1}
     launches_k1 = sum(k1_counts.values())
     log(f"[main] K1 launches: {launches_k1} = "
         + " + ".join(f"{k} {v}" for k, v in k1_counts.items()))
@@ -3132,6 +3298,10 @@ def main():
     entries = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, **{k: m[k] for k in keys}}
                for name, source, replaces, launches, m in kernels]
+    # K1's options, each timed at the main path's operands, with its launches
+    # in [scan-options] (0 for the cases that phase does not run)
+    entries[0]["options"] = [{**o, "launches": opt_k1.get((o["group_r"], o["acc_bf16"]), 0)}
+                             for o in k1["options"]]
     # K7's numbers above are at the engine's 512 B records; the walk, which
     # makes many of its launches, gathers 192 B records
     entries[-1]["walk"] = walk_k7

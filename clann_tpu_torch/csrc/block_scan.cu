@@ -58,6 +58,7 @@ int clann_block_scan_packed(const void* base, const void* queries, const void* t
   L.tile_q = q_tile;
   L.dpad = dpad;
   L.per_bin = per_bin;
+  L.group_shift = 0;  // a key per row, no rounding: K1's options are not K3's
   L.min_item_rows = 2048;  // a query group reload per item: coarser items amortise it
   return clann::hopper::launch_scan<clann::hopper::PackedKey<true>>(L, device, stream);
 }

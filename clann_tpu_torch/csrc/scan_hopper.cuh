@@ -8,6 +8,11 @@
 // - PackedKey (K1, K3): one int32,
 //     key = (bitcast<int32>(score [+ 3.0 unless biased]) & ~(per_bin - 1))
 //           | row_in_bin,   winner = max key over the bin;
+//   K1's options (JAX's group_r and acc_bf16): the shifted score rounded
+//   to bf16 first (BF16), and the key made per group of group_r = 2^gs
+//   consecutive rows from the group's float max, with ~(pg - 1) and
+//   row_in_bin >> gs in place of ~(per_bin - 1) and row_in_bin (pg =
+//   per_bin / group_r);
 // - ArgmaxKey (K2): the exact f32 max of the score and the lowest row
 //   reaching it (-0.0 counted as +0.0), carried as two int32 registers:
 //   the order-preserving integer image of the float and the row.
@@ -115,6 +120,7 @@ struct Params {
   int n_qg;                   // query groups per tile
   int n_qbuf;                 // resident query buffers (1 or 2)
   int stages;
+  int group_shift;            // log2(group_r): PackedKey's groups (0: a key per row)
 };
 
 // (32-bit index arithmetic throughout: a 64-bit division is a call, and a
@@ -262,13 +268,18 @@ struct Smem {
   uint64_t* empty;
   uint64_t* qfull;   // [2]
   uint64_t* qempty;  // [2]
+  uint32_t* carry;   // [4][256] PackedKey's group carry (GROUPED only)
   int stage_bytes;
 };
 
-inline __host__ __device__ size_t smem_bytes(bool stream, int nk, int n_qbuf, int stages) {
+constexpr int CARRY_BYTES = 4 * CONSUMER_WARPS * 32 * 4;
+
+inline __host__ __device__ size_t smem_bytes(bool stream, int nk, int n_qbuf, int stages,
+                                             bool carry) {
   const size_t stage = stream ? BASE_STAGE + Q_SLICE : BASE_STAGE;
   const size_t qbytes = stream ? 0 : size_t(n_qbuf) * nk * Q_SLICE;
-  return 1024 + qbytes + stages * stage + (2 * stages + 4) * sizeof(uint64_t);
+  return 1024 + qbytes + stages * stage + (2 * stages + 4) * sizeof(uint64_t) +
+         (carry ? CARRY_BYTES : 0);
 }
 
 // Position of a consumer or the producer in the ring.
@@ -296,13 +307,80 @@ __device__ __forceinline__ int key_bits(uint32_t v) {
   return BIASED ? static_cast<int>(v) : __float_as_int(__uint_as_float(v) + 3.0f);
 }
 
+// The keys k0, k1 of two scores' accumulators a0, a1 with the low fields
+// g0, g1: (bitcast<int32>(score [+ 3.0 unless biased]) & keep) | g. BF16
+// rounds the shifted scores to bf16 (to nearest even, as torch and XLA
+// round) first: one conversion rounds and packs both, and a byte permute
+// puts each above its field (the low 16 bits a bf16 leaves hold any field
+// below pg <= 2^14, so the mask changes nothing).
+template <bool BIASED, bool BF16>
+__device__ __forceinline__ void key_pair(uint32_t a0, uint32_t a1, int g0, int g1, int keep,
+                                         int& k0, int& k1) {
+  if constexpr (BF16) {
+    float x0 = __uint_as_float(a0), x1 = __uint_as_float(a1);
+    if (!BIASED) {
+      x0 += 3.0f;
+      x1 += 3.0f;
+    }
+    uint32_t b;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(b) : "f"(x1), "f"(x0));
+    k0 = static_cast<int>(__byte_perm(b, static_cast<uint32_t>(g0), 0x1054));
+    k1 = static_cast<int>(__byte_perm(b, static_cast<uint32_t>(g1), 0x3254));
+  } else {
+    k0 = (key_bits<BIASED>(a0) & keep) | g0;
+    k1 = (key_bits<BIASED>(a1) & keep) | g1;
+  }
+}
+
+__device__ __forceinline__ uint32_t fmax_bits(uint32_t a, uint32_t b) {
+  return __float_as_uint(fmaxf(__uint_as_float(a), __uint_as_float(b)));
+}
+
+// The float max of the 2J values of slot (h, s) at j = j0 .. j0 + J - 1
+// (rows 8j + 2 quad and + 1 of the tile), as a tree. Each value is read as
+// acc | zero: a pass given a zero the compiler cannot see through
+// recomputes its maxima rather than keeping an earlier pass's alive.
+template <int J>
+__device__ __forceinline__ uint32_t chunk_max(const Acc& acc, int h, int s, int j0,
+                                              uint32_t zero = 0) {
+  uint32_t m[2 * J];
+#pragma unroll
+  for (int i = 0; i < 2 * J; ++i) m[i] = acc[h][4 * (j0 + i / 2) + 2 * s + i % 2] | zero;
+#pragma unroll
+  for (int w = 1; w < 2 * J; w *= 2)
+#pragma unroll
+    for (int i = 0; i < 2 * J; i += 2 * w) m[i] = fmax_bits(m[i], m[i + w]);
+  return m[0];
+}
+
+// The max of m over the lanes of a quad that hold one group of 2^gs rows:
+// rows 8j + 2 quad (+ 1) lie in lane quad, so a group of 4 spans the lanes
+// 2i and 2i + 1, and a group of 8 or more all four.
+__device__ __forceinline__ uint32_t group_lanes_max(uint32_t m, int gs) {
+  if (gs >= 2) m = fmax_bits(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  if (gs >= 3) m = fmax_bits(m, __shfl_xor_sync(0xffffffffu, m, 2));
+  return m;
+}
+
 // Epilogue of K1 and K3: the row rides in the low bits of one int32 key,
-// so every reduction is a max.
-template <bool BIASED>
+// so every reduction is a max. BF16 rounds the shifted scores to bf16
+// before they are packed (K1's acc_bf16). GROUPED (K1's group_r =
+// 2^group_shift > 1): the key of a group is (bits(float max of its rows)
+// & ~(pg - 1)) | (row_in_bin >> gs), made once per group, since the shift,
+// the rounding and the bitcast keep the order of positive values (fold,
+// group_keys).
+template <bool BIASED, bool BF16 = false, bool GROUPED = false>
 struct PackedKey {
   static constexpr bool kRow = false;
+  static constexpr bool kGrouped = GROUPED;
   __device__ static __forceinline__ Win make(uint32_t acc, int sub, int keep) {
-    return {(key_bits<BIASED>(acc) & keep) | sub, 0};
+    if constexpr (BF16) {
+      int k, unused;
+      key_pair<BIASED, BF16>(acc, acc, sub, sub, keep, k, unused);
+      return {k, 0};
+    } else {
+      return {(key_bits<BIASED>(acc) & keep) | sub, 0};
+    }
   }
   // the winners of one tile's columns (rows sub + 8j + e) in each slot (h, s)
   __device__ static __forceinline__ void tile(const Acc& acc, int sub, int keep,
@@ -313,9 +391,17 @@ struct PackedKey {
       for (int s = 0; s < 2; ++s) {
         int k = INT_MIN;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < 8; ++j) {
+          if constexpr (BF16) {
+            int k0, k1;
+            key_pair<BIASED, BF16>(acc[h][4 * j + 2 * s], acc[h][4 * j + 2 * s + 1], sub + 8 * j,
+                                   sub + 8 * j + 1, keep, k0, k1);
+            k = max(k, max(k0, k1));
+          } else {
 #pragma unroll
-          for (int e = 0; e < 2; ++e) k = max(k, make(acc[h][4 * j + 2 * s + e], sub + 8 * j + e, keep).v);
+            for (int e = 0; e < 2; ++e) k = max(k, make(acc[h][4 * j + 2 * s + e], sub + 8 * j + e, keep).v);
+          }
+        }
         tw[h][s] = {k, 0};
       }
   }
@@ -323,12 +409,138 @@ struct PackedKey {
   __device__ static __forceinline__ void scan(Win& w, Win x) { w.v = max(w.v, x.v); }
   __device__ static __forceinline__ void merge(Win& w, Win x) { w.v = max(w.v, x.v); }
   // what zero scores give (an item that scans nothing)
-  __device__ static __forceinline__ Win zero(int per_bin) {
-    return {(key_bits<BIASED>(0u) & ~(per_bin - 1)) | (per_bin - 1), 0};
+  __device__ static __forceinline__ Win zero(const Params& p) {
+    const int pg = GROUPED ? p.per_bin >> p.group_shift : p.per_bin;
+    return {make(0u, pg - 1, ~(pg - 1)).v, 0};
   }
   __device__ static __forceinline__ void put(const Params& p, const Item& it, int bin, int q,
                                              Win w) {
     p.out[(static_cast<long long>(it.tile) * p.tile_bins + bin) * p.tile_q + q] = w.v;
+  }
+
+  // ---- groups (GROUPED). Per slot (h, s) a thread holds the rows first +
+  // 8j (+ 1), j = 0 .. 7, of a 64-row tile. A group of G = 2^gs <= 32 rows
+  // takes J = max(1, G / 8) of those j, the thread's chunk of it: k[c] is
+  // the key of chunk c (j = Jc .. Jc + J - 1). A group of 4 or more rows
+  // spans lanes, and its chunks' keys, made lane by lane, still have the
+  // group's key as their max while its max is not negative (int32 keys
+  // order like the floats for a positive sign): that is the fast pass
+  // (EXACT false). A warp that holds a negative key redoes the tile taking
+  // each group's max over its lanes first (EXACT), from the accumulators
+  // again (keeping the fast pass's maxima across the vote would spill;
+  // gs >> 5 is 0, as launch_scan takes gs <= 30).
+  template <int J, bool EXACT>
+  __device__ static __forceinline__ void chunk_keys(const Acc& acc, int h, int s, int first,
+                                                    int mask, int gs, int keep,
+                                                    int (&k)[8 / J]) {
+#pragma unroll
+    for (int c = 0; c < 8 / J; c += 2) {
+      const uint32_t z = EXACT ? static_cast<uint32_t>(gs) >> 5 : 0u;
+      uint32_t m0 = chunk_max<J>(acc, h, s, J * c, z);
+      uint32_t m1 = chunk_max<J>(acc, h, s, J * (c + 1), z);
+      if (EXACT) {
+        m0 = group_lanes_max(m0, gs);
+        m1 = group_lanes_max(m1, gs);
+      }
+      key_pair<BIASED, BF16>(m0, m1, ((first + 8 * J * c) & mask) >> gs,
+                             ((first + 8 * J * (c + 1)) & mask) >> gs, keep, k[c], k[c + 1]);
+    }
+  }
+  // per_bin >= 64, G <= 32: the max key of each slot's chunks, into run
+  template <int J>
+  __device__ static __forceinline__ void fold_chunks(const Acc& acc, int first, int mask, int gs,
+                                                     int keep, Win (&run)[2][2]) {
+    int w[2][2], neg = 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        int k[8 / J];
+        chunk_keys<J, false>(acc, h, s, first, mask, gs, keep, k);
+        w[h][s] = k[0];
+#pragma unroll
+        for (int c = 1; c < 8 / J; ++c) w[h][s] = max(w[h][s], k[c]);
+        neg |= w[h][s];
+      }
+    // (gs == 1: a pair lies in one thread, so the fast pass is exact)
+    if (gs >= 2 && __any_sync(0xffffffffu, neg < 0)) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          int k[8 / J];
+          chunk_keys<J, true>(acc, h, s, first, mask, gs, keep, k);
+          w[h][s] = k[0];
+#pragma unroll
+          for (int c = 1; c < 8 / J; ++c) w[h][s] = max(w[h][s], k[c]);
+        }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int s = 0; s < 2; ++s) run[h][s].v = max(run[h][s].v, w[h][s]);
+  }
+  // per_bin >= 64: merges one tile (rows in_bin .. in_bin + 63 of the bin)
+  // into the bin's winners. A group of 64 rows or more covers whole tiles:
+  // its key is made at its last tile from the max over the quad, and a
+  // group longer than a tile carries the float max of the thread's rows
+  // from tile to tile in shared memory (`carry`, slot-major: one word per
+  // slot and consumer thread), where it costs the other paths no register.
+  __device__ static __forceinline__ void fold(const Acc& acc, const Params& p, int in_bin,
+                                              int quad, int keep, Win (&run)[2][2],
+                                              uint32_t* carry) {
+    const int gs = p.group_shift;
+    const int first = in_bin + 2 * quad, mask = p.per_bin - 1;
+    if (gs <= 3) {
+      fold_chunks<1>(acc, first, mask, gs, keep, run);
+    } else if (gs == 4) {
+      fold_chunks<2>(acc, first, mask, gs, keep, run);
+    } else if (gs == 5) {
+      fold_chunks<4>(acc, first, mask, gs, keep, run);
+    } else {
+      const int g = (1 << gs) - 1;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          uint32_t m = chunk_max<8>(acc, h, s, 0);
+          uint32_t* c = carry + (2 * h + s) * (CONSUMER_WARPS * 32);
+          if (in_bin & g) m = fmax_bits(*c, m);
+          if ((in_bin + ROWS) & g) {
+            *c = m;  // the group goes on in the next tile
+          } else {
+            m = group_lanes_max(m, gs);
+            int k, unused;
+            key_pair<BIASED, BF16>(m, m, in_bin >> gs, 0, keep, k, unused);
+            run[h][s].v = max(run[h][s].v, k);
+          }
+        }
+    }
+  }
+  // per_bin < 64 (G <= per_bin): k8[j], the key of the group holding the
+  // thread's rows 8j + 2 quad (+ 1) of slot (h, s)
+  template <int J>
+  __device__ static __forceinline__ void group_keys(const Acc& acc, int h, int s, int quad,
+                                                    int mask, int gs, int keep, int (&k8)[8]) {
+    int k[8 / J];
+    chunk_keys<J, false>(acc, h, s, 2 * quad, mask, gs, keep, k);
+    int neg = 0;
+#pragma unroll
+    for (int c = 0; c < 8 / J; ++c) neg |= k[c];
+    if (gs >= 2 && __any_sync(0xffffffffu, neg < 0))
+      chunk_keys<J, true>(acc, h, s, 2 * quad, mask, gs, keep, k);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) k8[j] = k[j / J];
+  }
+  __device__ static __forceinline__ void small_bin_keys(const Acc& acc, const Params& p, int h,
+                                                        int s, int quad, int keep, int (&k8)[8]) {
+    const int gs = p.group_shift, mask = p.per_bin - 1;
+    if (gs <= 3)
+      group_keys<1>(acc, h, s, quad, mask, gs, keep, k8);
+    else if (gs == 4)
+      group_keys<2>(acc, h, s, quad, mask, gs, keep, k8);
+    else
+      group_keys<4>(acc, h, s, quad, mask, gs, keep, k8);
   }
 };
 
@@ -337,6 +549,7 @@ struct PackedKey {
 // m = bits & 0x7FFFFFFF, image = m for a positive sign, -m for a negative.
 struct ArgmaxKey {
   static constexpr bool kRow = true;
+  static constexpr bool kGrouped = false;
   __device__ static __forceinline__ int image(uint32_t acc) {
     const int b = static_cast<int>(acc);
     const int s = b >> 31;
@@ -384,7 +597,7 @@ struct ArgmaxKey {
   __device__ static __forceinline__ void merge(Win& w, Win x) {
     if (x.v > w.v || (x.v == w.v && x.r < w.r)) w = x;
   }
-  __device__ static __forceinline__ Win zero(int) { return {0, 0}; }
+  __device__ static __forceinline__ Win zero(const Params&) { return {0, 0}; }
   // query-major (tile_q, tile_bins) values (f32 bits) and global rows (one
   // tile at block 0)
   __device__ static __forceinline__ void put(const Params& p, const Item& it, int bin, int q,
@@ -410,7 +623,7 @@ __device__ __forceinline__ void put(const Params& p, const Item& it, int bin, in
 // The winners of an item that scans nothing: every score is 0.
 template <class E>
 __device__ void write_dead(const Params& p, const Item& it, int wg) {
-  const Win w = E::zero(p.per_bin);
+  const Win w = E::zero(p);
   const int bin0 = it.row0 >> p.bin_shift;
   const int nb = (it.rows + p.per_bin - 1) >> p.bin_shift;
   for (int i = threadIdx.x % 128; i < nb * 128; i += 128)
@@ -424,12 +637,12 @@ __device__ void write_dead(const Params& p, const Item& it, int wg) {
 // bin across tiles when per_bin >= 64.
 template <class E>
 __device__ __forceinline__ void epilogue(const Acc& acc, const Params& p, const Item& it,
-                                         int t, int wg, Win (&run)[2][2]) {
+                                         int t, int wg, Win (&run)[2][2], uint32_t* carry) {
   const int lane = threadIdx.x & 31;
   const int w = (threadIdx.x >> 5) & 3;
   const int quad = lane & 3;
   const int per_bin = p.per_bin;
-  const int keep = ~(per_bin - 1);
+  const int keep = E::kGrouped ? ~((per_bin >> p.group_shift) - 1) : ~(per_bin - 1);  // ~(pg - 1)
   const int r0 = it.row0 + t * ROWS;
   const int q0 = wg * 128 + w * 16 + (lane >> 2);  // query of (h = 0, s = 0)
   if (per_bin >= ROWS) {
@@ -440,12 +653,16 @@ __device__ __forceinline__ void epilogue(const Acc& acc, const Params& p, const 
 #pragma unroll
         for (int s = 0; s < 2; ++s) run[h][s] = {INT_MIN, 0};
     }
-    Win tw[2][2];
-    E::tile(acc, in_bin + 2 * quad, keep, tw);
+    if constexpr (E::kGrouped) {
+      E::fold(acc, p, in_bin, quad, keep, run, carry);
+    } else {
+      Win tw[2][2];
+      E::tile(acc, in_bin + 2 * quad, keep, tw);
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int s = 0; s < 2; ++s) E::scan(run[h][s], tw[h][s]);
+        for (int s = 0; s < 2; ++s) E::scan(run[h][s], tw[h][s]);
+    }
     if (in_bin + ROWS == per_bin) {  // the bin ends in this tile
       // Reduce over the quad; lane quad then writes the winner of slot
       // (hk, sk). The packed key reduces each slot on its own (four short
@@ -481,25 +698,32 @@ __device__ __forceinline__ void epilogue(const Acc& acc, const Params& p, const 
     }
     return;
   }
-  // per_bin < 64: whole bins inside the tile
+  // per_bin < 64: whole bins inside the tile (with groups, G <= per_bin)
   const int bin0 = r0 >> p.bin_shift;
 #pragma unroll
   for (int h = 0; h < 2; ++h)
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       const int q = q0 + 64 * h + 8 * s;
+      [[maybe_unused]] int gk[8];
+      if constexpr (E::kGrouped) E::small_bin_keys(acc, p, h, s, quad, keep, gk);
       Win acc_run = {INT_MIN, 0};
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = 8 * j + 2 * quad;  // column of e = 0
-        Win k = E::make(acc[h][4 * j + 2 * s], c & (per_bin - 1), keep);
-        const Win k1 = E::make(acc[h][4 * j + 2 * s + 1], (c + 1) & (per_bin - 1), keep);
-        if (per_bin == 1) {
-          put<E>(p, it, bin0 + c, q, k);
-          put<E>(p, it, bin0 + c + 1, q, k1);
-          continue;
+        Win k;
+        if constexpr (E::kGrouped) {
+          k = {gk[j], 0};  // rows c and c + 1 lie in one group
+        } else {
+          k = E::make(acc[h][4 * j + 2 * s], c & (per_bin - 1), keep);
+          const Win k1 = E::make(acc[h][4 * j + 2 * s + 1], (c + 1) & (per_bin - 1), keep);
+          if (per_bin == 1) {
+            put<E>(p, it, bin0 + c, q, k);
+            put<E>(p, it, bin0 + c + 1, q, k1);
+            continue;
+          }
+          E::scan(k, k1);
         }
-        E::scan(k, k1);
         if (per_bin == 2) {
           put<E>(p, it, bin0 + c / 2, q, k);
           continue;
@@ -631,7 +855,8 @@ __device__ __forceinline__ void bind_query_frag(QFrag<NK>& af, const Params& p, 
 // runs. False when there was no next tile.
 template <class E, int NK>
 __device__ __forceinline__ bool step(Acc& cur, Acc& nxt, QFrag<NK>& af, const Params& p,
-                                     const Smem& sm, Walk& wk, int wg, Win (&run)[2][2]) {
+                                     const Smem& sm, Walk& wk, int wg, Win (&run)[2][2],
+                                     uint32_t* carry) {
   const Item cit = wk.it;
   const int ct = wk.t;
   const int cqb = wk.qb;
@@ -655,7 +880,7 @@ __device__ __forceinline__ bool step(Acc& cur, Acc& nxt, QFrag<NK>& af, const Pa
     fence_acc(cur);
     release(p, sm, wk, NK);
   }
-  epilogue<E>(cur, p, cit, ct, wg, run);
+  epilogue<E>(cur, p, cit, ct, wg, run, carry);
   return more;
 }
 
@@ -676,6 +901,7 @@ hopper_scan_kernel(const __grid_constant__ CUtensorMap tm_base,
   sm.empty = sm.full + p.stages;
   sm.qfull = sm.empty + p.stages;
   sm.qempty = sm.qfull + 2;
+  sm.carry = reinterpret_cast<uint32_t*>(sm.qempty + 2);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < p.stages; ++s) {
@@ -731,6 +957,7 @@ hopper_scan_kernel(const __grid_constant__ CUtensorMap tm_base,
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     Walk wk;
     wk.i = static_cast<int>(blockIdx.x) - static_cast<int>(gridDim.x);
+    uint32_t* carry = sm.carry + threadIdx.x;  // this thread's word of slot 0
     Win run[2][2] = {};
     Acc acc0, acc1;
     if constexpr (!STREAM) {
@@ -738,8 +965,8 @@ hopper_scan_kernel(const __grid_constant__ CUtensorMap tm_base,
       if (!next_tile<E>(p, wk, wg)) return;
       bind_query_frag<NK>(af, p, sm, wk, wg);
       mma_tile<NK>(acc0, af, p, sm, wk, wg);
-      while (step<E, NK>(acc0, acc1, af, p, sm, wk, wg, run) &&
-             step<E, NK>(acc1, acc0, af, p, sm, wk, wg, run)) {
+      while (step<E, NK>(acc0, acc1, af, p, sm, wk, wg, run, carry) &&
+             step<E, NK>(acc1, acc0, af, p, sm, wk, wg, run, carry)) {
       }
     } else {
       // queries arrive with each slice: one tile at a time, each slice
@@ -759,7 +986,7 @@ hopper_scan_kernel(const __grid_constant__ CUtensorMap tm_base,
         wgmma_wait<0>();
         fence_acc(acc0);
         release(p, sm, wk, 1);
-        epilogue<E>(acc0, p, wk.it, wk.t, wg, run);
+        epilogue<E>(acc0, p, wk.it, wk.t, wg, run, carry);
       }
     }
   }
@@ -817,8 +1044,30 @@ struct Launch {
   int tile_q;
   int dpad;
   int per_bin;
+  int group_shift;          // log2(group_r), PackedKey<.., GROUPED> only; else 0
   int min_item_rows;        // rows per work item at least (whole bins)
 };
+
+// One tile over the whole base (K1 and K2).
+inline Launch whole_base_launch(const void* base, const void* queries, void* out, long long n_pad,
+                                int q_pad, int dpad, int per_bin) {
+  Launch L;
+  L.base = base;
+  L.queries = queries;
+  L.tile_block = nullptr;
+  L.tile_live = nullptr;
+  L.out = static_cast<int32_t*>(out);
+  L.vals = nullptr;
+  L.n_pad = n_pad;
+  L.tile_rows = n_pad;
+  L.n_tiles = 1;
+  L.tile_q = q_pad;
+  L.dpad = dpad;
+  L.per_bin = per_bin;
+  L.group_shift = 0;
+  L.min_item_rows = 512;  // the grid keeps its query groups: fine items balance best
+  return L;
+}
 
 template <class E, bool STREAM, int NK>
 int launch_kernel(const CUtensorMap& tm_base, const CUtensorMap& tm_q, const Params& p, int grid,
@@ -837,7 +1086,12 @@ int launch_kernel(const CUtensorMap& tm_base, const CUtensorMap& tm_q, const Par
 template <class E>
 int launch_scan(const Launch& L, int device, void* stream) {
   const int P = L.per_bin;
-  if (L.dpad <= 0 || L.dpad % KS != 0 || P < 1 || P > MAX_PER_BIN || (P & (P - 1)) != 0 ||
+  const int gs = L.group_shift;
+  // groups of 2^gs rows (K1's group_r) divide the bin, and pg = P >> gs
+  // rows' worth of low bits carry the group: at most MAX_PER_BIN
+  if (gs < 0 || gs > 30 || E::kGrouped != (gs > 0) || P < (1 << gs))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (L.dpad <= 0 || L.dpad % KS != 0 || P < 1 || (P >> gs) > MAX_PER_BIN || (P & (P - 1)) != 0 ||
       L.n_pad < 0 || L.tile_rows <= 0 || L.tile_q < 0 || L.n_tiles < 0 || L.tile_rows % P != 0 ||
       L.min_item_rows < ROWS || L.min_item_rows % ROWS != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -873,6 +1127,7 @@ int launch_scan(const Launch& L, int device, void* stream) {
   p.per_bin = P;
   p.bin_shift = 0;
   while ((1 << p.bin_shift) < P) ++p.bin_shift;
+  p.group_shift = gs;
   p.item_rows = static_cast<int>(item_rows);
   p.row_chunks = static_cast<int>(row_chunks);
   p.n_qg = static_cast<int>(n_qg);
@@ -881,7 +1136,7 @@ int launch_scan(const Launch& L, int device, void* stream) {
   const bool stream_q = p.nk > RESIDENT_MAX_NK;
   p.n_qbuf = p.nk <= 2 ? 2 : 1;
   p.stages = stream_q ? STREAM_STAGES : RESIDENT_STAGES;
-  const size_t smem = smem_bytes(stream_q, p.nk, p.n_qbuf, p.stages);
+  const size_t smem = smem_bytes(stream_q, p.nk, p.n_qbuf, p.stages, E::kGrouped);
 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -25,7 +25,10 @@
 //
 // Both run on the Hopper main loop of scan_hopper.cuh (persistent,
 // warp-specialised, TMA + wgmma), shared with K3; they differ in its
-// epilogue policy only (PackedKey, ArgmaxKey).
+// epilogue policy only (PackedKey, ArgmaxKey). K1's options, JAX's
+// group_r > 1 (keys made per group of group_r rows, ids the groups'
+// starts) and acc_bf16 (scores rounded to bf16 before they are packed),
+// are PackedKey's GROUPED and BF16 instances (scan_options.cuh).
 //
 // What bounds them on the card: at the glove-100 bench shape (n_pad =
 // 1,212,416 rows, dpad = 128, 2,048 queries per launch) the product is
@@ -38,41 +41,30 @@
 
 #include "scan_hopper.cuh"
 
-namespace {
-
-// One tile over the whole base: K1 and K2.
-clann::hopper::Launch scan_launch(const void* base, const void* queries, void* out,
-                                  long long n_pad, int q_pad, int dpad, int per_bin) {
-  clann::hopper::Launch L;
-  L.base = base;
-  L.queries = queries;
-  L.tile_block = nullptr;
-  L.tile_live = nullptr;
-  L.out = static_cast<int32_t*>(out);
-  L.vals = nullptr;
-  L.n_pad = n_pad;
-  L.tile_rows = n_pad;
-  L.n_tiles = 1;
-  L.tile_q = q_pad;
-  L.dpad = dpad;
-  L.per_bin = per_bin;
-  L.min_item_rows = 512;  // the grid keeps its query groups: fine items balance best
-  return L;
-}
-
-}  // namespace
-
 extern "C" {
+
+// K1's options (scan_options_biased.cu, scan_options_unbiased.cu)
+int clann_scan_options_biased(const void* base, const void* queries, void* out, long long n_pad,
+                              int q_pad, int dpad, int per_bin, int group_shift, int acc_bf16,
+                              int device, void* stream);
+int clann_scan_options_unbiased(const void* base, const void* queries, void* out, long long n_pad,
+                                int q_pad, int dpad, int per_bin, int group_shift, int acc_bf16,
+                                int device, void* stream);
 
 // Launches K1 on `stream` of CUDA device `device`. base: (n_pad, dpad) bf16,
 // queries: (q_pad, dpad) bf16, out: (n_pad / per_bin, q_pad) int32, all
-// contiguous, 16-byte aligned and on `device`. Returns a cudaError_t code
-// (0 = launched).
+// contiguous, 16-byte aligned and on `device`. group_shift: log2(group_r),
+// with per_bin >> group_shift <= 16384; acc_bf16: round the scores to bf16
+// before packing. Returns a cudaError_t code (0 = launched).
 int clann_scan_topk_packed(const void* base, const void* queries, void* out, long long n_pad,
-                           int q_pad, int dpad, int per_bin, int biased, int device,
-                           void* stream) {
-  const clann::hopper::Launch L = scan_launch(base, queries, out, n_pad, q_pad, dpad, per_bin);
+                           int q_pad, int dpad, int per_bin, int biased, int group_shift,
+                           int acc_bf16, int device, void* stream) {
   if (n_pad == 0) return 0;
+  if (group_shift != 0 || acc_bf16)
+    return (biased ? clann_scan_options_biased : clann_scan_options_unbiased)(
+        base, queries, out, n_pad, q_pad, dpad, per_bin, group_shift, acc_bf16, device, stream);
+  const clann::hopper::Launch L =
+      clann::hopper::whole_base_launch(base, queries, out, n_pad, q_pad, dpad, per_bin);
   return biased ? clann::hopper::launch_scan<clann::hopper::PackedKey<true>>(L, device, stream)
                 : clann::hopper::launch_scan<clann::hopper::PackedKey<false>>(L, device, stream);
 }
@@ -85,7 +77,8 @@ int clann_scan_candidates(const void* base, const void* queries, void* vals, voi
                           long long n_pad, int q_pad, int dpad, int per_bin, int device,
                           void* stream) {
   if (n_pad > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);  // ids are int32 rows
-  clann::hopper::Launch L = scan_launch(base, queries, ids, n_pad, q_pad, dpad, per_bin);
+  clann::hopper::Launch L =
+      clann::hopper::whole_base_launch(base, queries, ids, n_pad, q_pad, dpad, per_bin);
   L.vals = static_cast<int32_t*>(vals);
   if (n_pad == 0) return 0;
   return clann::hopper::launch_scan<clann::hopper::ArgmaxKey>(L, device, stream);

@@ -112,7 +112,8 @@ def load_library() -> ctypes.CDLL:
         return _LIB
     lib = ctypes.CDLL(str(build()))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.clann_scan_topk_packed.argtypes = [vp, vp, vp, i64, i32, i32, i32, i32, i32, vp]
+    lib.clann_scan_topk_packed.argtypes = [
+        vp, vp, vp, i64, i32, i32, i32, i32, i32, i32, i32, vp]
     lib.clann_scan_topk_packed.restype = i32
     lib.clann_scan_candidates.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32, vp]
     lib.clann_scan_candidates.restype = i32

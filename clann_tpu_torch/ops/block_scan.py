@@ -30,7 +30,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from clann_tpu_torch.ops.distances import _normalize_queries, as_device_f32, rescore
+from clann_tpu_torch.ops.distances import (
+    _normalize_queries, as_device_f32, rescore, resolve_device)
 from clann_tpu_torch.ops.scan_topk import (
     _INVALID,
     _check_cuda_operands,
@@ -92,10 +93,11 @@ def build_block_layout(vectors, assignment, block_n: int, num_reps: int = 64,
     from each block's real rows) rank the blocks. The rows of each block are
     then shuffled, so that a query's neighbours spread over the kernel's
     bins; the reps are drawn first, while the real rows still form each
-    block's prefix. `device` defaults to the device of `vectors`.
+    block's prefix. `device` defaults to the device of `vectors`, or the
+    card for numpy input (no fallback: a CPU caller passes device="cpu").
     """
     if device is None:
-        device = vectors.device if isinstance(vectors, torch.Tensor) else "cpu"
+        device = vectors.device if isinstance(vectors, torch.Tensor) else resolve_device("cuda")
     x = as_device_f32(vectors, device)
     dev = x.device
     n, d = x.shape

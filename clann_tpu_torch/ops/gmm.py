@@ -18,7 +18,8 @@ from __future__ import annotations
 
 import torch
 
-from clann_tpu_torch.ops.distances import as_device_f32, exact_dot, l2_normalize
+from clann_tpu_torch.ops.distances import (
+    as_device_f32, exact_dot, l2_normalize, resolve_device)
 
 
 def _row(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -34,11 +35,12 @@ def greedy_minimum_maximum(data, k: int, metric: str = "angular",
     assignment: (n,) int64 indices into centers
     radii: (k,) float32 max distance of an assigned point to its center
     All three are tensors on `device` (default: the data's device, or the
-    CPU for numpy input). `assume_normalized`: the caller guarantees unit
-    rows (angular) and the normalize pass is skipped.
+    card for numpy input, with no fallback: a CPU caller passes
+    device="cpu"). `assume_normalized`: the caller guarantees unit rows
+    (angular) and the normalize pass is skipped.
     """
     if device is None:
-        device = data.device if isinstance(data, torch.Tensor) else "cpu"
+        device = data.device if isinstance(data, torch.Tensor) else resolve_device("cuda")
     x = as_device_f32(data, device)
     n = x.shape[0]
     if n <= k:

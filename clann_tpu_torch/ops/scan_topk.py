@@ -121,9 +121,10 @@ def scan_candidates_packed(
 
     CUDA tensors launch the hand-written kernel on the current stream (and
     raise on anything it does not take); CPU tensors run
-    packed_candidates_plain. `group_r > 1` and `acc_bf16` are options of the
-    plain version only. Rows are limited by the kernel's int32 TMA
-    coordinates (below 2**31 - 64 base rows, 2**31 - 256 query rows).
+    packed_candidates_plain. The kernel takes both options: `group_r`
+    (a power of two dividing per_bin, per_bin / group_r <= 16384) and
+    `acc_bf16`. Rows are limited by the kernel's int32 TMA coordinates
+    (below 2**31 - 64 base rows, 2**31 - 256 query rows).
     """
     global KERNEL_LAUNCHES
 
@@ -135,8 +136,6 @@ def scan_candidates_packed(
             group_r=group_r, acc_bf16=acc_bf16,
         )
     _check_cuda_operands(base_bf16, queries_bf16)
-    if group_r != 1 or acc_bf16:
-        raise ValueError("the CUDA kernel takes group_r=1 and acc_bf16=False only")
     n_pad, dpad = base_bf16.shape
     q_pad = queries_bf16.shape[0]
 
@@ -150,8 +149,8 @@ def scan_candidates_packed(
     dev = base_bf16.device
     code = lib.clann_scan_topk_packed(
         base_bf16.data_ptr(), queries_bf16.data_ptr(), out.data_ptr(),
-        n_pad, q_pad, dpad, per_bin, int(biased), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
+        n_pad, q_pad, dpad, per_bin, int(biased), group_r.bit_length() - 1,
+        int(acc_bf16), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, code, "clann_scan_topk_packed launch")
     KERNEL_LAUNCHES += 1

@@ -8,7 +8,8 @@ numpy / torch only. Two rules recur:
   one (within `tie_eps`).
 - packed kernel winners are compared by the row they name and by the
   decoded value, which may differ by one quantization step (pg * 2^-22 in
-  [2, 4)) where two f32 sums taken in another order straddle a step.
+  [2, 4); 2^-6 there when the scores are rounded to bf16) where two f32
+  sums taken in another order straddle a step.
 """
 
 from __future__ import annotations
@@ -94,27 +95,31 @@ def assert_topk_match(ids_a, sims_a, ids_b, sims_b, *, atol: float = 1e-5,
     assert not bad, f"id sets differ beyond ties in rows {bad[:10]}"
 
 
-def decode_winners(packed, per_bin: int):
-    """(row in bin, decoded value) of K1 packed winners (numpy)."""
+def decode_winners(packed, per_bin: int, group_r: int = 1):
+    """(row in bin, decoded value) of K1 packed winners (numpy), as the JAX
+    decode reads them: the low log2(pg) bits (pg = per_bin / group_r) hold
+    the winning group, whose first row is returned."""
+    pg = per_bin // group_r
     p = np.asarray(packed, dtype=np.int32)
-    sub = p & (per_bin - 1)
-    val = (p & ~(per_bin - 1)).view(np.float32).astype(np.float64) - 3.0
+    sub = (p & (pg - 1)) * group_r
+    val = (p & ~(pg - 1)).view(np.float32).astype(np.float64) - 3.0
     return sub, val
 
 
 def packed_agreement(packed_a, packed_b, per_bin: int,
-                     n_bins_real: int = None) -> Dict[str, float]:
+                     n_bins_real: int = None, group_r: int = 1) -> Dict[str, float]:
     """Agreement of two (n_bins_total, q_pad) K1 outputs over the first
     `n_bins_real` bins: the fraction of (bin, query) winners naming the same
-    row, and the largest decoded value difference."""
+    row (group, with `group_r`), and the largest decoded value
+    difference."""
     if isinstance(packed_a, torch.Tensor):
         packed_a = packed_a.cpu().numpy()
     if isinstance(packed_b, torch.Tensor):
         packed_b = packed_b.cpu().numpy()
     if n_bins_real is not None:
         packed_a, packed_b = packed_a[:n_bins_real], packed_b[:n_bins_real]
-    sa, va = decode_winners(packed_a, per_bin)
-    sb, vb = decode_winners(packed_b, per_bin)
+    sa, va = decode_winners(packed_a, per_bin, group_r)
+    sb, vb = decode_winners(packed_b, per_bin, group_r)
     return {
         "same_winner": float(np.mean(sa == sb)),
         "identical": float(np.mean(packed_a == packed_b)),

@@ -39,7 +39,8 @@ def _unit(n, d, seed):
 def _tgmm(x, k, metric="angular", assume_normalized=False):
     """The port's GMM with the JAX function's numpy return contract."""
     c, a, r = tgmm.greedy_minimum_maximum(x, k, metric,
-                                          assume_normalized=assume_normalized)
+                                          assume_normalized=assume_normalized,
+                                          device="cpu")
     return c.numpy().astype(np.int32), a.numpy().astype(np.int32), r.numpy()
 
 

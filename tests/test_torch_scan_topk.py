@@ -94,16 +94,25 @@ def test_candidates_plain_vs_jax(block_n, num_bins, biased):
     _assert_candidates_match(jv, ji, tv, ti, quant_step(block_n // num_bins) + 1e-6)
 
 
-@pytest.mark.parametrize("group_r,acc_bf16", [(2, False), (4, False),
-                                              (1, True), (4, True)])
-def test_candidates_group_and_bf16_plain_vs_jax(group_r, acc_bf16):
-    _, _, bp, qp, n_real = _operands(n=1024, seed=9)
+@pytest.mark.parametrize("group_r,acc_bf16,block_n,num_bins,biased", [
+    (2, False, 512, 32, False), (4, False, 512, 32, False),
+    (1, True, 512, 32, False), (4, True, 512, 32, False),
+    # per_bin 512: a bin spans the kernel's 64-row tiles (its other
+    # epilogue branch); groups of 8 lie inside a tile, of 32 too
+    (8, False, 1024, 2, False), (8, False, 1024, 2, True),
+    (8, True, 1024, 2, False), (8, True, 1024, 2, True),
+    (32, False, 1024, 2, False), (32, False, 1024, 2, True),
+    (32, True, 1024, 2, False), (32, True, 1024, 2, True),
+])
+def test_candidates_group_and_bf16_plain_vs_jax(group_r, acc_bf16, block_n, num_bins,
+                                                biased):
+    _, _, bp, qp, n_real = _operands(n=1024, seed=9, biased=biased)
     jv, ji, tv, ti = _both_candidates(
-        bp, qp, n_real=n_real, num_bins=32, block_n=512, q_tile=32,
-        group_r=group_r, acc_bf16=acc_bf16,
+        bp, qp, n_real=n_real, num_bins=num_bins, block_n=block_n, q_tile=32,
+        group_r=group_r, acc_bf16=acc_bf16, biased=biased,
     )
     assert (ti % group_r == 0).all()
-    pg = 16 // group_r
+    pg = block_n // num_bins // group_r
     # with acc_bf16 the scores round to bf16 (a step of 2^-7 in [2, 4))
     # before packing, so one step of THAT is the summation-order bound
     _assert_candidates_match(jv, ji, tv, ti,
@@ -123,7 +132,7 @@ def test_decode_masks_rows_beyond_n_real():
 
 @pytest.mark.parametrize("group_r,acc_bf16,biased", [
     (1, False, False), (1, False, True), (2, False, True), (4, True, False),
-    (1, True, True),
+    (1, True, True), (8, True, False),
 ])
 def test_e2e_vs_jax(group_r, acc_bf16, biased):
     base, qs, _, _, _ = _operands(n=1500, q=48, seed=11)
@@ -146,6 +155,58 @@ def test_e2e_vs_jax(group_r, acc_bf16, biased):
     )
     assert ti.dtype == torch.int64 and ts.dtype == torch.float32
     assert_topk_match(np.asarray(ji), np.asarray(js), ti.numpy(), ts.numpy())
+
+
+def _jax_packed(bp, qp, *, per_bin, group_r, acc_bf16, biased, q_tile=32):
+    """The JAX kernel's raw (n_pad / per_bin, q_pad) packed winners (one
+    block over the whole base), by the pallas_call of
+    fused_scan_candidates_packed in interpret mode."""
+    import functools
+
+    import jax
+    from jax.experimental import pallas as pl
+
+    n_pad, dpad = bp.shape
+    nb = n_pad // per_bin
+    kernel = functools.partial(jst._scan_kernel_packed, nb=nb, block_n=n_pad,
+                               biased=biased, group_r=group_r, acc_bf16=acc_bf16)
+    return np.asarray(pl.pallas_call(
+        kernel, grid=(qp.shape[0] // q_tile, 1),
+        in_specs=[pl.BlockSpec((q_tile, dpad), lambda i, j: (i, 0)),
+                  pl.BlockSpec((n_pad, dpad), lambda i, j: (j, 0))],
+        out_specs=pl.BlockSpec((nb, q_tile), lambda i, j: (j, i)),
+        out_shape=jax.ShapeDtypeStruct((nb, qp.shape[0]), jnp.int32),
+        interpret=True,
+    )(jnp.asarray(qp, jnp.bfloat16), jnp.asarray(bp, jnp.bfloat16)))
+
+
+@pytest.mark.parametrize("per_bin,group_r,acc_bf16,biased", [
+    (16, 4, False, False), (16, 2, True, True), (512, 8, True, True),
+    (512, 32, False, False),
+])
+def test_decode_winners_reads_jax_groups(per_bin, group_r, acc_bf16, biased):
+    """decode_winners / packed_agreement with group_r read JAX's packed
+    winners as JAX's own decode does (group starts and floored values), and
+    hold the plain version's winners to them."""
+    _, _, bp, qp, n_real = _operands(n=1024, seed=5, biased=biased)
+    kw = dict(group_r=group_r, acc_bf16=acc_bf16, biased=biased)
+    packed = _jax_packed(bp, qp, per_bin=per_bin, **kw)
+    # JAX's decode at one block with every bin kept: bin order, no top-k
+    jv, ji = jst.fused_scan_candidates_packed(
+        jnp.asarray(bp, jnp.bfloat16), jnp.asarray(qp, jnp.bfloat16), n_real=n_real,
+        num_bins=1024 // per_bin, block_n=1024, q_tile=32, interpret=True, **kw)
+    sub, val = decode_winners(packed, per_bin, group_r)
+    rows = np.arange(packed.shape[0])[:, None] * per_bin + sub
+    np.testing.assert_array_equal(rows, np.asarray(ji).T)
+    np.testing.assert_array_equal(val, np.asarray(jv).T.astype(np.float64))
+    assert (sub % group_r == 0).all() and sub.max() < per_bin
+    assert packed_agreement(packed, packed, per_bin, group_r=group_r)["identical"] == 1.0
+    plain = tst.packed_candidates_plain(
+        torch.from_numpy(bp).to(torch.bfloat16), torch.from_numpy(qp).to(torch.bfloat16),
+        per_bin=per_bin, **kw)
+    agree = packed_agreement(packed, plain, per_bin, group_r=group_r)
+    step = 2.0 ** -7 if acc_bf16 else quant_step(per_bin // group_r)
+    assert agree["same_winner"] >= 0.99 and agree["max_abs_err"] <= step + 1e-6, agree
 
 
 def test_plain_version_blocks_agree():
@@ -396,18 +457,35 @@ def test_k2_wrapper_rejects_bad_input(case):
 
 
 @pytest.mark.parametrize("entry", ["pallas_scan_topk", "dense_scan_topk",
-                                   "brute_force_topk"])
+                                   "brute_force_topk", "greedy_minimum_maximum",
+                                   "build_block_layout"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
-    """With no CUDA device the default device raises (no CPU fallback);
-    device="cpu" runs."""
+    """With no CUDA device the default device raises for numpy input (no
+    CPU fallback); device="cpu" runs."""
+    from clann_tpu_torch.ops import block_scan as tbs
     from clann_tpu_torch.ops import distances as tdist
+    from clann_tpu_torch.ops import gmm as tgmm
 
-    fn = {"pallas_scan_topk": tst.pallas_scan_topk,
-          "dense_scan_topk": tdist.dense_scan_topk,
-          "brute_force_topk": tdist.brute_force_topk}[entry]
     base = random_unit_vectors(600, 16, seed=8)
+    assign = np.arange(600) % 7
+
+    def nearest(**kw):  # each query's first id
+        fn = {"pallas_scan_topk": tst.pallas_scan_topk,
+              "dense_scan_topk": tdist.dense_scan_topk,
+              "brute_force_topk": tdist.brute_force_topk}[entry]
+        return np.asarray(fn(base, base[:4], k=5, **kw)[1])[:, 0].tolist()
+
+    run = {"greedy_minimum_maximum":
+           lambda **kw: tgmm.greedy_minimum_maximum(base, 5, **kw)[0][:1].tolist(),
+           # the first block's ids (its rows are shuffled within the block)
+           "build_block_layout":
+           lambda **kw: sorted(tbs.build_block_layout(base, assign, 128, **kw)
+                               .gids[:128].tolist())
+           }.get(entry, nearest)
+    want = {"greedy_minimum_maximum": [0],
+            "build_block_layout": sorted(np.argsort(assign, kind="stable")[:128].tolist())
+            }.get(entry, [0, 1, 2, 3])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        fn(base, base[:4], k=5)
-    _, ids = fn(base, base[:4], k=5, device="cpu")
-    assert np.asarray(ids)[:, 0].tolist() == [0, 1, 2, 3]
+        run()
+    assert run(device="cpu") == want
