@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # the whole run, on cuda:0
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns
+    python3 chip_smoke.py --cards 4  # and the sharded paths on four cards
 
 Phases, each printing a line; any failure exits non-zero (nothing is
 caught):
@@ -239,6 +240,23 @@ bodies run one after another), the CLI and the benchmark harness:
    (10 sampled queries, 3 repetitions: a cut of the reference's 15,
    printed); the ann-benchmarks adapter ClannTPU: fit, batch_query of the
    10,000 queries and one query.
+
+With --cards 4 (it fails unless four cards are visible) the run adds the
+[cards] phases of clann_tpu_torch.probes.multicard: after phase 3, K1, K3
+and K7 launched on cuda:1-3 from a thread whose current device is 0, each
+held to its plain version on that card with its card-0 gates, the current
+device still 0 after each launch, and Clann(device="cuda") building on
+cuda:0 after them; the default meshes spanning the four cards, and
+owner_row / all_gather over them equal to one card's and timed beside
+it; after each sharded phase, the same paths with the
+shards on cuda:0-3 (make_mesh(4), one controller) held to the one-card
+4-shard mesh (ids per query up to ties, dc and launches equal, every shard
+tensor on its card, K1 / K7 launched on every card); at the end the
+package's dryrun(4) and dryrun_large(4) over the cards, one process per
+card over NCCL (build_sharded, the global engine on 2,048 queries and the
+fused scan on 10,000, rank 0 equal to the single controller) and a
+20,000,000 x 100 index at the lsh configuration (past one card's memory)
+built across the four and searched, gated against one card's brute force.
 
 It prints the kernels as one JSON line (launches on the main paths, error
 against the plain version, ms, plain_ms, bound_ms / bound_by, library_ms),
@@ -866,7 +884,7 @@ def compare_k3(layout, tile_block, qg, tile_live, q_tile, per_bin, label):
     return check_packed(got, ref, per_bin, label, live_only=True)
 
 
-def phase_k3_ragged():
+def phase_k3_ragged(device=DEVICE):
     """K3 against its plain version on small layouts: pad rows in the last
     block, dead slots, tiles past the last live slot, block ids out of
     range, per_bin 1, 16, 512 and 2048, dpad 128 and 256."""
@@ -876,7 +894,7 @@ def phase_k3_ragged():
     from clann_tpu_torch.data.synthetic import random_unit_vectors
     from clann_tpu_torch.ops import block_scan as bs
 
-    dev = torch.device(DEVICE)
+    dev = torch.device(device)
     rng = np.random.default_rng(0)
     for per_bin, block_n, d, B, q_tile in ((1, 128, 37, 3, 32), (16, 1024, 130, 2, 64),
                                            (512, 4096, 37, 1, 32), (2048, 4096, 37, 1, 128)):
@@ -889,10 +907,58 @@ def phase_k3_ragged():
         tile_block = torch.cat([tile_block, tile_block.new_tensor([-1, lay.n_blocks + 3])])
         tile_live = torch.cat([tile_live, tile_live.new_tensor([q_tile, q_tile])])
         qg = torch.cat([qg, qg[:q_tile], qg[:q_tile]])
-        compare_k3(lay, tile_block, qg, tile_live, q_tile, per_bin,
-                   f"K3 ragged n_real=3001 n_pad={lay.base_bf16.shape[0]} d={d} "
-                   f"dpad={lay.base_bf16.shape[1]} block_n={block_n} per_bin={per_bin} "
-                   f"B={B} q_tile={q_tile} T={tile_block.shape[0]}")
+        label = (f"K3 ragged n_real=3001 n_pad={lay.base_bf16.shape[0]} d={d} "
+                 f"dpad={lay.base_bf16.shape[1]} block_n={block_n} per_bin={per_bin} "
+                 f"B={B} q_tile={q_tile} T={tile_block.shape[0]}"
+                 + ("" if device == DEVICE else f" on {dev}"))
+        compare_k3(lay, tile_block, qg, tile_live, q_tile, per_bin, label)
+
+
+def phase_cards_hygiene(train, test, card, n_cards):
+    """[cards] K1 (the main path's operands), K3 (the ragged layouts) and
+    K7 (the engine's record table) launched on cuda:1 .. n_cards-1 from a
+    thread whose current device is cuda:0, each held to its plain version
+    on that card with its card-0 gates; the current device must still be
+    cuda:0 after each kernel's launches (all on one card, so a launch that
+    switched cards would leave it there); then Clann(device="cuda") must
+    build on cuda:0."""
+    import torch
+
+    from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.ops import scan_topk as st
+    from clann_tpu_torch.ops.ivf import make_pallas_base, pallas_scan_plan
+    from clann_tpu_torch.probes import gather_rate as gr
+    from clann_tpu_torch.probes import multicard as mc
+
+    block_n, num_bins, _, q_tile = pallas_scan_plan(N_TRAIN, K, d=DIMS)
+    per_bin = block_n // num_bins
+    nb = gr.TAKE_SLOTS // gr.ENGINE_G
+    for c in range(1, n_cards):
+        dev = torch.device("cuda", c)
+        mc.still_on_card_0("the launches before")
+        base = make_pallas_base(_norm(torch.from_numpy(train).to(dev)), block_n)
+        qp = st.pad_queries(_norm(torch.from_numpy(test[:KERNEL_QUERIES]).to(dev)),
+                            base.shape[1], q_tile, biased=True)
+        compare_kernel(base, qp, per_bin, True, f"K1 main path on {dev}")
+        mc.still_on_card_0(f"K1 on {dev}")
+        del base, qp
+        phase_k3_ragged(dev)
+        mc.still_on_card_0(f"K3 on {dev}")
+        gen = torch.Generator(device=dev).manual_seed(c)
+        rec = gr.random_words((gr.ENGINE_L * nb, gr.ENGINE_G * gr.R), gen, dev)
+        idx = torch.randint(0, rec.shape[0], (gr.ROWS + 37,), dtype=torch.int32,
+                            generator=gen, device=dev)
+        idx[:4] = torch.tensor([0, rec.shape[0] - 1, -1, rec.shape[0]], dtype=torch.int32,
+                               device=dev)
+        check_every(f"K7 gather_rows at {idx.shape[0]} rows of the engine records "
+                    f"{tuple(rec.shape)} on {dev}",
+                    lambda f: tg.gather_rows(rec, idx, inflight=f), tg.rows_plain(rec, idx))
+        mc.still_on_card_0(f"K7 on {dev}")
+        log(f"[cards] K1, K3 and K7 on {dev} from cuda:0: equal to their plain versions "
+            f"within their card-0 gates; current device cuda:{torch.cuda.current_device()} "
+            f"after every launch")
+        del rec, idx
+    mc.clann_lands_on_card_0(train, card)
 
 
 def phase_k3_bench(index, test, card):
@@ -3187,11 +3253,27 @@ def main():
                     help="add torch.profiler breakdowns of one scan-pallas call, one "
                          "scan-block call, one dense call and one 256-query batch of "
                          "the lsh engine and of the walk")
+    ap.add_argument("--cards", type=int, choices=(1, 4), default=1,
+                    help="4: add the [cards] phases, the sharded paths on cuda:0-3 (needs "
+                         "four visible cards)")
     args = ap.parse_args()
 
     import_port()
     card, smi = phase_device()
     import torch
+
+    n_cards = args.cards
+    if n_cards > 1:
+        from clann_tpu_torch.probes import multicard as mc
+
+        if torch.cuda.device_count() < n_cards:
+            fail(f"--cards {n_cards}: {torch.cuda.device_count()} CUDA device(s) visible")
+
+        def cards_phase(fn, *a, **kw):
+            """A [cards] phase; it resets every card's peak, so card 0's
+            peak so far is kept first."""
+            PEAKS.append(torch.cuda.max_memory_allocated(0))
+            return fn(*a, **kw)
 
     phase_build()
 
@@ -3206,6 +3288,9 @@ def main():
     k1 = phase_kernel(train, test, label)
     k2 = phase_k2(train, test, label)
     phase_k3_ragged()
+    if n_cards > 1:
+        phase_cards_hygiene(train, test, label, n_cards)
+        mc.collectives(label, n_cards)
     handle, gt_d, gt_i, launches_k1, build_spans = phase_main_path(train, test, label)
     opt_k1 = phase_scan_options(handle, test, gt_d, gt_i, label)
     launches_k2 = phase_pallas_scan_topk(train, test, gt_d, gt_i, label)
@@ -3219,6 +3304,9 @@ def main():
         for mode in ("scan-pallas", "scan-block", "dense"):
             profile_search(handle, test, mode)
     sh_k1 = phase_sharded_scan(handle, train, test, gt_d, gt_i, label)
+    cards_k1 = cards_k7 = 0
+    if n_cards > 1:
+        cards_k1 += cards_phase(mc.glove_scan, handle, train, test, gt_d, gt_i, label, n_cards)
     del handle
     torch.cuda.empty_cache()
 
@@ -3234,6 +3322,9 @@ def main():
     launches_lsh8 = phase_lsh_int8(lsh, test, gt_d, gt_i, label)
     o_pairs, o_sims = phase_join(lsh, label)
     sh_lsh = phase_sharded_lsh(lsh, test, gt_d, gt_i, label)
+    if n_cards > 1:
+        k7, cards_ref = cards_phase(mc.glove_lsh, lsh, train, test, gt_d, gt_i, label, n_cards)
+        cards_k7 += k7
     del lsh
     torch.cuda.empty_cache()
     walk = phase_walk_build(train, label)
@@ -3243,12 +3334,20 @@ def main():
     launches_walk8 = phase_walk_int8(walk, test, gt_d, gt_i, label)
     launches_interop = phase_interop(walk, train, test, gt_d, gt_i, walk_source, label)
     sh_walk = phase_sharded_walk(walk, test, gt_d, gt_i, walk_source, label)
+    if n_cards > 1:
+        cards_k7 += cards_phase(mc.glove_walk, walk, test, gt_d, gt_i, walk_source["batch_s"],
+                                label, n_cards)
     del walk
     torch.cuda.empty_cache()
     launches_jac, jaccard_k7, (jac_data, jac_queries, jac_gt) = phase_jaccard(label)
     torch.cuda.empty_cache()
     launches_interop += phase_interop_jaccard(jac_data, jac_queries, label)
     sh_jac = phase_sharded_jaccard(jac_data, jac_queries, jac_gt, label)
+    if n_cards > 1:
+        cards_k7 += cards_phase(
+            mc.glove_jaccard, jac_data, jac_queries, jac_gt, jaccard_config(),
+            lambda ids: jaccard_threshold_recall(jac_data, jac_queries, jac_gt, ids), label,
+            n_cards)
     del jac_data, jac_queries
     torch.cuda.empty_cache()
     upd, k1_upd, k7_upd, n_searched, build_bytes, (gd_upd, d_upd) = phase_update(
@@ -3262,16 +3361,28 @@ def main():
     torch.cuda.empty_cache()
     bench_k7 = phase_bench(train, test, gt_d, gt_i, label)
     torch.cuda.empty_cache()
+    if n_cards > 1:
+        cards_phase(mc.dryruns, n_cards)
+        cards_phase(mc.nccl_ranks, lsh_config(), cards_ref, label,
+                    os.path.join(HERE, "build", "multicard"), world=n_cards, timeout_s=300)
+        del train, test
+        past = cards_phase(mc.past_one_card, lsh_config(), label, n_cards=n_cards)
+        cards_k1 += past["k1"]
+        cards_k7 += past["k7"]
     counts = {"lsh": launches_lsh, "lsh-continuous": launches_cont, "lsh-int8": launches_lsh8,
               "walk": launches_walk, "walk-int8": launches_walk8, "interop": launches_interop,
               "jaccard": launches_jac,
               "update": k7_upd, "puffinn": launches_pf, "sharded lsh": sh_lsh,
               "sharded walk": sh_walk, "sharded jaccard": sh_jac, "bench": bench_k7}
+    if n_cards > 1:
+        counts["cards"] = cards_k7
     launches_k7 = sum(counts.values())
     log(f"[main] K7 launches: {launches_k7} = "
         + " + ".join(f"{k} {v}" for k, v in counts.items()))
     k1_counts = {"main": launches_k1, "scan-options": sum(opt_k1.values()), "update": k1_upd,
                  "sharded": sh_k1, "cli": cli_k1}
+    if n_cards > 1:
+        k1_counts["cards"] = cards_k1
     launches_k1 = sum(k1_counts.values())
     log(f"[main] K1 launches: {launches_k1} = "
         + " + ".join(f"{k} {v}" for k, v in k1_counts.items()))

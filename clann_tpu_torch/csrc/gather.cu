@@ -88,6 +88,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_scope.cuh"
 #include "sm90_async.cuh"
 
 namespace clann {
@@ -312,8 +313,8 @@ int launch_bulk(const void* src, long long n_src, long long row_bytes, const voi
   if (reinterpret_cast<uintptr_t>(src) % 16 != 0 || reinterpret_cast<uintptr_t>(dst) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
   if (n_rows == 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceScope scope(device);  // the caller's device again on every return
+  if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
   BulkArgs a;
   a.src = static_cast<const uint8_t*>(src);
   a.dst = static_cast<uint8_t*>(dst);
@@ -387,8 +388,8 @@ int clann_gather_warp(const void* src, long long n_src, const void* idx, long lo
                 reinterpret_cast<uintptr_t>(dst) % 16 != 0))
     return static_cast<int>(cudaErrorMisalignedAddress);
   if (n_rows == 0) return 0;
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const clann::DeviceScope scope(device);  // the caller's device again on every return
+  if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
   clann::WarpArgs a;
   a.src = src;
   a.dst = dst;

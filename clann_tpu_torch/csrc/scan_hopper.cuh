@@ -81,6 +81,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "device_scope.cuh"
 #include "sm90_async.cuh"
 
 namespace clann {
@@ -1138,10 +1139,10 @@ int launch_scan(const Launch& L, int device, void* stream) {
   p.stages = stream_q ? STREAM_STAGES : RESIDENT_STAGES;
   const size_t smem = smem_bytes(stream_q, p.nk, p.n_qbuf, p.stages, E::kGrouped);
 
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceScope scope(device);  // the caller's device again on every return
+  if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
   int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   // a multiple of the query groups per tile, so a CTA keeps its group
   long long grid = p.n_qg <= sms ? (sms / p.n_qg) * p.n_qg : sms;

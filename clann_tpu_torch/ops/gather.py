@@ -29,6 +29,7 @@ width or a base address is not a multiple of 16 bytes.
 
 from __future__ import annotations
 
+import collections
 import functools
 import math
 from typing import NamedTuple
@@ -44,6 +45,7 @@ PAGES_LAUNCHES = 0  # K4
 GROUP8_LAUNCHES = 0  # K5
 FLAT1D_LAUNCHES = 0  # K6
 ROWS_LAUNCHES = 0  # K7
+ROWS_DEVICE_LAUNCHES: collections.Counter = collections.Counter()  # K7's, by card index
 
 INFLIGHT_CHOICES = (1, 2, 4, 8, 16, 32)
 BULK_INFLIGHT = 32  # K4's and K5's default: rows in flight per CTA (the fastest on an H100)
@@ -58,6 +60,7 @@ WARP_CTAS_PER_SM = 8  # K6 / K7 grid: CTAs per SM at most; a warp loops over the
 def reset_launches() -> None:
     global PAGES_LAUNCHES, GROUP8_LAUNCHES, FLAT1D_LAUNCHES, ROWS_LAUNCHES
     PAGES_LAUNCHES = GROUP8_LAUNCHES = FLAT1D_LAUNCHES = ROWS_LAUNCHES = 0
+    ROWS_DEVICE_LAUNCHES.clear()
 
 
 def _words(t: torch.Tensor, name: str) -> torch.Tensor:
@@ -331,4 +334,5 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor, *,
     if idx.numel():
         _warp_gather(t, T, W, idx, out, inflight, "K7 gather_rows launch")
         ROWS_LAUNCHES += 1
+        ROWS_DEVICE_LAUNCHES[t.device.index] += 1
     return out.view(table.dtype)

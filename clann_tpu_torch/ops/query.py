@@ -595,7 +595,7 @@ def search(index, queries, k: int = None, delta: float = None, batch_size: int =
                 loop_stats=loop_stats,
             )
             if TRACER.enabled and out[0].is_cuda:
-                torch.cuda.synchronize()
+                torch.cuda.synchronize(out[0].device)
         return out
 
     sims, ids, stats = batched_query_driver(qn, batch_size, run_block)

@@ -29,6 +29,8 @@ that the port selects the same candidates as the JAX package.
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 
@@ -46,6 +48,8 @@ from clann_tpu_torch.ops.distances import (
 # kernel.
 KERNEL_LAUNCHES = 0
 CANDIDATES_LAUNCHES = 0
+# K1's launches by card index (a multi-card run reads where each ran)
+KERNEL_DEVICE_LAUNCHES: collections.Counter = collections.Counter()
 
 # decoded sentinel for padded / invalid rows (the JAX decode's value)
 _INVALID = -(1 << 30)
@@ -154,6 +158,7 @@ def scan_candidates_packed(
     )
     _build.check(lib, code, "clann_scan_topk_packed launch")
     KERNEL_LAUNCHES += 1
+    KERNEL_DEVICE_LAUNCHES[dev.index] += 1
     return out
 
 

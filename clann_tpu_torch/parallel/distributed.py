@@ -9,6 +9,13 @@ opens it, `global_mesh` spans every process's devices (each process runs
 only its own shards, parallel/mesh.py), and `host_local_slice` splits
 host-side work by rank.
 
+Several processes on one host take one card each, torchrun's layout: a
+process whose environment names its LOCAL_RANK (and not a
+LOCAL_WORLD_SIZE of 1) owns the card cuda:{LOCAL_RANK} alone, as a JAX
+process owns only its local devices. `initialize_distributed` makes that
+card current before it opens an NCCL group, and `global_mesh` gives the
+process that card unless the caller names its devices.
+
 A single process needs no initialization; these helpers are gated so the
 same entry points work everywhere.
 """
@@ -17,7 +24,7 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,9 +45,11 @@ def initialize_distributed(
     Arguments default from torchrun's environment (MASTER_ADDR /
     MASTER_PORT, WORLD_SIZE, RANK). `coordinator_address` is "host:port"
     (a tcp:// init method) or any init-method URL (e.g. file://...).
-    `backend` defaults to nccl with a CUDA device, gloo without. Without
-    an address and a process count (a single process) nothing is opened
-    and False is returned; True when a group was opened.
+    `backend` defaults to nccl with a CUDA device, gloo without. With nccl
+    and a LOCAL_RANK in the environment, that card is made current first
+    (NCCL binds each rank to the current device). Without an address and
+    a process count (a single process) nothing is opened and False is
+    returned; True when a group was opened.
     """
     import torch.distributed as dist
 
@@ -60,6 +69,9 @@ def initialize_distributed(
     init_method = (coordinator_address if "://" in coordinator_address
                    else f"tcp://{coordinator_address}")
     backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
+    local_rank = _int_env("LOCAL_RANK")
+    if backend == "nccl" and local_rank is not None:
+        torch.cuda.set_device(local_rank)
     dist.init_process_group(backend, init_method=init_method, world_size=num_processes,
                             rank=process_id)
     log.info("torch.distributed initialized: process %d/%d (%s)",
@@ -80,15 +92,30 @@ def _world() -> tuple:
     return 0, 1
 
 
+def default_local_devices() -> List[torch.device]:
+    """This process's devices: cuda:{LOCAL_RANK} alone when it is one of
+    several processes on its host (LOCAL_RANK set, LOCAL_WORLD_SIZE unset
+    or above 1) in a group of several processes, else every visible CUDA
+    device."""
+    local_rank = _int_env("LOCAL_RANK")
+    if (_world()[1] > 1 and local_rank is not None
+            and _int_env("LOCAL_WORLD_SIZE") != 1):
+        return [torch.device("cuda", local_rank)]
+    return visible_devices()
+
+
 def global_mesh(axis_name: str = CLUSTER_AXIS,
                 local_devices: Optional[Sequence] = None) -> Mesh:
     """1-D mesh over the devices of every process, rank by rank.
 
-    `local_devices`: this process's devices (default: its visible CUDA
-    devices); every process must bring the same number. A process runs
-    only the shards on its own devices; the collectives cross processes.
+    `local_devices`: this process's devices (default:
+    `default_local_devices()`, one card per process when several share a
+    host); every process must bring the same number. A process runs only
+    the shards on its own devices; the collectives cross processes. The
+    mesh lists this process's devices in every rank's place, so its first
+    device, where the merges land, is always one of its own.
     """
-    local = list(visible_devices() if local_devices is None else local_devices)
+    local = list(default_local_devices() if local_devices is None else local_devices)
     rank, world = _world()
     if world > 1:
         import torch.distributed as dist

@@ -42,7 +42,7 @@ from clann_tpu_torch.ops.prefixmap import sort_tables_segmented
 from clann_tpu_torch.ops.query import SearchStats
 from clann_tpu_torch.ops.sketches import pack_bits_u32
 from clann_tpu_torch.ops.sources import IndependentHashSource
-from clann_tpu_torch.parallel.mesh import make_mesh, psum
+from clann_tpu_torch.parallel.mesh import make_mesh, psum, shard_span
 from clann_tpu_torch.parallel.sharded import _merge_topk, _params_to, _place, _placement
 
 SHARD_FIELDS = ("tokens", "set_sizes", "sorted_hash", "sorted_idx", "sketches",
@@ -200,26 +200,27 @@ def sharded_jaccard_search(
     for s, dev in enumerate(devs):
         if not mesh.is_local(s):
             continue
-        local = JaccardIndex(
-            **{f: getattr(sh, f)[s].to(dev) for f in SHARD_FIELDS if f != "global_ids"},
-            hash_params=_params_to(sh.hash_params, dev),
-            sketch_params=_params_to(sh.sketch_params, dev),
-            probs_table=sh.probs_table.to(dev),
-            sketch_p1_table=sh.sketch_p1_table.to(dev),
-            config=cfg,
-            universe=sh.universe,
-            sim_eps=sh.sim_eps,
-            table_hash=sh.table_hash,
-            sketch_hash=sh.sketch_hash,
-        )
-        sims, lids, stats = jaccard_search_batch_mapped(
-            local, qt.to(dev), qh.to(dev), qsk.to(dev), float(delta), k=k,
-            chunk=cfg.candidate_chunk, min_depth=cfg.min_depth)
-        gids = sh.global_ids[s].to(dev)
-        out_ids = torch.where(lids >= 0, gids[torch.clamp(lids, min=0).to(torch.int64)], -1)
-        sims_p[s] = torch.where(out_ids >= 0, sims, -1.0)  # drop padding hits
-        ids_p[s] = out_ids
-        stats_p[s] = stats
+        with shard_span(dev):
+            local = JaccardIndex(
+                **{f: getattr(sh, f)[s].to(dev) for f in SHARD_FIELDS if f != "global_ids"},
+                hash_params=_params_to(sh.hash_params, dev),
+                sketch_params=_params_to(sh.sketch_params, dev),
+                probs_table=sh.probs_table.to(dev),
+                sketch_p1_table=sh.sketch_p1_table.to(dev),
+                config=cfg,
+                universe=sh.universe,
+                sim_eps=sh.sim_eps,
+                table_hash=sh.table_hash,
+                sketch_hash=sh.sketch_hash,
+            )
+            sims, lids, stats = jaccard_search_batch_mapped(
+                local, qt.to(dev), qh.to(dev), qsk.to(dev), float(delta), k=k,
+                chunk=cfg.candidate_chunk, min_depth=cfg.min_depth)
+            gids = sh.global_ids[s].to(dev)
+            out_ids = torch.where(lids >= 0, gids[torch.clamp(lids, min=0).to(torch.int64)], -1)
+            sims_p[s] = torch.where(out_ids >= 0, sims, -1.0)  # drop padding hits
+            ids_p[s] = out_ids
+            stats_p[s] = stats
     ts, ti = _merge_topk(mesh, sims_p, ids_p, lead, k)
     ti = torch.where(ts > -1.0, ti, -1)
     stats = SearchStats(*(psum(mesh, [None if st is None else st[f] for st in stats_p], lead)

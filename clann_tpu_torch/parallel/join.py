@@ -22,7 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from clann_tpu_torch.parallel.mesh import all_gather, make_mesh
+from clann_tpu_torch.parallel.mesh import all_gather, make_mesh, shard_span
 
 
 def _sharded_window_pairs(mesh, vec_parts, idx_parts, valid_parts, *, k: int, window: int,
@@ -38,12 +38,13 @@ def _sharded_window_pairs(mesh, vec_parts, idx_parts, valid_parts, *, k: int, wi
     for s, idx_shard in enumerate(idx_parts):
         if idx_shard is None:
             continue
-        n = vec_parts[s].shape[0]
-        sims, lo, hi = table_pairs(vec_parts[s], idx_shard, k=k, window=window)
-        mask = valid_parts[s][:, None]
-        sims_p[s] = torch.where(mask, sims, -1.0)
-        lo_p[s] = torch.where(mask, lo, n)
-        hi_p[s] = torch.where(mask, hi, n)
+        with shard_span(idx_shard.device):
+            n = vec_parts[s].shape[0]
+            sims, lo, hi = table_pairs(vec_parts[s], idx_shard, k=k, window=window)
+            mask = valid_parts[s][:, None]
+            sims_p[s] = torch.where(mask, sims, -1.0)
+            lo_p[s] = torch.where(mask, lo, n)
+            hi_p[s] = torch.where(mask, hi, n)
     # the (Lp, kk) winner lists are small; one dedup + top-k on `lead`
     return dedup_topk_pairs(all_gather(mesh, sims_p, lead).reshape(-1),
                             all_gather(mesh, lo_p, lead).reshape(-1),

@@ -19,6 +19,7 @@ processes through torch.distributed.all_gather.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -27,6 +28,13 @@ import torch
 
 CLUSTER_AXIS = "cluster"
 QUERY_AXIS = "query"
+
+# Per-card spans of the shard bodies, a reading of how the cards overlap:
+# while this is a list, every sharded search appends (device, start event,
+# end event) around each shard body it runs on a CUDA device, recorded on
+# that card's current stream (no host sync). None (the default) records
+# nothing.
+SHARD_SPANS: Optional[list] = None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -64,6 +72,22 @@ class Mesh:
 
         r = self.ranks if self.ranks.ndim == 1 else self.ranks[query_block]
         return int(r[shard]) == dist.get_rank()
+
+
+@contextlib.contextmanager
+def shard_span(device):
+    """Record one shard body on `device` into SHARD_SPANS, when it is a
+    list."""
+    spans, dev = SHARD_SPANS, torch.device(device)
+    if spans is None or dev.type != "cuda":
+        yield
+        return
+    stream = torch.cuda.current_stream(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    yield
+    end.record(stream)
+    spans.append((dev, start, end))
 
 
 def _device_array(devices) -> np.ndarray:

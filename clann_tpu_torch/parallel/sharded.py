@@ -49,6 +49,7 @@ from clann_tpu_torch.parallel.mesh import (
     all_gather,
     make_mesh,
     psum,
+    shard_span,
 )
 
 PAD_RADIUS = 2.5  # > max cosine distance 2.0 -> the ball bound can never fire
@@ -328,10 +329,13 @@ def build_sharded(data, config: Config, mesh=None, metric: str = "angular") -> S
     `shard_index(build_index(data, config, gmm_mesh=mesh), D, mesh)` on
     every real slot; as in JAX, n_max is rounded up to a gather_block
     multiple, so the pad lengths may differ. Host memory holds the raw
-    dataset; device memory per shard is bounded by its shard.
+    dataset; device memory per shard is bounded by its shard: each
+    shard's rows are normalized on its own device. The stages are
+    `metrics/trace` spans (sharded_build/gmm, /partition, /shards).
     """
     from clann_tpu_torch.core.index import _generators, _hash_in_blocks, derive_probs_tables
     from clann_tpu_torch.errors import DataError, IndexCreationError
+    from clann_tpu_torch.metrics.trace import TRACER
     from clann_tpu_torch.ops.distances import l2_normalize
     from clann_tpu_torch.ops.hashing import make_hash_family
     from clann_tpu_torch.ops.prefixmap import sort_tables_segmented
@@ -351,57 +355,52 @@ def build_sharded(data, config: Config, mesh=None, metric: str = "angular") -> S
     cfg = config
 
     # 1. clustering over the mesh
-    centers_idx, assignment, radii = sharded_gmm(x, cfg.num_clusters(n), mesh=mesh,
-                                                 metric=metric)
-    centers_idx = centers_idx.cpu().numpy()
-    assignment = assignment.cpu().numpy()
-    radii = radii.cpu().numpy()
+    with TRACER.span("sharded_build/gmm"):
+        centers_idx, assignment, radii = sharded_gmm(x, cfg.num_clusters(n), mesh=mesh,
+                                                     metric=metric)
+        centers_idx = centers_idx.cpu().numpy()
+        assignment = assignment.cpu().numpy()
+        radii = radii.cpu().numpy()
     C = len(centers_idx)
     sizes = np.bincount(assignment, minlength=C)
     brute_np = sizes < max(cfg.brute_force_threshold, cfg.k)
 
-    # 2. balanced partition + host-side shard assembly (the layout rules of
-    # shard_index)
-    groups = partition_clusters(sizes, D)
-    C_max = max(1, max(len(g) for g in groups))
-    n_max = max(1, int(max(sizes[g].sum() if len(g) else 0 for g in groups)))
-    # uniform slot padding so per-shard g_records stack cleanly
-    n_max += (-n_max) % max(1, cfg.gather_block)
+    # 2. balanced partition + host-side bookkeeping (the layout rules of
+    # shard_index); the rows themselves go to their shards in step 3
+    with TRACER.span("sharded_build/partition"):
+        groups = partition_clusters(sizes, D)
+        C_max = max(1, max(len(g) for g in groups))
+        n_max = max(1, int(max(sizes[g].sum() if len(g) else 0 for g in groups)))
+        # uniform slot padding so per-shard g_records stack cleanly
+        n_max += (-n_max) % max(1, cfg.gather_block)
 
+        clus_local = np.full((D, n_max), C_max, np.int32)  # pads sort last
+        global_ids = np.full((D, n_max), -1, np.int32)
+        cluster_starts = np.zeros((D, C_max + 1), np.int32)
+        center_ids = np.full((D, C_max), -1, np.int32)
+        radii_arr = np.full((D, C_max), PAD_RADIUS, np.float32)
+        brute_arr = np.zeros((D, C_max), bool)
+        member_order = np.argsort(assignment, kind="stable").astype(np.int32)
+        member_bounds = np.searchsorted(assignment[member_order], np.arange(C + 1))
+        for dev, g in enumerate(groups):
+            local_starts = [0]
+            parts = []
+            for ci, c in enumerate(g):
+                members = member_order[member_bounds[c]:member_bounds[c + 1]]
+                parts.append(members)
+                local_starts.append(local_starts[-1] + len(members))
+                center_ids[dev, ci] = centers_idx[c]
+                radii_arr[dev, ci] = radii[c]
+                brute_arr[dev, ci] = brute_np[c]
+                clus_local[dev, local_starts[ci]: local_starts[ci + 1]] = ci
+            gids = np.concatenate(parts) if parts else np.zeros(0, np.int32)
+            n_local = len(gids)
+            global_ids[dev, :n_local] = gids
+            cs = np.asarray(local_starts, np.int32)
+            cluster_starts[dev, : len(cs)] = cs
+            cluster_starts[dev, len(cs):] = n_local
+        n_locals = (global_ids >= 0).sum(axis=1)
     lead = mesh.cluster_devices()[0]
-    # normalized as build_index normalizes (on the device), so the shard
-    # vectors equal shard_index(build_index(...))'s bit for bit
-    xn_host = l2_normalize(torch.as_tensor(x, device=lead)).cpu().numpy()
-    vecs = np.zeros((D, n_max, d), np.float32)
-    clus_local = np.full((D, n_max), C_max, np.int32)  # pads sort last
-    global_ids = np.full((D, n_max), -1, np.int32)
-    cluster_starts = np.zeros((D, C_max + 1), np.int32)
-    centers_arr = np.zeros((D, C_max, d), np.float32)
-    center_ids = np.full((D, C_max), -1, np.int32)
-    radii_arr = np.full((D, C_max), PAD_RADIUS, np.float32)
-    brute_arr = np.zeros((D, C_max), bool)
-    member_order = np.argsort(assignment, kind="stable").astype(np.int32)
-    member_bounds = np.searchsorted(assignment[member_order], np.arange(C + 1))
-    for dev, g in enumerate(groups):
-        local_starts = [0]
-        parts = []
-        for ci, c in enumerate(g):
-            members = member_order[member_bounds[c]:member_bounds[c + 1]]
-            parts.append(members)
-            local_starts.append(local_starts[-1] + len(members))
-            centers_arr[dev, ci] = xn_host[centers_idx[c]]
-            center_ids[dev, ci] = centers_idx[c]
-            radii_arr[dev, ci] = radii[c]
-            brute_arr[dev, ci] = brute_np[c]
-            clus_local[dev, local_starts[ci]: local_starts[ci + 1]] = ci
-        gids = np.concatenate(parts) if parts else np.zeros(0, np.int32)
-        n_local = len(gids)
-        global_ids[dev, :n_local] = gids
-        vecs[dev, :n_local] = xn_host[gids]
-        cs = np.asarray(local_starts, np.int32)
-        cluster_starts[dev, : len(cs)] = cs
-        cluster_starts[dev, len(cs):] = n_local
-    n_locals = (global_ids >= 0).sum(axis=1)
 
     # shared hash functions (the draws of build_index)
     g_hash, g_sketch = _generators(cfg.seed)
@@ -420,31 +419,43 @@ def build_sharded(data, config: Config, mesh=None, metric: str = "angular") -> S
     build_global = cfg.lsh_engine in ("global", "both")
     build_records = cfg.pack_slot_records and cfg.lsh_engine in ("clustered", "both")
 
-    # 3. per shard: hash + sketch + sorts of its own points
-    built = {f: [None] * D for f in ("vectors", "sorted_hash", "sorted_idx", "sketches")
-             + GLOBAL_FIELDS + ("slot_records",)}
+    # 3. per shard, on its device: normalize, hash, sketch and sort its own
+    # points
+    built = {f: [None] * D for f in ("vectors", "centers", "sorted_hash", "sorted_idx",
+                                     "sketches") + GLOBAL_FIELDS + ("slot_records",)}
     g_dir_iters = 0
-    for s, dev in enumerate(devices):
-        if dev is None:
-            continue
-        src, flt = copy.copy(source), copy.copy(filterer)
-        src.params, flt.params = _params_to(source.params, dev), _params_to(filterer.params, dev)
-        xl = torch.as_tensor(vecs[s], device=dev)  # normalized; pad rows zero
-        cl = torch.as_tensor(clus_local[s], device=dev)
-        hashes = _hash_in_blocks(src.hash, xl, 8192)  # (n_max, L)
-        sk = _hash_in_blocks(flt.sketch, xl, 8192)  # (n_max, S, W)
-        pad = torch.arange(n_max, device=dev) >= int(n_locals[s])
-        hashes_T = torch.where(pad[None, :], PAD_HASH, hashes.T).contiguous()
-        built["vectors"][s] = xl
-        built["sorted_hash"][s], built["sorted_idx"][s] = sort_tables_segmented(hashes_T, cl)
-        built["sketches"][s] = sk
-        if build_global:
-            # 4. the global engine's tables and directory
-            (built["g_sorted_hash"][s], built["g_records"][s], built["g_dir"][s],
-             iters) = _global_tables(cfg, hashes_T, sk, cl, n_max)
-            g_dir_iters = max(g_dir_iters, iters)
-        if build_records:
-            built["slot_records"][s] = _slot_records(cfg, built["sorted_idx"][s], sk)
+    on_cards = []  # a tensor per shard: the span synchronizes their devices
+    with TRACER.span("sharded_build/shards", block_on=on_cards):
+        for s, dev in enumerate(devices):
+            if dev is None:
+                continue
+            src, flt = copy.copy(source), copy.copy(filterer)
+            src.params = _params_to(source.params, dev)
+            flt.params = _params_to(filterer.params, dev)
+            # rows normalized one by one on the shard's device, as build_index
+            # normalizes them, so the shard vectors equal
+            # shard_index(build_index(...))'s bit for bit; pad rows zero
+            n_loc, n_cl = int(n_locals[s]), len(groups[s])
+            xl = torch.zeros((n_max, d), dtype=torch.float32, device=dev)
+            xl[:n_loc] = l2_normalize(torch.as_tensor(x[global_ids[s, :n_loc]], device=dev))
+            cen = torch.zeros((C_max, d), dtype=torch.float32, device=dev)
+            cen[:n_cl] = l2_normalize(torch.as_tensor(x[center_ids[s, :n_cl]], device=dev))
+            cl = torch.as_tensor(clus_local[s], device=dev)
+            hashes = _hash_in_blocks(src.hash, xl, 8192)  # (n_max, L)
+            sk = _hash_in_blocks(flt.sketch, xl, 8192)  # (n_max, S, W)
+            pad = torch.arange(n_max, device=dev) >= n_loc
+            hashes_T = torch.where(pad[None, :], PAD_HASH, hashes.T).contiguous()
+            built["vectors"][s], built["centers"][s] = xl, cen
+            on_cards.append(xl)
+            built["sorted_hash"][s], built["sorted_idx"][s] = sort_tables_segmented(hashes_T, cl)
+            built["sketches"][s] = sk
+            if build_global:
+                # 4. the global engine's tables and directory
+                (built["g_sorted_hash"][s], built["g_records"][s], built["g_dir"][s],
+                 iters) = _global_tables(cfg, hashes_T, sk, cl, n_max)
+                g_dir_iters = max(g_dir_iters, iters)
+            if build_records:
+                built["slot_records"][s] = _slot_records(cfg, built["sorted_idx"][s], sk)
 
     return ShardedIndex(
         vectors=built["vectors"],
@@ -452,7 +463,7 @@ def build_sharded(data, config: Config, mesh=None, metric: str = "angular") -> S
         sorted_idx=built["sorted_idx"],
         sketches=built["sketches"],
         cluster_starts=_place(cluster_starts, devices),
-        centers=_place(centers_arr, devices),
+        centers=built["centers"],
         center_ids=_place(center_ids, devices),
         radii=_place(radii_arr, devices),
         brute=_place(brute_arr, devices),
@@ -554,13 +565,16 @@ def _run_shards(sharded: ShardedIndex, mesh, queries_n, query_hashes, query_sket
             if not mesh.is_local(s, b):
                 continue
             dev = devs[s]
-            index = _local_index(sharded, s, dev)
-            sims, ids, stats = body(index, queries_n[rows].to(dev),
-                                    query_hashes[rows].to(dev), query_sketches[rows].to(dev))
-            gids = sharded.global_ids[s].to(dev)
-            sims_p[s] = sims
-            ids_p[s] = torch.where(ids >= 0, gids[torch.clamp(ids, min=0).to(torch.int64)], -1)
-            stats_p[s] = stats
+            with shard_span(dev):
+                index = _local_index(sharded, s, dev)
+                sims, ids, stats = body(index, queries_n[rows].to(dev),
+                                        query_hashes[rows].to(dev),
+                                        query_sketches[rows].to(dev))
+                gids = sharded.global_ids[s].to(dev)
+                sims_p[s] = sims
+                ids_p[s] = torch.where(ids >= 0, gids[torch.clamp(ids, min=0).to(torch.int64)],
+                                       -1)
+                stats_p[s] = stats
         top_sims, top_ids = _merge_topk(mesh, sims_p, ids_p, devs[0], k)
         stats = SearchStats(*(psum(mesh, [None if st is None else st[f] for st in stats_p],
                                    devs[0])
@@ -1005,19 +1019,20 @@ def sharded_scan_search(
     for s, dev in enumerate(local):
         if dev is None:
             continue
-        vecs, gids, q = vec_in[s].to(dev), gid_in[s].to(dev), qn.to(dev)
-        # padded rows (gid < 0) are zero vectors; masked via global ids
-        if use_pallas:
-            sims, lids = fused_scan_topk_e2e(
-                bp_all[s], vecs, q, n_real=n_local, k=k, rescore_m=rescore_m,
-                num_bins=num_bins, block_n=block_n, q_tile=q_tile, biased=True)
-        else:
-            sims, lids = _dense_scan_impl(vecs, q, k=k, block_points=block_points,
-                                          recall_target=recall_target, exact=exact)
-        safe = torch.clamp(lids, 0, n_local - 1)
-        out_ids = torch.where(lids >= 0, gids[safe], -1)
-        sims_p[s] = torch.where(out_ids >= 0, sims, -torch.inf)
-        ids_p[s] = out_ids
+        with shard_span(dev):
+            vecs, gids, q = vec_in[s].to(dev), gid_in[s].to(dev), qn.to(dev)
+            # padded rows (gid < 0) are zero vectors; masked via global ids
+            if use_pallas:
+                sims, lids = fused_scan_topk_e2e(
+                    bp_all[s], vecs, q, n_real=n_local, k=k, rescore_m=rescore_m,
+                    num_bins=num_bins, block_n=block_n, q_tile=q_tile, biased=True)
+            else:
+                sims, lids = _dense_scan_impl(vecs, q, k=k, block_points=block_points,
+                                              recall_target=recall_target, exact=exact)
+            safe = torch.clamp(lids, 0, n_local - 1)
+            out_ids = torch.where(lids >= 0, gids[safe], -1)
+            sims_p[s] = torch.where(out_ids >= 0, sims, -torch.inf)
+            ids_p[s] = out_ids
     sims, ids = _merge_topk(mesh, sims_p, ids_p, lead, k)
     sims_np, ids_np = sims.cpu().numpy(), ids.cpu().numpy()
     dists = np.where(ids_np >= 0, np.clip(1.0 - sims_np, 0.0, 2.0), np.inf)

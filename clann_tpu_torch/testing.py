@@ -131,24 +131,29 @@ def sharded_real_slot_mismatches(a, b) -> list:
     """Fields of two sharded indexes (parallel/sharded.ShardedIndex) that
     differ on a real slot. Only the real slots are compared, since the pad
     lengths may differ (build_sharded rounds n_max up to gather_block).
+    The two may lie on different devices (b's shards are compared on a's).
     Returns the names, with the shard, of the fields that differ."""
     if a.shard_points != b.shard_points:
         return ["shard_points"]
+
+    def equal(x, y):
+        return torch.equal(x, y.to(x.device))
+
     bad = []
     for s, n_loc in enumerate(a.shard_points):
         for f in ("vectors", "sketches", "global_ids", "assignment"):
-            if not torch.equal(getattr(a, f)[s][:n_loc], getattr(b, f)[s][:n_loc]):
+            if not equal(getattr(a, f)[s][:n_loc], getattr(b, f)[s][:n_loc]):
                 bad.append(f"{f}[{s}]")
         for f in ("sorted_hash", "sorted_idx", "g_sorted_hash", "g_records", "slot_records"):
             x, y = getattr(a, f), getattr(b, f)
             if (x is None) != (y is None):
                 bad.append(f)
-            elif x is not None and not torch.equal(x[s][:, :n_loc], y[s][:, :n_loc]):
+            elif x is not None and not equal(x[s][:, :n_loc], y[s][:, :n_loc]):
                 bad.append(f"{f}[{s}]")
         for f in ("cluster_starts", "centers", "center_ids", "radii", "brute", "g_dir"):
             x, y = getattr(a, f), getattr(b, f)
             if (x is None) != (y is None):
                 bad.append(f)
-            elif x is not None and not torch.equal(x[s], y[s]):
+            elif x is not None and not equal(x[s], y[s]):
                 bad.append(f"{f}[{s}]")
     return bad

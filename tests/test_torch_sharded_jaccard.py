@@ -9,8 +9,9 @@ multi-process runtime (parallel/distributed) on the CPU with gloo.
   up to boundary ties, distance computations equal;
 - build_jaccard_sharded equals shard_jaccard_index(build_jaccard_index)
   byte for byte (the port's own draws), blocked hashing included;
-- a 2-rank gloo run (2 CPU shards per process, file:// rendezvous) equals
-  the 1-process 4-shard run exactly.
+- a 2-rank gloo run (2 CPU shards per process, file:// rendezvous) and a
+  4-rank one (one shard per process, the layout of one process per card)
+  equal the 1-process 4-shard run exactly.
 """
 
 import os
@@ -176,9 +177,10 @@ import sys
 from clann_tpu_torch.parallel.distributed import global_mesh, initialize_distributed
 
 rank, init, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
-assert initialize_distributed(init, 2, rank, backend="gloo")
-mesh = global_mesh(local_devices=["cpu"] * 2)
-assert mesh.multiprocess and mesh.ranks.tolist() == [0, 0, 1, 1]
+world, per = int(sys.argv[4]), int(sys.argv[5])
+assert initialize_distributed(init, world, rank, backend="gloo")
+mesh = global_mesh(local_devices=["cpu"] * per)
+assert mesh.multiprocess and mesh.ranks.tolist() == [r for r in range(world) for _ in range(per)]
 res = run(mesh)
 if rank == 0:
     np.savez(out, **{f"{k}:{i}": a for k, v in res.items() for i, a in enumerate(v)})
@@ -193,14 +195,25 @@ def _results(mesh):
 
 
 def test_two_processes_equal_one_process(tmp_path):
+    _ranks_equal_one_process(tmp_path, world=2, per=2)
+
+
+def test_four_processes_of_one_shard_equal_one_process(tmp_path):
+    _ranks_equal_one_process(tmp_path, world=4, per=1)
+
+
+def _ranks_equal_one_process(tmp_path, world, per):
+    """`world` gloo ranks of `per` CPU shards each (world * per = 4): rank
+    0's results equal the 1-process 4-shard run exactly."""
     env = {k: v for k, v in os.environ.items()
-           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+                        "LOCAL_WORLD_SIZE")}
     env["PYTHONPATH"] = REPO
     out = tmp_path / "rank0.npz"
     procs = [subprocess.Popen([sys.executable, "-c", _RANK, str(r), f"file://{tmp_path}/rdv",
-                               str(out)], cwd=str(tmp_path), env=env,
+                               str(out), str(world), str(per)], cwd=str(tmp_path), env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for r in (0, 1)]
+             for r in range(world)]
     try:
         errs = [p.communicate(timeout=240)[1] for p in procs]
     finally:
