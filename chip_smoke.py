@@ -248,10 +248,19 @@ held to its plain version on that card with its card-0 gates, the current
 device still 0 after each launch, and Clann(device="cuda") building on
 cuda:0 after them; the default meshes spanning the four cards, and
 owner_row / all_gather over them equal to one card's and timed beside
-it; after each sharded phase, the same paths with the
+it; the host's cost per torch op issued from one thread per card against
+one thread in order (probes.multicard.thread_ops); after each sharded phase, the same paths with the
 shards on cuda:0-3 (make_mesh(4), one controller) held to the one-card
 4-shard mesh (ids per query up to ties, dc and launches equal, every shard
-tensor on its card, K1 / K7 launched on every card); at the end the
+tensor on its card, K1 / K7 launched on every card); the global engine,
+the walk, Jaccard and build_sharded (and the 20,000,000-point build) read
+twice, their shard bodies forced in order and then at once (one worker
+thread per card, parallel.mesh.run_shards), each reading's wall time, QPS
+and busy share per card printed, the two bit for bit equal (results,
+stats, launches by card, every shard tensor) and the searches bit for bit
+equal to the one-card mesh; with --profile also the global engine's
+in-order and at-once device busy shares and the host's Python share
+(probes.multicard.profile_overlap); at the end the
 package's dryrun(4) and dryrun_large(4) over the cards, one process per
 card over NCCL (build_sharded, the global engine on 2,048 queries and the
 fused scan on 10,000, rank 0 equal to the single controller) and a
@@ -3252,7 +3261,8 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="add torch.profiler breakdowns of one scan-pallas call, one "
                          "scan-block call, one dense call and one 256-query batch of "
-                         "the lsh engine and of the walk")
+                         "the lsh engine and of the walk (with --cards 4, also of the "
+                         "four-card global engine in order and at once)")
     ap.add_argument("--cards", type=int, choices=(1, 4), default=1,
                     help="4: add the [cards] phases, the sharded paths on cuda:0-3 (needs "
                          "four visible cards)")
@@ -3291,6 +3301,7 @@ def main():
     if n_cards > 1:
         phase_cards_hygiene(train, test, label, n_cards)
         mc.collectives(label, n_cards)
+        mc.thread_ops(label, n_cards)
     handle, gt_d, gt_i, launches_k1, build_spans = phase_main_path(train, test, label)
     opt_k1 = phase_scan_options(handle, test, gt_d, gt_i, label)
     launches_k2 = phase_pallas_scan_topk(train, test, gt_d, gt_i, label)
@@ -3323,7 +3334,8 @@ def main():
     o_pairs, o_sims = phase_join(lsh, label)
     sh_lsh = phase_sharded_lsh(lsh, test, gt_d, gt_i, label)
     if n_cards > 1:
-        k7, cards_ref = cards_phase(mc.glove_lsh, lsh, train, test, gt_d, gt_i, label, n_cards)
+        k7, cards_ref = cards_phase(mc.glove_lsh, lsh, train, test, gt_d, gt_i, label, n_cards,
+                                    profile=args.profile)
         cards_k7 += k7
     del lsh
     torch.cuda.empty_cache()

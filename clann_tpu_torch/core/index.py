@@ -176,6 +176,11 @@ class ClusteredIndex:
     # ops/block_scan.get_block_layout's BlockLayouts, by block_n (derived)
     block_layout_cache: Dict = dataclasses.field(default_factory=dict, repr=False)
 
+    def replace(self, **changes):
+        """A copy with `changes` to its fields (flax's struct.dataclass
+        `replace`, which the JAX package's index has)."""
+        return dataclasses.replace(self, **changes)
+
     @property
     def n(self) -> int:
         return self.vectors.shape[0]

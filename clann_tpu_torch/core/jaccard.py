@@ -72,6 +72,7 @@ from clann_tpu_torch.ops.query import (
 )
 from clann_tpu_torch.ops.sketches import pack_bits_u32, popcount32, to_int32_bits
 from clann_tpu_torch.ops.sources import IndependentHashSource
+from clann_tpu_torch.parallel.mesh import host_read
 
 # arrays of a JaccardIndex (None where not built) and their dtypes in the
 # port; JAX's uint32 words are int32 bit patterns
@@ -123,6 +124,11 @@ class JaccardIndex:
     table_hash: str = "minhash"
     # sketch family: "1bit_minhash" or "tabulation_1bit"
     sketch_hash: str = "1bit_minhash"
+
+    def replace(self, **changes):
+        """A copy with `changes` to its fields (flax's struct.dataclass
+        `replace`, which the JAX package's index has)."""
+        return dataclasses.replace(self, **changes)
 
     @property
     def n(self) -> int:
@@ -566,7 +572,7 @@ def jaccard_search_batch_mapped(index: JaccardIndex, query_tokens: torch.Tensor,
                                     min_depth=min_depth, filter_type=filter_type,
                                     filter_expand=filter_expand, loop_stats=loop_stats)
     streams = _jaccard_prepare(index, query_tokens, qh, qsk, min_depth=min_depth)
-    total_max = int(torch.max(streams["total"]))
+    total_max = host_read(torch.max(streams["total"]).item)
     if loop_stats is not None:
         loop_stats.syncs += 1
     wb = max(1, (chunk * filter_expand) // G)

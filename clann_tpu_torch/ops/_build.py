@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import List, Optional
 
@@ -34,6 +35,11 @@ NVCC_FLAGS = [
 ]
 
 _LIB: Optional[ctypes.CDLL] = None
+_LOAD_LOCK = threading.Lock()  # one build and load, whichever thread comes first
+# Guards the wrappers' launch counts: the single controller launches from
+# one worker thread per card (parallel/mesh.run_shards), and `X += 1` on a
+# module global is not atomic across threads.
+COUNT_LOCK = threading.Lock()
 # nvcc's -Xptxas -v summary of the last build made by this process
 # (registers, shared memory, spills per kernel, and ptxas' warnings, e.g. a
 # serialised wgmma or an ignored setmaxnreg); empty when the library was
@@ -107,9 +113,14 @@ def build() -> Path:
 
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library (built on first call), with argtypes."""
-    global _LIB
     if _LIB is not None:
         return _LIB
+    with _LOAD_LOCK:
+        return _LIB if _LIB is not None else _load()
+
+
+def _load() -> ctypes.CDLL:
+    global _LIB
     lib = ctypes.CDLL(str(build()))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.clann_scan_topk_packed.argtypes = [

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from clann_tpu_torch.ops.distances import (
-    _normalize_queries, as_device_f32, rescore, resolve_device)
+    _normalize_queries, as_device_f32, refuse_interpret, rescore, resolve_device)
 from clann_tpu_torch.ops.scan_topk import (
     _INVALID,
     _check_cuda_operands,
@@ -229,7 +229,8 @@ def block_scan_candidates_packed(
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, code, "clann_block_scan_packed launch")
-    KERNEL_LAUNCHES += 1
+    with _build.COUNT_LOCK:  # launched from the mesh runner's threads too
+        KERNEL_LAUNCHES += 1
     return out
 
 
@@ -352,6 +353,7 @@ def block_scan_topk_e2e(
     num_bins: int = 64,
     block_n: int = 32768,
     q_tile: int = 256,
+    interpret: bool = False,
 ):
     """One batch of the block-probed query path, all on the device.
 
@@ -359,7 +361,9 @@ def block_scan_topk_e2e(
     n_blocks)). Returns (sims desc (Q, k) f32 exact, ids (Q, k) int64
     global (-1 where empty), dc (Q,) int32 rows probed, uncertified (Q,)
     int32 unprobed blocks whose bound exceeds the k-th similarity).
+    `interpret`: distances.refuse_interpret.
     """
+    refuse_interpret(interpret, layout.base_bf16.device)
     n_pad, dpad = layout.base_bf16.shape
     n_blocks = n_pad // block_n
     B = min(n_probe, n_blocks)
@@ -431,6 +435,7 @@ def block_scan_search_adaptive(
     k: Optional[int] = None,
     n_probe0: Optional[int] = None,
     batch_q: int = 4096,
+    interpret: Optional[bool] = None,
     block_n: Optional[int] = None,
 ):
     """Certificate-driven block probing: rounds of block_scan_search with a
@@ -440,7 +445,8 @@ def block_scan_search_adaptive(
     Returns (dists, ids, DenseSearchStats) like block_scan_search;
     distance_computations accumulates every streamed row across rounds.
     As in the JAX function, `block_n` only sets the block count that caps
-    the budget: every round runs at the plan's block_n.
+    the budget: every round runs at the plan's block_n. `interpret`:
+    distances.refuse_interpret.
     """
     from clann_tpu_torch.ops.ivf import DenseSearchStats, pallas_scan_plan
 
@@ -463,7 +469,7 @@ def block_scan_search_adaptive(
     remaining = np.arange(Q)
     while len(remaining):
         d_r, i_r, st = block_scan_search(index, q[remaining], k=k, n_probe=B,
-                                         batch_q=batch_q)
+                                         batch_q=batch_q, interpret=interpret)
         dists[remaining] = d_r
         ids[remaining] = i_r
         dc[remaining] += st.distance_computations
@@ -489,6 +495,7 @@ def block_scan_search(
     k: Optional[int] = None,
     n_probe: Optional[int] = None,
     batch_q: int = 4096,
+    interpret: Optional[bool] = None,
     block_n: Optional[int] = None,
 ):
     """Block-probed fused scan over a ClusteredIndex, on its device.
@@ -498,7 +505,7 @@ def block_scan_search(
     the rows streamed per query; `uncertified` counts unprobed blocks whose
     centroid bound exceeds the returned k-th similarity (0 is a block-level
     certificate). Within probed blocks the result keeps the fused scan's
-    bin-winner approximation.
+    bin-winner approximation. `interpret`: distances.refuse_interpret.
     """
     from clann_tpu_torch.ops.ivf import DenseSearchStats, pallas_scan_plan
 
@@ -519,7 +526,7 @@ def block_scan_search(
     for s in range(0, qn.shape[0], batch_q):
         sims, ids, dc, unc = block_scan_topk_e2e(
             layout, qn[s : s + batch_q], k=k, n_probe=B, rescore_m=rescore_m,
-            num_bins=num_bins, block_n=block_n, q_tile=q_tile,
+            num_bins=num_bins, block_n=block_n, q_tile=q_tile, interpret=interpret,
         )
         # one int32 tensor (sims as their bit patterns) so that the call
         # makes a single device-to-host copy

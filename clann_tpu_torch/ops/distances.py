@@ -41,6 +41,18 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def refuse_interpret(interpret, device) -> None:
+    """JAX's `interpret` keyword of the Pallas entry points. The port has no
+    interpret mode: a wrapper runs its plain version for CPU tensors (what
+    interpret=True computes) and its kernel for CUDA ones. So interpret is
+    accepted and changes nothing, except that interpret=True on a CUDA
+    device raises instead of quietly running the kernel."""
+    if interpret and torch.device(device).type == "cuda":
+        raise ValueError(
+            "interpret=True on a CUDA device: the port has no interpret mode (its "
+            "kernels run on the card, their plain versions on CPU tensors)")
+
+
 def as_device_f32(x, device) -> torch.Tensor:
     """Float32 tensor on `device` from a numpy array or tensor."""
     if isinstance(x, torch.Tensor):
@@ -53,7 +65,9 @@ def exact_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
-def l2_normalize(x: torch.Tensor) -> torch.Tensor:
+def l2_normalize(x: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """Rows scaled to unit norm, zero rows kept. `eps` is JAX's keyword,
+    unused there as here."""
     n = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
     return x / torch.where(n == 0, torch.ones_like(n), n)
 

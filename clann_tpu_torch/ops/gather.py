@@ -57,6 +57,15 @@ WARP_THREADS = 256  # threads per CTA of warp_gather_kernel (csrc/gather.cu)
 WARP_CTAS_PER_SM = 8  # K6 / K7 grid: CTAs per SM at most; a warp loops over the runs beyond
 
 
+def _count_launch(counter: str, card: int) -> None:
+    """One launch of the kernel whose count is the global `counter`, on card
+    `card` (K7 also counts by card), under the count lock."""
+    with _build.COUNT_LOCK:
+        globals()[counter] += 1
+        if counter == "ROWS_LAUNCHES":
+            ROWS_DEVICE_LAUNCHES[card] += 1
+
+
 def reset_launches() -> None:
     global PAGES_LAUNCHES, GROUP8_LAUNCHES, FLAT1D_LAUNCHES, ROWS_LAUNCHES
     PAGES_LAUNCHES = GROUP8_LAUNCHES = FLAT1D_LAUNCHES = ROWS_LAUNCHES = 0
@@ -98,8 +107,8 @@ def _launcher(fn_name: str, src: torch.Tensor):
     if not src.is_cuda:
         raise ValueError(f"unsupported device {src.device}")
     fn = _LAUNCHERS.get(fn_name)
-    if fn is None:
-        fn = _LAUNCHERS[fn_name] = getattr(_build.load_library(), fn_name)
+    if fn is None:  # every thread binds the same attribute of the one library
+        fn = _LAUNCHERS.setdefault(fn_name, getattr(_build.load_library(), fn_name))
     return fn
 
 
@@ -228,8 +237,6 @@ def pages_plain(pages: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def gather_pages(pages: torch.Tensor, idx: torch.Tensor, *,
                  inflight: int = BULK_INFLIGHT) -> torch.Tensor:
     """K4: out[i] = pages[idx[i]] for (P, 8, 128) 4 KB pages."""
-    global PAGES_LAUNCHES
-
     if pages.dim() != 3 or tuple(pages.shape[1:]) != (8, 128):
         raise ValueError(f"pages must be (P, 8, 128), got {tuple(pages.shape)}")
     p = _words(pages, "pages")
@@ -243,7 +250,7 @@ def gather_pages(pages: torch.Tensor, idx: torch.Tensor, *,
         _launch("clann_gather_pages", (p.data_ptr(), p.shape[0], idx.data_ptr(),
                                        idx.shape[0], out.data_ptr(), inflight),
                 p, "clann_gather_pages launch")
-        PAGES_LAUNCHES += 1
+        _count_launch("PAGES_LAUNCHES", p.device.index)
     return out.view(pages.dtype)
 
 
@@ -262,8 +269,6 @@ def gather_group8(table: torch.Tensor, gidx: torch.Tensor, *,
     """K5: the aligned 8-row group [8 gidx[i], 8 gidx[i] + 8) of a (T, W)
     table for every i, as (8 n, W). A group not wholly inside the table
     reads as zeros."""
-    global GROUP8_LAUNCHES
-
     if table.dim() != 2:
         raise ValueError(f"table must be 2-D, got {tuple(table.shape)}")
     t = _words(table, "table")
@@ -278,7 +283,7 @@ def gather_group8(table: torch.Tensor, gidx: torch.Tensor, *,
         _launch("clann_gather_group8", (t.data_ptr(), T, W, gidx.data_ptr(), gidx.shape[0],
                                         out.data_ptr(), inflight),
                 t, "clann_gather_group8 launch")
-        GROUP8_LAUNCHES += 1
+        _count_launch("GROUP8_LAUNCHES", t.device.index)
     return out.view(table.dtype)
 
 
@@ -294,8 +299,6 @@ def flat1d_plain(flat: torch.Tensor, idx: torch.Tensor, *, width: int) -> torch.
 def gather_flat1d(flat: torch.Tensor, idx: torch.Tensor, *, width: int,
                   inflight: int = WARP_INFLIGHT) -> torch.Tensor:
     """K6: out[i W : (i+1) W] = flat[idx[i] W : (idx[i]+1) W], (n W,)."""
-    global FLAT1D_LAUNCHES
-
     if flat.dim() != 1 or width < 1:
         raise ValueError(f"flat must be 1-D and width >= 1, got {tuple(flat.shape)}, {width}")
     f = _words(flat, "flat")
@@ -306,7 +309,7 @@ def gather_flat1d(flat: torch.Tensor, idx: torch.Tensor, *, width: int,
     out = torch.empty((idx.shape[0] * width,), dtype=torch.int32, device=f.device)
     if idx.numel():
         _warp_gather(f, f.shape[0] // width, width, idx, out, inflight, "K6 gather_flat1d launch")
-        FLAT1D_LAUNCHES += 1
+        _count_launch("FLAT1D_LAUNCHES", f.device.index)
     return out.view(flat.dtype)
 
 
@@ -320,8 +323,6 @@ def rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def gather_rows(table: torch.Tensor, idx: torch.Tensor, *,
                 inflight: int = WARP_INFLIGHT) -> torch.Tensor:
     """K7: out[r] = table[idx[r]] for a (T, W) table, (n, W)."""
-    global ROWS_LAUNCHES
-
     if table.dim() != 2:
         raise ValueError(f"table must be 2-D, got {tuple(table.shape)}")
     t = _words(table, "table")
@@ -333,6 +334,5 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor, *,
     out = torch.empty((idx.shape[0], W), dtype=torch.int32, device=t.device)
     if idx.numel():
         _warp_gather(t, T, W, idx, out, inflight, "K7 gather_rows launch")
-        ROWS_LAUNCHES += 1
-        ROWS_DEVICE_LAUNCHES[t.device.index] += 1
+        _count_launch("ROWS_LAUNCHES", t.device.index)
     return out.view(table.dtype)

@@ -66,6 +66,7 @@ from clann_tpu_torch.ops.query import (
     probs_lookup,
 )
 from clann_tpu_torch.ops.sketches import popcount32
+from clann_tpu_torch.parallel.mesh import host_read
 
 
 def _entry_depth(index, min_depth: int) -> int:
@@ -341,10 +342,10 @@ def _advance(cond, body, state, *, tb: int, wb: int, max_iters: Optional[int] = 
     iters = syncs = 0
     while max_iters is None or iters < max_iters:
         qdone, off = state[2], state[3]
-        live, live_max = torch.stack([
+        live, live_max = host_read(torch.stack([
             cond(state).to(torch.int64),
             torch.max(torch.where(qdone, 0, off)).to(torch.int64),
-        ]).tolist()  # the one host sync per SYNC_EVERY steps
+        ]).tolist)  # the one host sync per SYNC_EVERY steps
         syncs += 1
         if not live:
             break
@@ -436,7 +437,7 @@ def global_search_batch_mapped(index, queries_n, query_hashes, query_sketches, d
         )
     streams = _prepare_streams(index, queries_n, query_hashes, query_sketches,
                                min_depth=min_depth)
-    total_max = int(torch.max(streams["total"]))
+    total_max = host_read(torch.max(streams["total"]).item)
     if loop_stats is not None:
         loop_stats.syncs += 1
     wb = max(1, (chunk * filter_expand) // G)

@@ -353,13 +353,16 @@ SCORE_BUDGET = 1 << 30
 
 
 def ivf_search_batch_impl(index, queries_n: torch.Tensor, *, k: int, n_probe: int,
-                          probe_cap: int, probe_rows: Optional[torch.Tensor] = None):
+                          probe_cap: int, probe_rows: Optional[torch.Tensor] = None,
+                          approx_topk: bool = True):
     """Dense probe search of one batch of normalized queries.
 
     Returns (sims desc (Q, k), global ids (Q, k) int32, DenseSearchStats of
     tensors). probe_rows: explicit (Q, P) segment rows to probe (the
     adaptive waves); else the n_probe rows nearest by center distance.
-    Every top-k here is exact (JAX's `approx_max_k` is exact on the CPU).
+    Every top-k here is exact, whatever `approx_topk` says: JAX's
+    `approx_max_k` is a TPU binning and lowers to the exact top-k
+    elsewhere, so the keyword is accepted and changes nothing.
     """
     Q, d = queries_n.shape
     dev = queries_n.device
@@ -540,7 +543,8 @@ def adaptive_dense_search(index, queries, k: Optional[int] = None, wave: int = 1
 
 
 def dense_search(index, queries, k: Optional[int] = None, n_probe: Optional[int] = None,
-                 probe_cap: Optional[int] = None, batch_size: int = 2048):
+                 probe_cap: Optional[int] = None, batch_size: int = 2048,
+                 approx_topk: bool = True):
     """Dense IVF search of a query set in batches of `batch_size`.
 
     Returns numpy (distances ascending, ids, DenseSearchStats). n_probe
@@ -548,6 +552,7 @@ def dense_search(index, queries, k: Optional[int] = None, n_probe: Optional[int]
     config.probe_cap or auto_probe_cap per batch. A short last batch (of a
     set larger than one batch) repeats its last query up to batch_size, as
     zero rows would tie at every center and crowd the first rows' slots.
+    `approx_topk` is accepted and changes nothing (ivf_search_batch_impl).
     """
     _require_layout(index)
     cfg = index.config

@@ -31,7 +31,7 @@ converged search does not move) without a host synchronization.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -243,7 +243,8 @@ def chunk_stream_direct(
     min_depth: int,
     d_entry: int,
     *,
-    cdir: torch.Tensor,
+    cdir_oh: Optional[torch.Tensor] = None,
+    cdir: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Peel-level ranges for ONE window of `lc` depth levels (the lazy walk,
     config.lsh_level_chunk).
@@ -251,12 +252,19 @@ def chunk_stream_direct(
     query_hashes (QG, L); d_top: the window's deepest level (an int or a
     0-d tensor); every level lies in [min_depth, d_entry], d_entry <=
     dir_bits, so each bound is a direct answer of the search's own
-    directory row cdir (L, QG, P+1) (prefix_dir[:, cluster, :]). entry_first:
+    directory row (prefix_dir[:, cluster, :]), given as exactly one of
+    cdir (L, QG, P+1) int32 or cdir_oh, the same rows as f32 (JAX's
+    one-hot MXU form, prefixmap._dir_rows_onehot; slot positions < 2^24
+    are exact in f32), which gives the same ranges. entry_first:
     level 0 is the walk's entry range [lo(d_top), hi(d_top)) instead of a
     one-sided spill. Returns (starts, sizes) (QG, lc*L) int32, level-major
     (slot j = level j // L, table j % L), as candidate_stream lays out one
     member; levels below min_depth have size 0.
     """
+    if (cdir_oh is None) == (cdir is None):
+        raise ValueError("chunk_stream_direct takes exactly one of cdir_oh and cdir")
+    if cdir is None:
+        cdir = cdir_oh.to(torch.int32)
     QG, L = query_hashes.shape
     D = max_hashbits
     dev = query_hashes.device

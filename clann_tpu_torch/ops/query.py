@@ -53,6 +53,7 @@ from clann_tpu_torch.ops.prefixmap import (
 )
 from clann_tpu_torch.ops.sketches import popcount32
 from clann_tpu_torch.ops.sources import hash_per_cluster
+from clann_tpu_torch.parallel.mesh import host_read
 
 # body steps between two host reads of a loop's stop flag
 SYNC_EVERY = 4
@@ -501,7 +502,8 @@ def search_batch_impl(
         while True:
             # JAX runs the body while any lane is live, updating done lanes
             # too, so the flag is read before every step
-            all_done, all_stopped = torch.stack([torch.all(t[2]), torch.all(t[3])]).tolist()
+            all_done, all_stopped = host_read(
+                torch.stack([torch.all(t[2]), torch.all(t[3])]).tolist)
             syncs += 1
             if all_done:
                 break
@@ -522,7 +524,7 @@ def search_batch_impl(
             msat = msat | ((end_fail <= stop_at)[:, None] & rank_ok[None, :])
             unsat = torch.any(~msat & ~is_brute_g & rank_ok[None, :], dim=1)
             if d_next >= min_depth:
-                descend = bool(torch.any(~stopped & unsat))
+                descend = host_read(torch.any(~stopped & unsat).item)
                 syncs += 1
         if not descend:
             msat = torch.zeros_like(msat)

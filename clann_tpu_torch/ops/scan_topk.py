@@ -38,6 +38,7 @@ from clann_tpu_torch.ops.distances import (
     _normalize_queries,
     as_device_f32,
     l2_normalize,
+    refuse_interpret,
     rescore,
     resolve_device,
 )
@@ -50,6 +51,19 @@ KERNEL_LAUNCHES = 0
 CANDIDATES_LAUNCHES = 0
 # K1's launches by card index (a multi-card run reads where each ran)
 KERNEL_DEVICE_LAUNCHES: collections.Counter = collections.Counter()
+
+
+def _count_launch(counter: str, card: int) -> None:
+    """One launch of K1 (counter "KERNEL_LAUNCHES", also counted by card) or
+    K2 ("CANDIDATES_LAUNCHES") on card `card`, under the count lock: the
+    mesh runner launches from one worker thread per card."""
+    from clann_tpu_torch.ops import _build
+
+    with _build.COUNT_LOCK:
+        globals()[counter] += 1
+        if counter == "KERNEL_LAUNCHES":
+            KERNEL_DEVICE_LAUNCHES[card] += 1
+
 
 # decoded sentinel for padded / invalid rows (the JAX decode's value)
 _INVALID = -(1 << 30)
@@ -130,8 +144,6 @@ def scan_candidates_packed(
     `acc_bf16`. Rows are limited by the kernel's int32 TMA coordinates
     (below 2**31 - 64 base rows, 2**31 - 256 query rows).
     """
-    global KERNEL_LAUNCHES
-
     _check_packed_args(base_bf16, queries_bf16, per_bin, group_r)
     _check_tma_rows(base_bf16.shape[0], queries_bf16.shape[0])
     if base_bf16.device.type == "cpu":
@@ -157,8 +169,7 @@ def scan_candidates_packed(
         int(acc_bf16), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, code, "clann_scan_topk_packed launch")
-    KERNEL_LAUNCHES += 1
-    KERNEL_DEVICE_LAUNCHES[dev.index] += 1
+    _count_launch("KERNEL_LAUNCHES", dev.index)
     return out
 
 
@@ -263,13 +274,16 @@ def fused_scan_candidates_packed(
     biased: bool = False,
     group_r: int = 1,
     acc_bf16: bool = False,
+    interpret: bool = False,
 ):
     """(q_pad, num_bins) approximate top candidates (vals f32, ids int64).
 
     Same contract as the JAX function. `biased`: the operands carry a bias
     column making the dot == score + 3.0. `group_r > 1`: ids are group-start
-    rows; the caller rescores all group_r rows of each.
+    rows; the caller rescores all group_r rows of each. `interpret`:
+    distances.refuse_interpret.
     """
+    refuse_interpret(interpret, base_bf16.device)
     per_bin = _check_plan(base_bf16.shape[0], queries_bf16.shape[0],
                           block_n, q_tile, num_bins, group_r)
     packed = scan_candidates_packed(
@@ -309,9 +323,11 @@ def fused_scan_topk_e2e(
     biased: bool = False,
     group_r: int = 1,
     acc_bf16: bool = False,
+    interpret: bool = False,
 ):
     """Whole fused-scan query: pad + K1 + candidate selection + exact f32
-    rescore of the best `rescore_m` + final top-k.
+    rescore of the best `rescore_m` + final top-k (`interpret`:
+    distances.refuse_interpret).
 
     Returns (exact sims desc (Q, k), ids (Q, k) int64, -1 where empty).
     `biased`: base_bf16 carries the bias column (base_bf16[:n_real, d] ==
@@ -324,7 +340,7 @@ def fused_scan_topk_e2e(
     v, i = fused_scan_candidates_packed(
         base_bf16, qp, n_real=n_real,
         num_bins=num_bins, block_n=block_n, q_tile=q_tile,
-        biased=biased, group_r=group_r, acc_bf16=acc_bf16,
+        biased=biased, group_r=group_r, acc_bf16=acc_bf16, interpret=interpret,
     )
     v, i = v[:Q], i[:Q]
     m = min(rescore_m, v.shape[1])
@@ -359,8 +375,6 @@ def scan_candidates(
     raise on anything it does not take); CPU tensors run candidates_plain.
     Rows are limited as for K1 (the same loop's int32 TMA coordinates).
     """
-    global CANDIDATES_LAUNCHES
-
     _check_operands(base_bf16, queries_bf16, per_bin)
     _check_tma_rows(base_bf16.shape[0], queries_bf16.shape[0])
     if base_bf16.device.type == "cpu":
@@ -385,7 +399,7 @@ def scan_candidates(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, code, "clann_scan_candidates launch")
-    CANDIDATES_LAUNCHES += 1
+    _count_launch("CANDIDATES_LAUNCHES", dev.index)
     return vals, ids
 
 
@@ -425,10 +439,13 @@ def fused_scan_candidates(
     num_bins: int = 128,
     block_n: int = 16384,
     q_tile: int = 256,
+    interpret: bool = False,
 ):
     """(q_pad, num_bins) approximate top candidates (vals f32, ids int64):
     K2, then the padded rows masked and the strongest num_bins of the
-    (n_pad / per_bin) bin winners kept, as the JAX function does."""
+    (n_pad / per_bin) bin winners kept, as the JAX function does
+    (`interpret`: distances.refuse_interpret)."""
+    refuse_interpret(interpret, base_bf16.device)
     per_bin = _check_plan(base_bf16.shape[0], queries_bf16.shape[0],
                           block_n, q_tile, num_bins, 1)
     vals, ids = scan_candidates(base_bf16, queries_bf16, per_bin=per_bin)
@@ -448,6 +465,7 @@ def pallas_scan_topk(
     block_n: int = 16384,
     q_tile: int = 256,
     batch_q: int = 4096,
+    interpret: bool = False,
     device="cuda",
 ):
     """Fused-kernel dense scan (K2 candidates): returns numpy (exact cosine
@@ -456,11 +474,13 @@ def pallas_scan_topk(
     The base is unbiased, padded to dpad = ceil(d / 128) * 128 columns; the
     candidates of each batch of `batch_q` queries are re-scored exactly in
     f32 and the best k kept, as in the JAX function. Runs on the card unless
-    `device` names the CPU (resolve_device: no fallback).
+    `device` names the CPU (resolve_device: no fallback). `interpret`:
+    distances.refuse_interpret.
     """
     if k > num_bins:
         raise ValueError(f"k={k} must be <= num_bins={num_bins}")
     device = resolve_device(device)
+    refuse_interpret(interpret, device)
     base_n = l2_normalize(as_device_f32(base, device))
     qn_all = l2_normalize(as_device_f32(queries, device))
     n, d = base_n.shape

@@ -11,10 +11,12 @@ host-side work by rank.
 
 Several processes on one host take one card each, torchrun's layout: a
 process whose environment names its LOCAL_RANK (and not a
-LOCAL_WORLD_SIZE of 1) owns the card cuda:{LOCAL_RANK} alone, as a JAX
-process owns only its local devices. `initialize_distributed` makes that
-card current before it opens an NCCL group, and `global_mesh` gives the
-process that card unless the caller names its devices.
+LOCAL_WORLD_SIZE of 1) owns one card alone, as a JAX process owns only its
+local devices: cuda:{LOCAL_RANK} when it sees that card, cuda:0 when it
+sees exactly one (a launcher gave it only its own through
+CUDA_VISIBLE_DEVICES), and a ValueError otherwise. `initialize_distributed`
+makes that card current before it opens an NCCL group, and `global_mesh`
+gives the process that card unless the caller names its devices.
 
 A single process needs no initialization; these helpers are gated so the
 same entry points work everywhere.
@@ -49,7 +51,7 @@ def initialize_distributed(
     and a LOCAL_RANK in the environment, that card is made current first
     (NCCL binds each rank to the current device). Without an address and
     a process count (a single process) nothing is opened and False is
-    returned; True when a group was opened.
+    returned; True when a group was opened. The card is `_local_card`'s.
     """
     import torch.distributed as dist
 
@@ -71,7 +73,7 @@ def initialize_distributed(
     backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
     local_rank = _int_env("LOCAL_RANK")
     if backend == "nccl" and local_rank is not None:
-        torch.cuda.set_device(local_rank)
+        torch.cuda.set_device(_local_card(local_rank))
     dist.init_process_group(backend, init_method=init_method, world_size=num_processes,
                             rank=process_id)
     log.info("torch.distributed initialized: process %d/%d (%s)",
@@ -92,15 +94,28 @@ def _world() -> tuple:
     return 0, 1
 
 
+def _local_card(local_rank: int) -> int:
+    """The card of the process with this LOCAL_RANK: LOCAL_RANK itself while
+    this process sees that many cards, 0 when it sees exactly one; a
+    LOCAL_RANK beyond several visible cards raises (no other card is
+    taken in its place)."""
+    n = len(visible_devices())
+    if local_rank < n:
+        return local_rank
+    if n == 1:
+        return 0
+    raise ValueError(f"LOCAL_RANK {local_rank} names no card of the {n} this process sees")
+
+
 def default_local_devices() -> List[torch.device]:
-    """This process's devices: cuda:{LOCAL_RANK} alone when it is one of
-    several processes on its host (LOCAL_RANK set, LOCAL_WORLD_SIZE unset
-    or above 1) in a group of several processes, else every visible CUDA
-    device."""
+    """This process's devices: its one card (`_local_card`) when it is one
+    of several processes on its host (LOCAL_RANK set, LOCAL_WORLD_SIZE
+    unset or above 1) in a group of several processes, else every visible
+    CUDA device."""
     local_rank = _int_env("LOCAL_RANK")
     if (_world()[1] > 1 and local_rank is not None
             and _int_env("LOCAL_WORLD_SIZE") != 1):
-        return [torch.device("cuda", local_rank)]
+        return [torch.device("cuda", _local_card(local_rank))]
     return visible_devices()
 
 

@@ -42,7 +42,7 @@ from clann_tpu_torch.ops.prefixmap import sort_tables_segmented
 from clann_tpu_torch.ops.query import SearchStats
 from clann_tpu_torch.ops.sketches import pack_bits_u32
 from clann_tpu_torch.ops.sources import IndependentHashSource
-from clann_tpu_torch.parallel.mesh import make_mesh, psum, shard_span
+from clann_tpu_torch.parallel.mesh import make_mesh, psum, run_shards, taking_turns
 from clann_tpu_torch.parallel.sharded import _merge_topk, _params_to, _place, _placement
 
 SHARD_FIELDS = ("tokens", "set_sizes", "sorted_hash", "sorted_idx", "sketches",
@@ -72,6 +72,11 @@ class ShardedJaccardIndex:
     sim_eps: float = 5e-3
     table_hash: str = "minhash"
     sketch_hash: str = "1bit_minhash"
+
+    def replace(self, **changes):
+        """A copy with `changes` to its fields (flax's struct.dataclass
+        `replace`, which the JAX package's index has)."""
+        return dataclasses.replace(self, **changes)
 
     @property
     def n_devices(self) -> int:
@@ -195,32 +200,32 @@ def sharded_jaccard_search(
         sh, hash_params=_params_to(sh.hash_params, lead),
         sketch_params=_params_to(sh.sketch_params, lead)), qt)
 
-    D = sh.n_devices
-    sims_p, ids_p, stats_p = [None] * D, [None] * D, [None] * D
-    for s, dev in enumerate(devs):
-        if not mesh.is_local(s):
-            continue
-        with shard_span(dev):
-            local = JaccardIndex(
-                **{f: getattr(sh, f)[s].to(dev) for f in SHARD_FIELDS if f != "global_ids"},
-                hash_params=_params_to(sh.hash_params, dev),
-                sketch_params=_params_to(sh.sketch_params, dev),
-                probs_table=sh.probs_table.to(dev),
-                sketch_p1_table=sh.sketch_p1_table.to(dev),
-                config=cfg,
-                universe=sh.universe,
-                sim_eps=sh.sim_eps,
-                table_hash=sh.table_hash,
-                sketch_hash=sh.sketch_hash,
-            )
+    def shard(s):
+        dev = devs[s]
+        local = JaccardIndex(
+            **{f: getattr(sh, f)[s].to(dev) for f in SHARD_FIELDS if f != "global_ids"},
+            hash_params=_params_to(sh.hash_params, dev),
+            sketch_params=_params_to(sh.sketch_params, dev),
+            probs_table=sh.probs_table.to(dev),
+            sketch_p1_table=sh.sketch_p1_table.to(dev),
+            config=cfg,
+            universe=sh.universe,
+            sim_eps=sh.sim_eps,
+            table_hash=sh.table_hash,
+            sketch_hash=sh.sketch_hash,
+        )
+        with taking_turns():  # the engine's loop: small ops
             sims, lids, stats = jaccard_search_batch_mapped(
                 local, qt.to(dev), qh.to(dev), qsk.to(dev), float(delta), k=k,
                 chunk=cfg.candidate_chunk, min_depth=cfg.min_depth)
             gids = sh.global_ids[s].to(dev)
             out_ids = torch.where(lids >= 0, gids[torch.clamp(lids, min=0).to(torch.int64)], -1)
-            sims_p[s] = torch.where(out_ids >= 0, sims, -1.0)  # drop padding hits
-            ids_p[s] = out_ids
-            stats_p[s] = stats
+            # padding hits dropped
+            return torch.where(out_ids >= 0, sims, -1.0), out_ids, stats
+
+    parts = run_shards([dev if mesh.is_local(s) else None for s, dev in enumerate(devs)],
+                       shard)
+    sims_p, ids_p, stats_p = zip(*(p or (None, None, None) for p in parts))
     ts, ti = _merge_topk(mesh, sims_p, ids_p, lead, k)
     ti = torch.where(ts > -1.0, ti, -1)
     stats = SearchStats(*(psum(mesh, [None if st is None else st[f] for st in stats_p], lead)
@@ -285,16 +290,18 @@ def build_jaccard_sharded(
     probs, maxdiff = jaccard_probs_tables(family, sketch_family, cfg)
 
     toks = _place(tok_s, devices)
-    built = {f: [None] * D for f in ("sorted_hash", "sorted_idx", "sketches", "g_records")}
-    for s, dev in enumerate(devices):
-        if dev is None:
-            continue
+    def shard(s):  # each shard on its device, the cards at once
+        dev = devices[s]
         src = copy.copy(source)
         src.params = _params_to(source.params, dev)
         sh, si, sk = hash_tables(toks[s], src, sketch_family, _params_to(sk_params, dev), cfg,
                                  budget_bytes=hash_budget_bytes)
-        built["sorted_hash"][s], built["sorted_idx"][s], built["sketches"][s] = sh, si, sk
-        built["g_records"][s] = _shard_records(cfg, si, sk)
+        return {"sorted_hash": sh, "sorted_idx": si, "sketches": sk,
+                "g_records": _shard_records(cfg, si, sk)}
+
+    parts = run_shards(devices, shard)
+    built = {f: [None if p is None else p[f] for p in parts]
+             for f in ("sorted_hash", "sorted_idx", "sketches", "g_records")}
 
     return ShardedJaccardIndex(
         tokens=toks,

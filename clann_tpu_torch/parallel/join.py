@@ -22,7 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from clann_tpu_torch.parallel.mesh import all_gather, make_mesh, shard_span
+from clann_tpu_torch.parallel.mesh import all_gather, make_mesh, run_shards
 
 
 def _sharded_window_pairs(mesh, vec_parts, idx_parts, valid_parts, *, k: int, window: int,
@@ -33,18 +33,15 @@ def _sharded_window_pairs(mesh, vec_parts, idx_parts, valid_parts, *, k: int, wi
     Returns (sims desc (k,), pairs (k, 2))."""
     from clann_tpu_torch.ops.join import dedup_topk_pairs, table_pairs
 
-    D = len(idx_parts)
-    sims_p, lo_p, hi_p = [None] * D, [None] * D, [None] * D
-    for s, idx_shard in enumerate(idx_parts):
-        if idx_shard is None:
-            continue
-        with shard_span(idx_shard.device):
-            n = vec_parts[s].shape[0]
-            sims, lo, hi = table_pairs(vec_parts[s], idx_shard, k=k, window=window)
-            mask = valid_parts[s][:, None]
-            sims_p[s] = torch.where(mask, sims, -1.0)
-            lo_p[s] = torch.where(mask, lo, n)
-            hi_p[s] = torch.where(mask, hi, n)
+    def shard(s):  # the cards at once (mesh.run_shards)
+        n = vec_parts[s].shape[0]
+        sims, lo, hi = table_pairs(vec_parts[s], idx_parts[s], k=k, window=window)
+        mask = valid_parts[s][:, None]
+        return torch.where(mask, sims, -1.0), torch.where(mask, lo, n), torch.where(mask, hi, n)
+
+    parts = run_shards([None if p is None else dev
+                        for p, dev in zip(idx_parts, mesh.cluster_devices())], shard)
+    sims_p, lo_p, hi_p = zip(*(p or (None, None, None) for p in parts))
     # the (Lp, kk) winner lists are small; one dedup + top-k on `lead`
     return dedup_topk_pairs(all_gather(mesh, sims_p, lead).reshape(-1),
                             all_gather(mesh, lo_p, lead).reshape(-1),

@@ -2,14 +2,18 @@
 ``clann_tpu.parallel.mesh``).
 
 The JAX package's mesh is single-controller: one process drives every
-device of a `jax.sharding.Mesh`, and `shard_map` runs one body per device.
-The port keeps that model. A `Mesh` is an array of torch devices with axis
-names; a sharded function runs its shard bodies in order from one thread,
-each on its shard's device, and the shard_map collectives become the plain
-functions below over per-shard tensors (`all_gather`, `psum`, `pmax`,
-`owner_row`). Several shards may name one device: a 4-shard mesh on one
-card is `make_mesh(4, devices=["cuda:0"] * 4)`, and its shards then run one
-after another.
+device of a `jax.sharding.Mesh`, and `shard_map` runs one body per device,
+all at once. The port keeps that model. A `Mesh` is an array of torch
+devices with axis names; a sharded function hands its shard bodies to
+`run_shards`, which runs the bodies of distinct cards at once (one worker
+thread per card, each on its card's current stream) and the shards of one
+card in order; loop bodies of many small ops take turns issuing
+(`taking_turns`, `host_read`), and the shard_map collectives become the
+plain functions below over per-shard tensors (`all_gather`, `psum`,
+`pmax`, `owner_row`).
+Several shards may name one device: a 4-shard mesh on one card is
+`make_mesh(4, devices=["cuda:0"] * 4)`, and its shards then run one after
+another from the calling thread.
 
 Across processes (parallel/distributed.global_mesh) `ranks` names the
 process that owns each device. A process runs only its own shards (the
@@ -19,9 +23,12 @@ processes through torch.distributed.all_gather.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import threading
+import traceback
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,11 +37,21 @@ CLUSTER_AXIS = "cluster"
 QUERY_AXIS = "query"
 
 # Per-card spans of the shard bodies, a reading of how the cards overlap:
-# while this is a list, every sharded search appends (device, start event,
-# end event) around each shard body it runs on a CUDA device, recorded on
-# that card's current stream (no host sync). None (the default) records
-# nothing.
+# while this is a list, `run_shards` appends (device, start event, end
+# event) around each shard body it runs on a CUDA device, recorded on that
+# card's current stream (no host sync). None (the default) records nothing.
 SHARD_SPANS: Optional[list] = None
+
+# True inside `_shards_in_order()`: run_shards then runs every body in shard
+# order from the calling thread, as the port did before it ran the cards at
+# once. For readings and tests only.
+_IN_ORDER = False
+_LOCK = threading.Lock()  # SHARD_SPANS appends and the worker pool
+_WORKERS: Dict[torch.device, concurrent.futures.ThreadPoolExecutor] = {}
+# .worker: this thread is a card's worker; .turn: it holds _TURN
+_THREAD = threading.local()
+# The issuing turn of the workers' loop bodies (taking_turns / host_read).
+_TURN = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -87,7 +104,133 @@ def shard_span(device):
     start.record(stream)
     yield
     end.record(stream)
-    spans.append((dev, start, end))
+    with _LOCK:
+        spans.append((dev, start, end))
+
+
+@contextlib.contextmanager
+def _shards_in_order():
+    """Within this block run_shards runs every shard body in shard order
+    from the calling thread (the in-order reading beside the at-once one)."""
+    global _IN_ORDER
+    prev, _IN_ORDER = _IN_ORDER, True
+    try:
+        yield
+    finally:
+        _IN_ORDER = prev
+
+
+@contextlib.contextmanager
+def taking_turns():
+    """Within this block a run_shards worker issues torch ops only while
+    it holds the turn, which it passes on while it waits in `host_read`:
+    the cards' loop bodies interleave their host work (one thread issuing
+    at a time) and overlap their device work. Every torch op releases and
+    retakes the interpreter lock, so workers issuing small ops side by side
+    hand the lock over at every op, which costs far more than the op on
+    some hosts; taking turns hands it over once per host read. Outside a
+    worker (inline runs, one card) it does nothing."""
+    if not getattr(_THREAD, "worker", False) or getattr(_THREAD, "turn", False):
+        yield
+        return
+    _TURN.acquire()
+    _THREAD.turn = True
+    try:
+        yield
+    finally:
+        _THREAD.turn = False
+        _TURN.release()
+
+
+def host_read(fn: Callable[[], Any]) -> Any:
+    """fn(), a read that waits on the device (a loop's host sync); a worker
+    holding the turn (taking_turns) passes it on while it waits."""
+    if not getattr(_THREAD, "turn", False):
+        return fn()
+    _THREAD.turn = False
+    _TURN.release()
+    try:
+        return fn()
+    finally:
+        _TURN.acquire()
+        _THREAD.turn = True
+
+
+def _card(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _worker(dev: torch.device) -> concurrent.futures.ThreadPoolExecutor:
+    """The card's worker: one thread, made on first use and kept."""
+    with _LOCK:
+        pool = _WORKERS.get(dev)
+        if pool is None:
+            pool = _WORKERS[dev] = concurrent.futures.ThreadPoolExecutor(
+                1, thread_name_prefix=f"clann-shards-{dev}")
+        return pool
+
+
+def run_shards(devices: Sequence[Optional[torch.device]],
+               body: Callable[[int], Any]) -> List[Any]:
+    """`body(i)` for every shard i whose device is not None (the shards of
+    this process), each inside shard_span(devices[i]); returns the results
+    by shard (None for the others). The shard_map of the single controller.
+
+    The shards are grouped by device, and each device gets one worker
+    thread: the devices' bodies run at once, and one device's shards run
+    in shard order in its worker. A worker makes its card current and
+    takes, on every card of the call, the stream that is current in the
+    calling thread, so the caller's merges (all_gather, .to(lead)) are
+    ordered after the bodies' work with no new events. When every shard
+    lies on one device (a one-card mesh, a CPU mesh, one process per card),
+    under `_shards_in_order()`, or when called from a worker, the bodies run
+    inline in shard order. Loop bodies that issue many small ops take turns
+    (taking_turns, host_read).
+
+    Waits for every worker. If bodies raised, the first one's exception (in
+    shard order) is raised once every worker has stopped, with the others'
+    added to it as notes.
+    """
+    out: List[Any] = [None] * len(devices)
+    live = [i for i, d in enumerate(devices) if d is not None]
+    groups: Dict[torch.device, List[int]] = {}
+    for i in live:
+        groups.setdefault(_card(devices[i]), []).append(i)
+
+    def run(i):
+        with shard_span(devices[i]):
+            return body(i)
+
+    if _IN_ORDER or len(groups) <= 1 or getattr(_THREAD, "worker", False):
+        for i in live:
+            out[i] = run(i)
+        return out
+    streams = [torch.cuda.current_stream(d) for d in groups if d.type == "cuda"]
+
+    def work(dev, shards):
+        _THREAD.worker = True
+        with contextlib.ExitStack() as scope:
+            for st in streams:
+                scope.enter_context(torch.cuda.stream(st))
+            if dev.type == "cuda":
+                scope.enter_context(torch.cuda.device(dev))
+            for i in shards:
+                out[i] = run(i)
+
+    futures = [(shards[0], _worker(dev).submit(work, dev, shards))
+               for dev, shards in groups.items()]
+    concurrent.futures.wait([f for _, f in futures])
+    errors = [f.exception() for _, f in sorted(futures, key=lambda x: x[0])
+              if f.exception() is not None]
+    if errors:
+        for other in errors[1:]:
+            errors[0].add_note("another shard body raised too:\n"
+                               + "".join(traceback.format_exception(other)))
+        raise errors[0]
+    return out
 
 
 def _device_array(devices) -> np.ndarray:

@@ -49,7 +49,9 @@ from clann_tpu_torch.parallel.mesh import (
     all_gather,
     make_mesh,
     psum,
+    run_shards,
     shard_span,
+    taking_turns,
 )
 
 PAD_RADIUS = 2.5  # > max cosine distance 2.0 -> the ball bound can never fire
@@ -99,6 +101,11 @@ class ShardedIndex:
     # source index has them (config.pack_slot_records): the sharded walk
     # then gathers them through kernel K7, as the single-device walk does
     slot_records: Optional[List] = None  # (L, n_pad, 1 + W) int32
+
+    def replace(self, **changes):
+        """A copy with `changes` to its fields (flax's struct.dataclass
+        `replace`, which the JAX package's index has)."""
+        return dataclasses.replace(self, **changes)
 
     @property
     def n_devices(self) -> int:
@@ -419,43 +426,44 @@ def build_sharded(data, config: Config, mesh=None, metric: str = "angular") -> S
     build_global = cfg.lsh_engine in ("global", "both")
     build_records = cfg.pack_slot_records and cfg.lsh_engine in ("clustered", "both")
 
-    # 3. per shard, on its device: normalize, hash, sketch and sort its own
-    # points
-    built = {f: [None] * D for f in ("vectors", "centers", "sorted_hash", "sorted_idx",
-                                     "sketches") + GLOBAL_FIELDS + ("slot_records",)}
-    g_dir_iters = 0
+    # 3. per shard, on its device (the cards at once, mesh.run_shards):
+    # gather, upload and normalize its own rows, hash, sketch and sort them
+    def shard(s):
+        dev = devices[s]
+        src, flt = copy.copy(source), copy.copy(filterer)
+        src.params = _params_to(source.params, dev)
+        flt.params = _params_to(filterer.params, dev)
+        # rows normalized one by one on the shard's device, as build_index
+        # normalizes them, so the shard vectors equal
+        # shard_index(build_index(...))'s bit for bit; pad rows zero
+        n_loc, n_cl = int(n_locals[s]), len(groups[s])
+        xl = torch.zeros((n_max, d), dtype=torch.float32, device=dev)
+        xl[:n_loc] = l2_normalize(torch.as_tensor(x[global_ids[s, :n_loc]], device=dev))
+        cen = torch.zeros((C_max, d), dtype=torch.float32, device=dev)
+        cen[:n_cl] = l2_normalize(torch.as_tensor(x[center_ids[s, :n_cl]], device=dev))
+        cl = torch.as_tensor(clus_local[s], device=dev)
+        hashes = _hash_in_blocks(src.hash, xl, 8192)  # (n_max, L)
+        sk = _hash_in_blocks(flt.sketch, xl, 8192)  # (n_max, S, W)
+        pad = torch.arange(n_max, device=dev) >= n_loc
+        hashes_T = torch.where(pad[None, :], PAD_HASH, hashes.T).contiguous()
+        out = {"vectors": xl, "centers": cen, "sketches": sk}
+        out["sorted_hash"], out["sorted_idx"] = sort_tables_segmented(hashes_T, cl)
+        if build_global:
+            # 4. the global engine's tables and directory
+            (out["g_sorted_hash"], out["g_records"], out["g_dir"],
+             out["g_dir_iters"]) = _global_tables(cfg, hashes_T, sk, cl, n_max)
+        if build_records:
+            out["slot_records"] = _slot_records(cfg, out["sorted_idx"], sk)
+        return out
+
     on_cards = []  # a tensor per shard: the span synchronizes their devices
     with TRACER.span("sharded_build/shards", block_on=on_cards):
-        for s, dev in enumerate(devices):
-            if dev is None:
-                continue
-            src, flt = copy.copy(source), copy.copy(filterer)
-            src.params = _params_to(source.params, dev)
-            flt.params = _params_to(filterer.params, dev)
-            # rows normalized one by one on the shard's device, as build_index
-            # normalizes them, so the shard vectors equal
-            # shard_index(build_index(...))'s bit for bit; pad rows zero
-            n_loc, n_cl = int(n_locals[s]), len(groups[s])
-            xl = torch.zeros((n_max, d), dtype=torch.float32, device=dev)
-            xl[:n_loc] = l2_normalize(torch.as_tensor(x[global_ids[s, :n_loc]], device=dev))
-            cen = torch.zeros((C_max, d), dtype=torch.float32, device=dev)
-            cen[:n_cl] = l2_normalize(torch.as_tensor(x[center_ids[s, :n_cl]], device=dev))
-            cl = torch.as_tensor(clus_local[s], device=dev)
-            hashes = _hash_in_blocks(src.hash, xl, 8192)  # (n_max, L)
-            sk = _hash_in_blocks(flt.sketch, xl, 8192)  # (n_max, S, W)
-            pad = torch.arange(n_max, device=dev) >= n_loc
-            hashes_T = torch.where(pad[None, :], PAD_HASH, hashes.T).contiguous()
-            built["vectors"][s], built["centers"][s] = xl, cen
-            on_cards.append(xl)
-            built["sorted_hash"][s], built["sorted_idx"][s] = sort_tables_segmented(hashes_T, cl)
-            built["sketches"][s] = sk
-            if build_global:
-                # 4. the global engine's tables and directory
-                (built["g_sorted_hash"][s], built["g_records"][s], built["g_dir"][s],
-                 iters) = _global_tables(cfg, hashes_T, sk, cl, n_max)
-                g_dir_iters = max(g_dir_iters, iters)
-            if build_records:
-                built["slot_records"][s] = _slot_records(cfg, built["sorted_idx"][s], sk)
+        parts = run_shards(devices, shard)
+        on_cards.extend(p["vectors"] for p in parts if p is not None)
+    fields = ("vectors", "centers", "sorted_hash", "sorted_idx", "sketches") + GLOBAL_FIELDS
+    built = {f: [None if p is None else p.get(f) for p in parts]
+             for f in fields + ("slot_records",)}
+    g_dir_iters = max((p.get("g_dir_iters", 0) for p in parts if p is not None), default=0)
 
     return ShardedIndex(
         vectors=built["vectors"],
@@ -549,32 +557,33 @@ def _merge_topk(mesh, sims, ids, lead, k: int):
 def _run_shards(sharded: ShardedIndex, mesh, queries_n, query_hashes, query_sketches,
                 body, *, k: int):
     """Run `body(index, qn, qh, qs) -> (sims, local ids, stats)` on every
-    local shard of every query block, map ids to global ids, merge the
-    top-k across the cluster axis and psum the stats. Returns tensors on
-    the first device of the mesh."""
+    local shard of every query block (at once across cards, mesh.run_shards),
+    map ids to global ids, merge the top-k across the cluster axis and psum
+    the stats. Returns tensors on the first device of the mesh."""
     D = sharded.n_devices
     dq = _check_mesh(mesh, sharded, queries_n.shape[0])
     qb = queries_n.shape[0] // dq
     lead = mesh.cluster_devices(0)[0]
+    # shard j = b * D + s: cluster shard s of query block b
+    devices = [mesh.cluster_devices(b)[s] if mesh.is_local(s, b) else None
+               for b in range(dq) for s in range(D)]
+
+    def shard(j):
+        b, s = divmod(j, D)
+        dev, rows = devices[j], slice(b * qb, (b + 1) * qb)
+        with taking_turns():  # the walk's and the engine's loops: small ops
+            index = _local_index(sharded, s, dev)
+            sims, ids, stats = body(index, queries_n[rows].to(dev), query_hashes[rows].to(dev),
+                                    query_sketches[rows].to(dev))
+        gids = sharded.global_ids[s].to(dev)
+        return sims, torch.where(ids >= 0, gids[torch.clamp(ids, min=0).to(torch.int64)],
+                                 -1), stats
+
+    parts = run_shards(devices, shard)
     out_s, out_i, out_st = [], [], []
     for b in range(dq):
-        rows = slice(b * qb, (b + 1) * qb)
         devs = mesh.cluster_devices(b)
-        sims_p, ids_p, stats_p = [None] * D, [None] * D, [None] * D
-        for s in range(D):
-            if not mesh.is_local(s, b):
-                continue
-            dev = devs[s]
-            with shard_span(dev):
-                index = _local_index(sharded, s, dev)
-                sims, ids, stats = body(index, queries_n[rows].to(dev),
-                                        query_hashes[rows].to(dev),
-                                        query_sketches[rows].to(dev))
-                gids = sharded.global_ids[s].to(dev)
-                sims_p[s] = sims
-                ids_p[s] = torch.where(ids >= 0, gids[torch.clamp(ids, min=0).to(torch.int64)],
-                                       -1)
-                stats_p[s] = stats
+        sims_p, ids_p, stats_p = zip(*(p or (None, None, None) for p in parts[b * D:(b + 1) * D]))
         top_sims, top_ids = _merge_topk(mesh, sims_p, ids_p, devs[0], k)
         stats = SearchStats(*(psum(mesh, [None if st is None else st[f] for st in stats_p],
                                    devs[0])

@@ -15,7 +15,11 @@ its multichip checks on four cards, in both forms:
   path with its shards on cuda:0-3 (`make_mesh(4)`, one controller) held
   to the same call on a one-card 4-shard mesh: ids per query up to ties,
   distance computations and kernel launches equal; each shard's tensors on
-  its own card, each K1 / K7 launch on its shard's card;
+  its own card, each K1 / K7 launch on its shard's card. The global engine,
+  the walk, Jaccard and build_sharded are read twice on the cards, the
+  shard bodies forced in order (`parallel.mesh._shards_in_order`), then at
+  once (`parallel.mesh.run_shards`, one worker per card), and the two
+  readings must agree bit for bit (`same_bits`, `same_index`);
 - `dryruns`: `parallel.sharded.dryrun` and `dryrun_large` over the cards;
 - `nccl_ranks`: one process per card (`parallel/distributed`, NCCL, a
   file:// rendezvous) runs `build_sharded` and two searches; rank 0's
@@ -39,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -222,6 +227,110 @@ def same_search(a, b, what: str, atol: float = 1e-5) -> float:
     return float(np.mean(np.asarray(a[1]) == np.asarray(b[1])))
 
 
+def in_order_and_at_once(fn: Callable[[], object], spans: bool = False):
+    """fn read twice: its shard bodies forced in order, then at once (the
+    default). Returns the two readings (with the tracer's stage seconds
+    when `spans`)."""
+    from clann_tpu_torch.parallel import mesh as pm
+
+    read = timed_spans if spans else timed
+    with pm._shards_in_order():
+        first = read(fn)
+    return first, read(fn)
+
+
+def same_bits(a: Reading, b: Reading, what: str, by_card: bool = True) -> None:
+    """Two readings of one search: distances, ids and every stat equal bit
+    for bit (same_search at atol 0 first, for its message), and the same
+    K1 / K7 launches, by card (or in all, for two layouts of the cards)."""
+    same_search(a.out, b.out, what, atol=0.0)
+    check(all(np.array_equal(x, y) for x, y in zip(a.out[:2], b.out[:2]))
+          and all(np.array_equal(x, y) for x, y in zip(a.out[2], b.out[2])),
+          f"{what}: the results differ in their bits")
+    count = (lambda c: c) if by_card else (lambda c: sum(c.values()))
+    check(count(a.k1) == count(b.k1) and count(a.k7) == count(b.k7),
+          f"{what}: launches K1 {a.k1} / {b.k1}, K7 {a.k7} / {b.k7}")
+
+
+def same_index(a, b, what: str) -> None:
+    """Two sharded indexes equal shard for shard, every tensor bit for bit
+    (on the same cards) and every other field equal."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, list):
+            bad = [s for s, (u, v) in enumerate(zip(x, y))
+                   if not (u is None and v is None) and not torch.equal(u, v.to(u.device))]
+            check(len(x) == len(y) and not bad, f"{what}: {f.name} differs on shards {bad}")
+        elif isinstance(x, torch.Tensor):
+            check(torch.equal(x, y.to(x.device)), f"{what}: {f.name} differs")
+        elif not isinstance(x, dict):
+            check(x == y, f"{what}: {f.name} differs")
+
+
+def _pair(first: Reading, second: Reading, n_queries: int = 0) -> str:
+    """The in-order and at-once readings side by side."""
+    qps = (lambda r: f"{n_queries / r.seconds:.1f} QPS, ") if n_queries else (lambda r: "")
+    return (f"in order {qps(first)}{first.line()}; at once {qps(second)}{second.line()}; "
+            f"{first.seconds / second.seconds:.2f}x")
+
+
+def _covered(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, -np.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def profile_overlap(fn: Callable[[], object], what: str) -> None:
+    """fn under torch.profiler, its shard bodies in order and then at once
+    (the second of two sessions each): each card's device busy share (the
+    union of its kernels and copies over the wall; the profiler sees every
+    thread's device work) and, in order, the calling thread's time inside
+    torch ops (the union of its outermost ops, host syncs included; the
+    profiler records the ops of that thread only). The rest of the in-order
+    wall is Python between the ops, which holds the interpreter lock: the
+    at-once run cannot take less than it, so wall / Python bounds its
+    speed-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from clann_tpu_torch.parallel import mesh as pm
+
+    def session():
+        for _ in range(2):  # the first session pays the profiler's start-up
+            sync_all()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                sync_all()
+                wall_us = (time.perf_counter() - t0) * 1e6
+        cards_iv: Dict[int, list] = collections.defaultdict(list)
+        ops_iv = []
+        for e in prof.events():
+            iv = (e.time_range.start, e.time_range.end)
+            if e.device_type == DeviceType.CUDA:
+                cards_iv[e.device_index].append(iv)
+            elif e.cpu_parent is None:
+                ops_iv.append(iv)
+        busy = ", ".join(f"cuda:{c} {_covered(v) / wall_us:.3f}"
+                         for c, v in sorted(cards_iv.items()))
+        return wall_us, busy, _covered(ops_iv)
+
+    with pm._shards_in_order():
+        wall_o, busy_o, ops_o = session()
+    wall_a, busy_a, _ = session()
+    glue = wall_o - ops_o
+    log(f"[cards] profile of {what}: in order {wall_o / 1e3:.1f} ms under the profiler, "
+        f"device busy share per card {busy_o}; the thread inside torch ops "
+        f"{ops_o / 1e3:.1f} ms, Python between them {glue / 1e3:.1f} ms ({glue / wall_o:.3f} "
+        f"of the wall: a bound of {wall_o / max(glue, 1.0):.2f}x on running the bodies at "
+        f"once under one interpreter lock); at once {wall_a / 1e3:.1f} ms "
+        f"({wall_o / wall_a:.2f}x), device busy share per card {busy_a}")
+
+
 def _recall(gt_d, gt_i, d, i):
     from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
 
@@ -313,6 +422,47 @@ def collectives(label: str, n_cards: int = 4, d: int = GLOVE_D, calls: int = 200
         f"equal to the one-card mesh's on {label}")
 
 
+def thread_ops(label: str, n_cards: int = 4, ops: int = 20_000, sync_every: int = 64,
+               kinds: Sequence[str] = ("cuda", "cpu")) -> None:
+    """The host's cost per torch op when one worker thread per device
+    issues (run_shards) against one thread in order: each of n_cards
+    bodies adds 1 to a 16-float tensor `ops` times, reading a sum back
+    every `sync_every` ops (a loop body's host sync), on cuda:0-3 and on
+    four CPU devices (no CUDA at all: the interpreter lock alone); at once
+    both side by side and taking turns (parallel.mesh.taking_turns, the
+    turn passed on at each read, as the LSH loops run)."""
+    from clann_tpu_torch.parallel import mesh as pm
+
+    for kind in kinds:
+        devs = [torch.device(kind, i) for i in range(n_cards)]
+        xs = [torch.zeros(16, device=d) for d in devs]
+
+        def body(i, turns):
+            with pm.taking_turns() if turns else contextlib.nullcontext():
+                x = xs[i]
+                for j in range(ops):
+                    x = x + 1
+                    if (j + 1) % sync_every == 0:
+                        pm.host_read(x.sum().item)
+                return x
+
+        times = []
+        for forced, turns in ((True, False), (False, False), (False, True)):
+            sync_all()
+            t0 = time.perf_counter()
+            with pm._shards_in_order() if forced else contextlib.nullcontext():
+                out = pm.run_shards(devs, lambda i: body(i, turns))
+            sync_all()
+            times.append(time.perf_counter() - t0)
+            check(all(float(x[0]) == ops for x in out), f"thread_ops on {kind}: wrong sums")
+        per_op = [t / (n_cards * ops) * 1e6 for t in times]
+        log(f"[cards] host cost per torch op on {n_cards} {kind} devices ({ops} one-element "
+            f"additions each, a host sync every {sync_every}): in order {per_op[0]:.2f} us, at "
+            f"once side by side {per_op[1]:.2f} us ({times[0] / times[1]:.2f}x), taking turns "
+            f"{per_op[2]:.2f} us ({times[0] / times[2]:.2f}x), per op over the {n_cards} "
+            f"workers on {label}")
+
+
 # --- the glove shape, one controller -----------------------------------------
 
 def glove_scan(handle, train, test, gt_d, gt_i, label: str, n_cards: int = 4) -> int:
@@ -375,24 +525,30 @@ def glove_scan(handle, train, test, gt_d, gt_i, label: str, n_cards: int = 4) ->
     sync_all()
     reset_peaks()
     g1, spans1 = timed_spans(lambda: sh.build_sharded(train, idx.config, mesh=one))
-    g4, spans4 = timed_spans(lambda: sh.build_sharded(train, idx.config, mesh=four))
+    (g4o, spans4o), (g4, spans4) = in_order_and_at_once(
+        lambda: sh.build_sharded(train, idx.config, mesh=four), spans=True)
     shards_on_cards(g4.out, devs, "build_sharded")
     still_on_card_0("build_sharded")
+    same_index(g4o.out, g4.out, "build_sharded in order against at once")
+    g4o.out = None
     bad = sharded_real_slot_mismatches(g1.out, g4.out)
     log(f"[cards] build_sharded (sharded GMM, per-shard hashing, sorts, global tables) with "
-        f"the main path's config on cuda:0-{n_cards - 1}: {g4.seconds:.3f} s (stages: "
-        f"{_spans(spans4)}; one card {g1.seconds:.3f} s: {_spans(spans1)}); real slots equal "
-        f"to the one-card build: {not bad}; peak memory per card {peaks_gb()} GB")
+        f"the main path's config on cuda:0-{n_cards - 1}: {_pair(g4o, g4)}, equal shard for "
+        f"shard (stages in order: {_spans(spans4o)}; at once: {_spans(spans4)}); one card "
+        f"{g1.seconds:.3f} s: {_spans(spans1)}; real slots equal to the one-card build: "
+        f"{not bad}; peak memory per card {peaks_gb()} GB")
     check(not bad, f"build_sharded on the cards differs from the one-card build in {bad[:8]}")
     return k1
 
 
 def glove_lsh(lsh, train, test, gt_d, gt_i, label: str, n_cards: int = 4,
               queries: int = GLOVE_LSH_QUERIES, delta: float = GLOVE_DELTA,
-              mesh_2d_queries: int = 256, join_k: int = 100, join_delta: float = 0.9):
+              mesh_2d_queries: int = 256, join_k: int = 100, join_delta: float = 0.9,
+              profile: bool = False):
     """The lsh index over n_cards cards: the global engine per card (K7),
     the 2 x 2 mesh, the table-sharded join; then build_sharded with the
     lsh configuration and its two searches, which the NCCL run is held to.
+    With `profile`, profile_overlap of the four-card global engine.
     Returns (K7 launches of the four-card global search, the reference
     results {"global": ..., "scan": ...})."""
     from clann_tpu_torch.parallel import sharded as sh
@@ -408,9 +564,12 @@ def glove_lsh(lsh, train, test, gt_d, gt_i, label: str, n_cards: int = 4,
     s4 = sh.shard_index(lsh.index, n_cards, mesh=four)
     shards_on_cards(s4, devs, "shard_index (lsh)")
     r1 = timed(lambda: sh.sharded_global_search(s1, q, delta=delta, mesh=one))
-    r4 = timed(lambda: sh.sharded_global_search(s4, q, delta=delta, mesh=four))
+    r4o, r4 = in_order_and_at_once(lambda: sh.sharded_global_search(s4, q, delta=delta,
+                                                                    mesh=four))
     still_on_card_0("the sharded global engine")
+    same_bits(r4o, r4, "the four-card global engine in order against at once")
     same = same_search(r4.out, r1.out, "sharded global engine")
+    same_bits(r4, r1, "the four-card global engine against the one-card mesh", by_card=False)
     rec, idr = _recall(gd, gi, r4.out[0], r4.out[1])
     _every_card(r4.k7, n_cards, "the four-card global engine")
     _only_card_0(r1.k7, "the one-card global engine", total=sum(r4.k7.values()))
@@ -420,12 +579,16 @@ def glove_lsh(lsh, train, test, gt_d, gt_i, label: str, n_cards: int = 4,
         f"cuda:0-{n_cards - 1}: recall@10 {rec:.4f} (gate {LSH_GATE * delta:.2f}), id-recall "
         f"{idr:.4f}; ids equal to the one-card mesh up to ties ({same:.5f} identical), dc "
         f"equal ({float(np.mean(r4.out[2].distance_computations)):.1f}/query); K7 launches "
-        f"{_launch_line(r4.k7)} (one card {_launch_line(r1.k7)}); {queries / r4.seconds:.1f} "
-        f"QPS, {r4.line()}; one-card mesh {queries / r1.seconds:.1f} QPS ({r1.line()}); "
+        f"{_launch_line(r4.k7)} (one card {_launch_line(r1.k7)}); {_pair(r4o, r4, queries)}, "
+        f"bit-identical; one-card mesh {queries / r1.seconds:.1f} QPS ({r1.line()}), "
+        f"bit-identical; "
         f"single device (facade, batches of 256) {queries / single.seconds:.1f} QPS; peak "
         f"memory per card {peaks_gb()} GB on {label}")
     k7 = sum(r4.k7.values())
-    del s1, r1, r4
+    if profile:
+        profile_overlap(lambda: sh.sharded_global_search(s4, q, delta=delta, mesh=four),
+                        f"sharded_global_search, {queries} queries on cuda:0-{n_cards - 1}")
+    del s1, r1, r4, r4o
 
     # the 2 x 2 (query, cluster) mesh: cluster shards on cuda:0-1, the
     # second query block on cuda:2-3
@@ -511,9 +674,11 @@ def glove_walk(walk, test, gt_d, gt_i, single_batch_s: float, label: str,
     shards_on_cards(s4, devs, "shard_index (walk)")
     check(s4.slot_records is not None, "the walk index's shards have no slot records")
     r1 = timed(lambda: sh.sharded_search(s1, q, delta=delta, mesh=one))
-    r4 = timed(lambda: sh.sharded_search(s4, q, delta=delta, mesh=four))
+    r4o, r4 = in_order_and_at_once(lambda: sh.sharded_search(s4, q, delta=delta, mesh=four))
     still_on_card_0("the sharded walk")
+    same_bits(r4o, r4, "the four-card walk in order against at once")
     same = same_search(r4.out, r1.out, "sharded walk")
+    same_bits(r4, r1, "the four-card walk against the one-card mesh", by_card=False)
     rec, idr = _recall(gd, gi, r4.out[0], r4.out[1])
     _every_card(r4.k7, n_cards, "the four-card walk")
     _only_card_0(r1.k7, "the one-card walk", total=sum(r4.k7.values()))
@@ -521,8 +686,9 @@ def glove_walk(walk, test, gt_d, gt_i, single_batch_s: float, label: str,
     log(f"[cards] sharded_search (the walk) delta={delta}, one batch of {queries} on cuda:0-"
         f"{n_cards - 1}: recall@10 {rec:.4f} (gate {LSH_GATE * delta:.2f}), id-recall "
         f"{idr:.4f}; ids equal to the one-card mesh up to ties ({same:.5f} identical), dc "
-        f"equal; K7 launches {_launch_line(r4.k7)}; {r4.line()}; one-card mesh "
-        f"{r1.seconds:.3f} s; single device {single_batch_s:.3f} s per batch of 256; peak "
+        f"equal; K7 launches {_launch_line(r4.k7)}; {_pair(r4o, r4, queries)}, bit-identical; "
+        f"one-card mesh {r1.seconds:.3f} s, bit-identical; single device {single_batch_s:.3f} "
+        f"s per batch of 256; peak "
         f"memory per card {peaks_gb()} GB on {label}")
     return sum(r4.k7.values())
 
@@ -541,7 +707,10 @@ def glove_jaccard(data, queries, gt_s, cfg, threshold_recall, label: str,
     sync_all()
     reset_peaks()
     b1 = timed(lambda: pj.build_jaccard_sharded(data, data.universe, cfg, mesh=one))
-    b4 = timed(lambda: pj.build_jaccard_sharded(data, data.universe, cfg, mesh=four))
+    b4o, b4 = in_order_and_at_once(
+        lambda: pj.build_jaccard_sharded(data, data.universe, cfg, mesh=four))
+    same_index(b4o.out, b4.out, "build_jaccard_sharded in order against at once")
+    b4o.out = None
     j1, j4 = b1.out, b4.out
     shards_on_cards(j4, devs, "build_jaccard_sharded")
     bad = [f"{f}[{s}]" for f in pj.SHARD_FIELDS for s in range(n_cards)
@@ -557,9 +726,13 @@ def glove_jaccard(data, queries, gt_s, cfg, threshold_recall, label: str,
                                       for f in res[0][2]._fields)))
         return run
 
-    r1, r4 = timed(search(j1, one)), timed(search(j4, four))
+    r1 = timed(search(j1, one))
+    r4o, r4 = in_order_and_at_once(search(j4, four))
     still_on_card_0("the sharded Jaccard search")
+    same_bits(r4o, r4, "the four-card Jaccard search in order against at once")
     same = same_search(r4.out, r1.out, "sharded Jaccard search", atol=0.0)
+    same_bits(r4, r1, "the four-card Jaccard search against the one-card mesh",
+              by_card=False)
     rec = threshold_recall(r4.out[1])
     _every_card(r4.k7, n_cards, "the four-card Jaccard search")
     check(rec >= LSH_GATE * delta, f"four-card Jaccard threshold recall@10 {rec:.4f}")
@@ -567,12 +740,13 @@ def glove_jaccard(data, queries, gt_s, cfg, threshold_recall, label: str,
     flat = tj.build_jaccard_index(data, cfg, device=devs[0])
     single = timed(lambda: [tj.jaccard_search(flat, queries[s: s + batch])
                             for s in range(0, nq, batch)])
-    log(f"[cards] build_jaccard_sharded on cuda:0-{n_cards - 1}: {b4.seconds:.3f} s (one "
-        f"card {b1.seconds:.3f} s), equal shard for shard; sharded_jaccard_search, {nq} "
+    log(f"[cards] build_jaccard_sharded on cuda:0-{n_cards - 1}: {_pair(b4o, b4)} "
+        f"(one card {b1.seconds:.3f} s), equal shard for shard; sharded_jaccard_search, {nq} "
         f"queries in batches of {batch}: threshold recall@10 {rec:.4f} (gate "
         f"{LSH_GATE * delta:.2f}); ids equal to the one-card mesh up to ties ({same:.5f} "
-        f"identical), dc equal; K7 launches {_launch_line(r4.k7)}; {nq / r4.seconds:.2f} QPS, "
-        f"{r4.line()}; one-card mesh {nq / r1.seconds:.2f} QPS; single device (flat) "
+        f"identical), dc equal; K7 launches {_launch_line(r4.k7)}; {_pair(r4o, r4, nq)}, "
+        f"bit-identical; one-card mesh {nq / r1.seconds:.2f} QPS, bit-identical; single "
+        f"device (flat) "
         f"{nq / single.seconds:.2f} QPS; peak memory per card {peaks_gb()} GB on {label}")
     return sum(r4.k7.values())
 
@@ -780,6 +954,7 @@ def past_one_card(cfg, label: str, n: int = PAST_N, n_cards: int = 4,
     gated. Returns the K1 / K7 launches of the two searches."""
     from clann_tpu_torch.data.synthetic import clustered_unit_vectors
     from clann_tpu_torch.ops.distances import brute_force_topk
+    from clann_tpu_torch.parallel import mesh as pm
     from clann_tpu_torch.parallel import sharded as sh
     from clann_tpu_torch.parallel.capacity import plan_capacity
 
@@ -808,19 +983,29 @@ def past_one_card(cfg, label: str, n: int = PAST_N, n_cards: int = 4,
     log(f"[cards] ground truth: brute_force_topk of {queries} queries over the {n} f32 rows on "
         f"cuda:0 in {gt_s:.1f} s")
 
+    # the build read twice: its shard bodies in order, then at once (the
+    # in-order index stays on the cards for the comparison)
     sync_all()
+    reset_peaks()
+    with pm._shards_in_order():
+        bo, spans_o = timed_spans(lambda: sh.build_sharded(train, cfg, mesh=four))
+    peak_build = peaks_gb()
     reset_peaks()
     b, spans = timed_spans(lambda: sh.build_sharded(train, cfg, mesh=four))
     built = b.out
     shards_on_cards(built, devs, "build_sharded past one card")
     still_on_card_0("build_sharded past one card")
+    same_index(bo.out, built, "build_sharded past one card in order against at once")
+    bo.out = None
+    torch.cuda.empty_cache()
     held = index_bytes_by_card(built)
-    log(f"[cards] build_sharded over cuda:0-{n_cards - 1}: {b.seconds:.3f} s (stages, "
-        f"synchronized: {_spans(spans)}); {sum(built.shard_clusters)} clusters, points per card "
-        f"{list(built.shard_points)}; index bytes per card "
-        f"{[round(held.get(i, 0) / 1e9, 3) for i in range(n_cards)]} GB "
-        f"({sum(held.values()) / 1e9:.2f} GB in all); peak memory per card {peaks_gb()} GB "
-        f"beside plan_capacity's share {share / 1e9:.2f} GB on {label}")
+    log(f"[cards] build_sharded over cuda:0-{n_cards - 1}: {_pair(bo, b)}, equal shard for "
+        f"shard (stages, synchronized, in order: {_spans(spans_o)}; at once: {_spans(spans)}); "
+        f"{sum(built.shard_clusters)} clusters, points per card {list(built.shard_points)}; "
+        f"index bytes per card {[round(held.get(i, 0) / 1e9, 3) for i in range(n_cards)]} GB "
+        f"({sum(held.values()) / 1e9:.2f} GB in all); peak memory per card {peak_build} GB in "
+        f"order ({peaks_gb()} GB at once, the in-order index still held) beside plan_capacity's "
+        f"share {share / 1e9:.2f} GB on {label}")
     check(sorted(held) == list(range(n_cards)), f"the index lies on cards {sorted(held)}")
 
     q = test[:lsh_queries]

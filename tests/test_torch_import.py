@@ -1,6 +1,10 @@
-"""The PyTorch port imports no JAX, and its smoke script refuses to run
-without a card or outside the repository."""
+"""The PyTorch port imports no JAX, takes every keyword of the JAX
+package's signatures, and its smoke script refuses to run without a card
+or outside the repository."""
 
+import dataclasses
+import importlib
+import inspect
 import os
 import shutil
 import subprocess
@@ -119,6 +123,93 @@ def test_exports_match_the_jax_package():
     for method in ("closest_pairs", "insert", "rebuild", "reset_metrics", "save_metrics",
                    "serialize", "from_file"):
         assert callable(getattr(clann_tpu_torch.Clann, method)), method
+
+
+# The one intended departure from the JAX signatures: the samplers draw from
+# a torch.Generator `gen` where JAX takes a PRNG `key`.
+KEY_TO_GEN = {
+    "ops.hashing.SimHash.sample", "ops.hashing.CrossPolytope.sample",
+    "ops.hashing.FHTCrossPolytope.sample", "ops.minhash.MinHash.sample",
+    "ops.minhash.TabulationMinHash.sample", "ops.minhash.MinHash1Bit.sample",
+    "ops.minhash.TabulationMinHash1Bit.sample", "ops.sketches.SketchFilterer.init",
+    "ops.sources.IndependentHashSource.init", "ops.sources.PooledHashSource.init",
+    "ops.sources.TensoredHashSource.init",
+}
+
+
+def _public_callables(module):
+    """{name: callable} of a module's own public functions (jit wrappers
+    included) and of its classes' public methods, __init__ and replace."""
+    out = {}
+    for name, obj in vars(module).items():
+        if name.startswith("_") or getattr(obj, "__module__", None) != module.__name__:
+            continue
+        if inspect.isclass(obj):
+            for attr in dir(obj):
+                if attr == "__init__" or not attr.startswith("_"):
+                    member = getattr(obj, attr)
+                    if inspect.isfunction(member) or inspect.ismethod(member):
+                        out[f"{name}.{attr}"] = member
+        elif inspect.isfunction(obj) or hasattr(obj, "__wrapped__"):
+            out[name] = obj
+    return out
+
+
+def _parameters(fn):
+    return {n: p for n, p in inspect.signature(fn).parameters.items()
+            if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)}
+
+
+def test_signatures_take_the_jax_keywords():
+    """Every public function and method of the JAX package (its index
+    dataclasses' flax `replace` too) has a counterpart that takes all of
+    its parameters, and whatever the port adds has a default, so a call
+    written for JAX binds on the port. Only the samplers' key -> gen
+    differs. A dataclass's fields are exempt from the second rule: the
+    sharded indexes carry required fields of their own (per-shard counts,
+    the Jaccard shards' K7 records)."""
+    gaps = []
+    root = os.path.join(REPO, "clann_tpu")
+    for d, _, files in os.walk(root):
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            parts = os.path.relpath(os.path.join(d, f), root)[:-3].split(os.sep)
+            rel = ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
+            if rel == "ops.pallas":
+                continue
+            jmod = importlib.import_module(".".join(filter(None, ("clann_tpu", rel))))
+            tname = rel.replace("ops.pallas.", "ops.")
+            tmod = importlib.import_module(".".join(filter(None, ("clann_tpu_torch", tname))))
+            ported = _public_callables(tmod)
+            for name, jfn in _public_callables(jmod).items():
+                if name not in ported:
+                    continue  # a name the port lacks is test_every_jax_module_...'s
+                jp, tp = _parameters(jfn), _parameters(ported[name])
+                want = set(jp) - ({"key"} if f"{tname}.{name}" in KEY_TO_GEN else set())
+                missing = sorted(want - set(tp))
+                fields = (name.endswith(".__init__")
+                          and dataclasses.is_dataclass(getattr(tmod, name.split(".")[0])))
+                extra = sorted(n for n, p in tp.items() if n not in jp and n != "gen"
+                               and p.default is p.empty and not fields)
+                if missing or extra:
+                    gaps.append(f"{tname}.{name}: lacks {missing}, requires {extra}")
+    assert not gaps, gaps
+
+
+def test_index_dataclasses_replace():
+    """The four index dataclasses have flax's `replace`."""
+    from clann_tpu_torch.core.index import ClusteredIndex
+    from clann_tpu_torch.core.jaccard import JaccardIndex
+    from clann_tpu_torch.parallel.jaccard import ShardedJaccardIndex
+    from clann_tpu_torch.parallel.sharded import ShardedIndex
+
+    for cls in (ClusteredIndex, JaccardIndex, ShardedIndex, ShardedJaccardIndex):
+        fields = {f.name: None for f in dataclasses.fields(cls)}
+        one = cls(**fields)
+        two = one.replace(config="changed")
+        assert type(two) is cls and two.config == "changed" and one.config is None
+        assert all(getattr(two, f) is getattr(one, f) for f in fields if f != "config")
 
 
 def test_chip_smoke_imports_no_jax():

@@ -4,8 +4,16 @@ What one card hides, pinned where the CPU can see it:
 
 - parallel/distributed: a process that is one of several on its host
   (LOCAL_RANK, LOCAL_WORLD_SIZE) takes the card cuda:{LOCAL_RANK} alone in
-  global_mesh, explicit local devices still win, and initialize_distributed
-  makes that card current before it opens an NCCL group (and only then);
+  global_mesh (cuda:0 when it sees one card, an error when LOCAL_RANK is
+  beyond several), explicit local devices still win, and
+  initialize_distributed makes that card current before it opens an NCCL
+  group (and only then);
+- parallel.mesh.run_shards, the single controller's shard_map: the shards
+  of distinct devices run at once, one worker per device (CPU devices
+  cpu:0-3 stand for cards here), and give what the in-order run gives, bit
+  for bit, on every sharded path; a worker's exception reaches the caller
+  once every worker has stopped; the launch counters and SHARD_SPANS count
+  exactly from several threads;
 - the kernel launches (csrc/) switch cards only through DeviceScope, which
   gives the caller's current device back on every return path;
 - build_sharded normalizes each shard's rows on its own device: no call
@@ -18,7 +26,13 @@ What one card hides, pinned where the CPU can see it:
   files.
 """
 
+import collections
+import contextlib
+import dataclasses
 import re
+import sys
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -89,8 +103,24 @@ def test_every_visible_card_otherwise(four_processes, case):
     assert tdist.default_local_devices() == FOUR_CARDS
 
 
+def test_one_visible_card_is_cuda_0(four_processes):
+    """A launcher that gives each process only its own card
+    (CUDA_VISIBLE_DEVICES) leaves LOCAL_RANK 2 with one card: cuda:0; with
+    several cards and LOCAL_RANK beyond them, no card is guessed."""
+    four_processes.setenv("LOCAL_RANK", "2")
+    four_processes.setenv("LOCAL_WORLD_SIZE", "4")
+    four_processes.setattr(tdist, "visible_devices", tmesh.visible_devices)
+    four_processes.setattr(torch.cuda, "device_count", lambda: 1)
+    assert tdist.default_local_devices() == [torch.device("cuda", 0)]
+    assert tdist.global_mesh().cluster_devices() == [torch.device("cuda", 0)] * 4
+    four_processes.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ValueError, match="LOCAL_RANK 2 names no card of the 2"):
+        tdist.default_local_devices()
+
+
 def _record_init(monkeypatch):
     calls = []
+    monkeypatch.setattr(tdist, "visible_devices", lambda: list(FOUR_CARDS))
     monkeypatch.setattr(torch.cuda, "set_device", lambda d: calls.append(("set_device", d)))
     monkeypatch.setattr(torch.distributed, "init_process_group",
                         lambda backend, **kw: calls.append(("init", backend, kw["rank"])))
@@ -112,6 +142,23 @@ def test_initialize_distributed_sets_the_card_first(monkeypatch, backend, local_
     calls = _record_init(monkeypatch)
     assert tdist.initialize_distributed("localhost:1234", 4, 3, backend=backend)
     assert calls == want
+
+
+@pytest.mark.parametrize("cards,want", [(1, [("set_device", 0), ("init", "nccl", 3)]),
+                                        (2, None)])
+def test_initialize_distributed_takes_a_visible_card(monkeypatch, cards, want):
+    for v in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(v, raising=False)
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    calls = _record_init(monkeypatch)
+    monkeypatch.setattr(tdist, "visible_devices", lambda: FOUR_CARDS[:cards])
+    if want is None:
+        with pytest.raises(ValueError, match="LOCAL_RANK 3 names no card of the 2"):
+            tdist.initialize_distributed("localhost:1234", 4, 3, backend="nccl")
+        assert calls == []  # nothing set, no group opened
+    else:
+        assert tdist.initialize_distributed("localhost:1234", 4, 3, backend="nccl")
+        assert calls == want
 
 
 def test_kernel_launches_keep_the_callers_device():
@@ -225,3 +272,258 @@ def test_one_process_per_shard_equals_the_controller(tmp_path, monkeypatch):
                                       ref[key][2].distance_computations)
     for r in range(4):
         assert (tmp_path / "work" / f"rank{r}.json").exists()
+
+
+# --- the single controller's runner (parallel.mesh.run_shards) ----------------
+
+CPU_CARDS = [torch.device("cpu", i) for i in range(4)]  # four devices, four workers
+
+
+def test_runner_runs_the_devices_at_once():
+    """One worker per device, the devices' workers at once (shard 0 waits
+    for shard 3, on another device), one device's shards in shard order;
+    in order, or on one device, every body runs in the calling thread."""
+    met, seen = threading.Event(), {}
+
+    def body(i):
+        seen[i] = threading.get_ident()
+        if i == 0:
+            assert met.wait(20), "shard 3 never ran beside shard 0"
+        if i == 3:
+            met.set()
+        return 10 * i
+
+    devs = [CPU_CARDS[0], CPU_CARDS[1], CPU_CARDS[0], CPU_CARDS[2], None]
+    assert tmesh.run_shards(devs, body) == [0, 10, 20, 30, None]
+    me = threading.get_ident()
+    assert seen[0] == seen[2] and len({seen[0], seen[1], seen[3], me}) == 4
+    for devices, forced in ((CPU_CARDS, True), ([torch.device("cpu")] * 4, False)):
+        order = []
+        with tmesh._shards_in_order() if forced else contextlib.nullcontext():
+            tmesh.run_shards(devices, lambda i: order.append((i, threading.get_ident())))
+        assert order == [(i, me) for i in range(4)]
+
+
+def test_runner_raises_once_every_worker_stopped():
+    stopped = []
+
+    def body(i):
+        if i in (1, 2):
+            raise (KeyError if i == 1 else ValueError)(f"shard {i}")
+        time.sleep(0.3)
+        stopped.append(i)
+
+    with pytest.raises(KeyError, match="shard 1") as err:
+        tmesh.run_shards(CPU_CARDS, body)
+    assert sorted(stopped) == [0, 3]  # the other workers ran to their end first
+    assert any("ValueError: shard 2" in note for note in err.value.__notes__)
+
+
+class Yielding(collections.Counter):
+    """A by-card count that lets other threads in between its read and its
+    write back, so that an unguarded `c[card] += 1` loses counts."""
+
+    def __getitem__(self, key):
+        value = super().__getitem__(key)
+        time.sleep(0)
+        return value
+
+
+def test_counts_are_exact_from_several_threads(monkeypatch):
+    """K1's and K7's launch counts (total and by card) and SHARD_SPANS,
+    written from four workers with the interpreter switching threads as
+    often as it can."""
+    from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.ops import scan_topk as st
+
+    class Event:  # shard_span's CUDA events, without a card
+        def __init__(self, **kw):
+            pass
+
+        def record(self, stream):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: None)
+    monkeypatch.setattr(tmesh, "SHARD_SPANS", [])
+    monkeypatch.setattr(st, "KERNEL_LAUNCHES", 0)
+    monkeypatch.setattr(st, "KERNEL_DEVICE_LAUNCHES", Yielding())
+    monkeypatch.setattr(tg, "ROWS_LAUNCHES", 0)
+    monkeypatch.setattr(tg, "ROWS_DEVICE_LAUNCHES", Yielding())
+    n = 2000
+
+    def body(i):  # two workers share each count by card
+        for _ in range(n):
+            tg._count_launch("ROWS_LAUNCHES", i // 2)
+            st._count_launch("KERNEL_LAUNCHES", i // 2)
+            with tmesh.shard_span(torch.device("cuda", i)):
+                pass
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        tmesh.run_shards(CPU_CARDS, body)
+    finally:
+        sys.setswitchinterval(interval)
+    assert tg.ROWS_LAUNCHES == st.KERNEL_LAUNCHES == 4 * n
+    want = {0: 2 * n, 1: 2 * n}
+    assert dict(tg.ROWS_DEVICE_LAUNCHES) == dict(st.KERNEL_DEVICE_LAUNCHES) == want
+    assert len(tmesh.SHARD_SPANS) == 4 * n
+
+
+def _same(a, b):
+    """Two results equal bit for bit: arrays, tensors, tuples of them."""
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _index_parts(sharded):
+    return [getattr(sharded, f.name) for f in dataclasses.fields(sharded)
+            if isinstance(getattr(sharded, f.name), list)]
+
+
+@pytest.fixture(scope="module")
+def runner_world():
+    from clann_tpu_torch.core.index import build_index
+    from clann_tpu_torch.data.synthetic import clustered_sets, random_unit_vectors
+
+    cfg = Config(num_tables=4, num_clusters_factor=1.0, k=5, delta=0.8, hash_family="simhash",
+                 candidate_chunk=64, brute_force_threshold=8, seed=0, lsh_engine="both")
+    train = clustered_unit_vectors(800, 16, n_modes=12, seed=0)
+    jcfg = Config(num_tables=4, k=3, delta=0.8, candidate_chunk=32, max_hashbits=12, seed=0)
+    return {"cfg": cfg, "train": train, "queries": random_unit_vectors(31, 16, seed=1),
+            "index": build_index(train, cfg, device="cpu"), "jcfg": jcfg,
+            "sets": clustered_sets(160, 300, avg_size=8, n_modes=8, seed=0)}
+
+
+@pytest.mark.parametrize("path", ["global", "walk", "walk 2x2", "build", "join", "jaccard"])
+def test_at_once_equals_in_order(runner_world, path, monkeypatch):
+    """Every path moved onto run_shards returns, over four workers, what it
+    returns run in order and on a one-device mesh, bit for bit."""
+    from clann_tpu_torch.parallel import jaccard as pj
+    from clann_tpu_torch.parallel.join import sharded_closest_pairs
+
+    w = runner_world
+    q = w["queries"]
+
+    def run(devices):
+        if path == "walk 2x2":
+            half = tsh.shard_index(w["index"], 2, mesh=tmesh.make_mesh(2, devices=devices[:2]))
+            return tsh.sharded_search(half, q, mesh=tmesh.make_mesh_2d(2, 2, devices=devices))
+        mesh = tmesh.make_mesh(4, devices=devices)
+        if path == "build":
+            return _index_parts(tsh.build_sharded(w["train"], w["cfg"], mesh=mesh))
+        if path == "join":
+            return sharded_closest_pairs(w["index"], k=5, delta=0.8, mesh=mesh)
+        if path == "jaccard":
+            sh = pj.build_jaccard_sharded(w["sets"], 300, w["jcfg"], mesh=mesh)
+            return _index_parts(sh), pj.sharded_jaccard_search(sh, w["sets"][:8], mesh=mesh)
+        sharded = tsh.shard_index(w["index"], 4, mesh=mesh)
+        fn = tsh.sharded_global_search if path == "global" else tsh.sharded_search
+        return fn(sharded, q, mesh=mesh)
+
+    used = collections.Counter()
+    worker = tmesh._worker
+
+    def counting(dev):
+        used[dev] += 1
+        return worker(dev)
+
+    monkeypatch.setattr(tmesh, "_worker", counting)
+    at_once = run(CPU_CARDS)
+    assert set(used) == set(CPU_CARDS)  # every device had its worker
+    with tmesh._shards_in_order():
+        in_order = run(CPU_CARDS)
+    one_device = run([torch.device("cpu")] * 4)
+    assert sum(used.values()) == used[CPU_CARDS[0]] * 4
+    assert _same(at_once, in_order) and _same(at_once, one_device)
+
+
+def test_probe_pairs_in_order_and_at_once(runner_world):
+    """probes/multicard's paired readings: the search and the build read in
+    order, then at once, pass same_bits / same_index; a changed id, stat,
+    launch count or shard tensor fails them."""
+    w = runner_world
+    mesh = tmesh.make_mesh(4, devices=CPU_CARDS)
+    sharded = tsh.shard_index(w["index"], 4, mesh=mesh)
+    first, second = mc.in_order_and_at_once(
+        lambda: tsh.sharded_global_search(sharded, w["queries"], mesh=mesh))
+    mc.same_bits(first, second, "global")
+    assert "QPS" in mc._pair(first, second, 31) and "QPS" not in mc._pair(first, second)
+    d, i, st = second.out
+    i2 = i.copy()
+    i2[0, 0] = i[0, 1]  # a swap within a row: beyond a boundary tie
+    with pytest.raises(AssertionError):
+        mc.same_bits(first, dataclasses.replace(second, out=(d, i2, st)), "ids")
+    st2 = st._replace(candidates=st.candidates + 1)
+    with pytest.raises(AssertionError, match="differ in their bits"):
+        mc.same_bits(first, dataclasses.replace(second, out=(d, i, st2)), "stats")
+    with pytest.raises(AssertionError, match="launches"):
+        mc.same_bits(first, dataclasses.replace(second, k7={0: 1}), "launches")
+    (b1, spans1), (b2, _) = mc.in_order_and_at_once(
+        lambda: tsh.build_sharded(w["train"], w["cfg"], mesh=mesh), spans=True)
+    mc.same_index(b1.out, b2.out, "build")
+    b2.out.sketches[2] = b2.out.sketches[2] ^ 1
+    with pytest.raises(AssertionError, match=r"sketches differs on shards \[2\]"):
+        mc.same_index(b1.out, b2.out, "build")
+
+
+def test_covered_is_the_union_length():
+    assert mc._covered([]) == 0.0
+    assert mc._covered([(5, 7), (0, 2), (1, 3), (6, 6.5)]) == 5.0
+
+
+def test_profile_overlap_reads_both_runs(runner_world, capsys):
+    w = runner_world
+    mesh = tmesh.make_mesh(4, devices=CPU_CARDS)
+    sharded = tsh.shard_index(w["index"], 4, mesh=mesh)
+    mc.profile_overlap(lambda: tsh.sharded_global_search(sharded, w["queries"][:8], mesh=mesh),
+                       "the CPU mesh")
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("[cards] profile of the CPU mesh: in order ")
+    assert "Python between them" in line and "at once" in line
+
+
+def test_thread_ops_reads_the_host_cost(capsys):
+    mc.thread_ops("the CPU", ops=200, sync_every=16, kinds=("cpu",))
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("[cards] host cost per torch op on 4 cpu devices")
+
+
+def test_workers_take_turns_between_host_reads():
+    """Inside taking_turns one worker at a time issues; the turn passes on
+    at every host_read, so reads overlap another worker's issuing; a body
+    that raises gives the turn back; outside a worker both do nothing."""
+    lock, active, peak, overlapped = threading.Lock(), [0], [0], [0]
+
+    def read():
+        time.sleep(0.001)  # the device work a host sync waits for
+        with lock:
+            overlapped[0] += active[0] > 0
+
+    def body(i):
+        with tmesh.taking_turns():
+            for _ in range(30):
+                with lock:
+                    active[0] += 1
+                    peak[0] = max(peak[0], active[0])
+                time.sleep(0.0005)  # issuing ops
+                with lock:
+                    active[0] -= 1
+                tmesh.host_read(read)
+            if i == 2:
+                raise KeyError("shard 2")
+        return i
+
+    with pytest.raises(KeyError, match="shard 2"):
+        tmesh.run_shards(CPU_CARDS, body)
+    assert peak[0] == 1 and overlapped[0] > 0
+    assert tmesh.run_shards(CPU_CARDS, lambda i: tmesh.host_read(lambda: i)) == [0, 1, 2, 3]
+    with tmesh.taking_turns():
+        assert tmesh.host_read(lambda: 5) == 5
+    assert not tmesh._TURN.locked()

@@ -489,3 +489,46 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run()
     assert run(device="cpu") == want
+
+
+def test_interpret_is_accepted_and_refused_on_the_card(monkeypatch):
+    """JAX's `interpret` keyword: CPU tensors run the plain version either
+    way, with equal results; with a CUDA device interpret=True raises (the
+    port has no interpret mode) instead of running the kernel."""
+    from clann_tpu_torch.ops import block_scan as tbs
+    from clann_tpu_torch.ops import distances as tdist
+
+    base, qs, bp, qp, n_real = _operands(n=1024, q=32, seed=5)
+    bpt, qpt = (torch.from_numpy(a).to(torch.bfloat16) for a in (bp, qp))
+    kw = dict(n_real=n_real, num_bins=32, block_n=512, q_tile=16)
+    calls = [
+        lambda **i: tst.fused_scan_candidates_packed(bpt, qpt, **kw, **i),
+        lambda **i: tst.fused_scan_candidates(bpt, qpt, **kw, **i),
+        lambda **i: tst.fused_scan_topk_e2e(bpt, torch.from_numpy(base), torch.from_numpy(qs),
+                                            k=5, rescore_m=16, **kw, **i),
+        lambda **i: tuple(map(torch.as_tensor, tst.pallas_scan_topk(
+            base, qs, k=5, num_bins=32, block_n=512, q_tile=16, device="cpu", **i))),
+    ]
+    layout = tbs.build_block_layout(base, np.arange(1024) % 5, 256, device="cpu")
+    calls.append(lambda **i: tbs.block_scan_topk_e2e(
+        layout, torch.from_numpy(qs), k=5, n_probe=2, rescore_m=16, num_bins=16, block_n=256,
+        q_tile=16, **i))
+    for call in calls:
+        for a, b in zip(call(), call(interpret=True)):
+            assert torch.equal(a, b)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="no interpret mode"):
+        tst.pallas_scan_topk(base, qs, k=5, interpret=True, device="cuda")
+    with pytest.raises(ValueError, match="no interpret mode"):
+        tdist.refuse_interpret(True, torch.device("cuda", 1))
+    tdist.refuse_interpret(False, "cuda")
+    tdist.refuse_interpret(None, "cuda")
+
+
+def test_l2_normalize_takes_eps_as_jax_does():
+    """`eps` is accepted and unused, as in the JAX function."""
+    from clann_tpu_torch.ops.distances import l2_normalize
+
+    x = torch.from_numpy(_operands(n=64, q=4, seed=2)[0] * 3.0)
+    x[5] = 0.0
+    assert torch.equal(l2_normalize(x, eps=1e-3), l2_normalize(x))

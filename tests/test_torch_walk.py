@@ -162,6 +162,33 @@ def test_chunk_stream_direct_matches_jax(world, lc, d_top, entry):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
+@pytest.mark.parametrize("lc,d_top,entry", [(1, 10, True), (2, 7, False), (4, 10, True)])
+def test_chunk_stream_direct_takes_the_one_hot_rows(world, lc, d_top, entry):
+    """cdir_oh, the directory rows as JAX's one-hot path hands them over
+    (f32, prefixmap._dir_rows_onehot), gives JAX's ranges and those of the
+    cdir it encodes; exactly one of the two must be given, as in JAX."""
+    j, t = world["jidx"], world["tidx"]
+    qn, qh, _ = world["jq"]
+    D, bits = j.config.max_hashbits, j.dir_bits
+    members = jnp.argsort(1.0 - qn @ j.centers.T, axis=1)[:, :3].reshape(-1)
+    qh3 = jnp.repeat(qh, 3, axis=0)
+    args = (lc, D, bits, 1, bits)
+    oh = jpm._dir_rows_onehot(j.prefix_dir.astype(jnp.float32), members)
+    want = jpm.chunk_stream_direct(qh3, jnp.int32(d_top), jnp.bool_(entry), *args, cdir_oh=oh)
+    tq3 = torch.from_numpy(np.array(qh3).view(np.int32))
+    cdir = t.prefix_dir.index_select(1, torch.from_numpy(np.array(members)).long())
+    got_oh = tpm.chunk_stream_direct(tq3, d_top, entry, *args,
+                                     cdir_oh=torch.from_numpy(np.array(oh)))
+    got = tpm.chunk_stream_direct(tq3, d_top, entry, *args, cdir=cdir)
+    for a, b, w in zip(got_oh, got, want):
+        assert a.dtype == torch.int32
+        np.testing.assert_array_equal(a.numpy(), np.asarray(w))
+        assert torch.equal(a, b)
+    for both in ({}, {"cdir": cdir, "cdir_oh": cdir.to(torch.float32)}):
+        with pytest.raises(ValueError, match="exactly one of cdir_oh and cdir"):
+            tpm.chunk_stream_direct(tq3, d_top, entry, *args, **both)
+
+
 # ---------------------------------------------------------------------------
 # the walk
 
