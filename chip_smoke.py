@@ -255,8 +255,8 @@ shards on cuda:0-3 (make_mesh(4), one controller) held to the one-card
 tensor on its card, K1 / K7 launched on every card); the global engine,
 the walk, Jaccard and build_sharded (and the 20,000,000-point build) read
 twice, their shard bodies forced in order and then at once (one worker
-thread per card, parallel.mesh.run_shards), each reading's wall time, QPS
-and busy share per card printed, the two bit for bit equal (results,
+thread per card, parallel.mesh.run_shards), each reading's wall time and
+QPS printed, the two bit for bit equal (results,
 stats, launches by card, every shard tensor) and the searches bit for bit
 equal to the one-card mesh; with --profile also the global engine's
 in-order and at-once device busy shares and the host's Python share
@@ -539,14 +539,18 @@ def check_packed(got, ref, per_bin, label, live_only=False, group_r=1, acc_bf16=
 @contextlib.contextmanager
 def traced():
     """The package tracer on for a block (its build spans synchronize the
-    card, so they time device work); yields a function that formats the
-    spans' seconds."""
+    card, so they time device work); yields a function that formats each
+    span's seconds (and its self seconds where it has children)."""
     from clann_tpu_torch.metrics.trace import TRACER
+
+    def fmt(path):
+        total, own = TRACER.totals[path], TRACER.self_totals[path]
+        return f"{path} {total:.3f}" + (f" (self {own:.3f})" if own < total - 5e-4 else "")
 
     TRACER.clear()
     TRACER.enabled = True
     try:
-        yield lambda: ", ".join(f"{k} {v:.3f}" for k, v in sorted(TRACER.totals.items()))
+        yield lambda: ", ".join(fmt(p) for p in sorted(TRACER.totals))
     finally:
         TRACER.enabled = False
 

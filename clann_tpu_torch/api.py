@@ -33,7 +33,8 @@ from clann_tpu_torch.config import Config, MetricsGranularity, MetricsOutput
 from clann_tpu_torch.data.metricdata import MetricData, make_metric_data
 from clann_tpu_torch.errors import DataError
 from clann_tpu_torch.metrics.run import RunMetrics
-from clann_tpu_torch.ops.distances import resolve_device
+from clann_tpu_torch.metrics.trace import TRACER, LoopStats
+from clann_tpu_torch.ops.distances import as_device_f32, resolve_device
 
 log = logging.getLogger("clann_tpu_torch")
 
@@ -101,6 +102,7 @@ class Clann:
         mode: Optional[str] = None,
         n_probe: Optional[int] = None,
         filter_type: str = "default",
+        loop_stats: Optional[LoopStats] = None,
     ):
         """Batched k-NN. Returns (distances (Q, k) ascending, ids (Q, k),
         stats) as numpy arrays.
@@ -111,7 +113,8 @@ class Clann:
         config.search_mode; "dense" when the built index has the dense
         layout, else "lsh"). `n_probe`: segment rows per query ("dense"),
         blocks per query ("scan-block") or the starting budget
-        ("scan-block-adaptive").
+        ("scan-block-adaptive"). `loop_stats` accumulates the delta
+        engines' loop counts (ops/query.LoopStats).
         """
         from clann_tpu_torch.ops.ivf import adaptive_dense_search, dense_search, scan_search
 
@@ -122,6 +125,8 @@ class Clann:
         if mode == "lsh":
             mode = "lsh-global" if index.g_records is not None else "lsh-clustered"
         t0 = time.perf_counter()
+        with TRACER.span("search/to_device"):
+            queries = as_device_f32(queries, index.device)
         if mode == "dense":
             dists, ids, stats = dense_search(index, queries, k=k, n_probe=n_probe)
         elif mode == "scan":
@@ -145,12 +150,12 @@ class Clann:
             from clann_tpu_torch.ops.global_query import global_search
 
             dists, ids, stats = global_search(index, queries, k=k, delta=delta,
-                                              filter_type=filter_type)
+                                              filter_type=filter_type, loop_stats=loop_stats)
         elif mode == "lsh-clustered":
             from clann_tpu_torch.ops.query import search as walk_search
 
             dists, ids, stats = walk_search(index, queries, k=k, delta=delta,
-                                            filter_type=filter_type)
+                                            filter_type=filter_type, loop_stats=loop_stats)
         else:
             raise DataError(f"unknown search mode {mode!r}")
         elapsed = time.perf_counter() - t0

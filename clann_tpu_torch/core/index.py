@@ -482,12 +482,10 @@ def build_index(
     filterer = SketchFilterer(d, config.num_sketches, config.sketch_bits).init(
         g_sketch, xn.device)
     # (reference timer nodes Hashing/Sketching, performance.hpp:15-27)
-    with TRACER.span("build/hashing"):
+    with TRACER.span("build/hashing", block_on=xn.device):
         hashes = _hash_in_blocks(source.hash, xn, hash_block)  # (n, L) int32
-        TRACER.enabled and _sync(hashes)
-    with TRACER.span("build/sketching"):
+    with TRACER.span("build/sketching", block_on=xn.device):
         sketches = _hash_in_blocks(filterer.sketch, xn, hash_block)
-        TRACER.enabled and _sync(sketches)
 
     # one host sync for the integer bookkeeping
     return _assemble_index(
@@ -495,11 +493,6 @@ def build_index(
         centers_idx.cpu().numpy(), radii, config, metric,
         hash_params=source.params, sketch_params=filterer.params, family=family,
     )
-
-
-def _sync(t: torch.Tensor) -> None:
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
 
 
 def _assemble_index(xn, hashes_T, sketches, assignment: np.ndarray,
@@ -519,13 +512,12 @@ def _assemble_index(xn, hashes_T, sketches, assignment: np.ndarray,
     assign_t = torch.as_tensor(assignment.astype(np.int32), device=dev)
 
     # 5. per-table segmented sort
-    with TRACER.span("build/table_sort"):
+    with TRACER.span("build/table_sort", block_on=dev):
         sorted_hash, sorted_idx = sort_tables_segmented(hashes_T, assign_t)
-        TRACER.enabled and _sync(sorted_hash)
 
     # 5b. per-(table, cluster) prefix directory
     max_seg = int(sizes.max()) if len(sizes) else 0
-    with TRACER.span("build/prefix_dir"):
+    with TRACER.span("build/prefix_dir", block_on=dev):
         prefix_dir, dir_bits, dir_iters = derive_prefix_directory(
             sorted_hash, starts, config, max_seg)
 
@@ -533,7 +525,7 @@ def _assemble_index(xn, hashes_T, sketches, assignment: np.ndarray,
     g_sorted_hash = g_records = g_dir = None
     g_dir_iters = 0
     if config.lsh_engine in ("global", "both"):
-        with TRACER.span("build/global_tables"):
+        with TRACER.span("build/global_tables", block_on=dev):
             g_sorted_hash, g_records = make_global_tables(
                 hashes_T, sketches, assign_t, pad_to=config.gather_block)
             g_dir = build_prefix_directory(
@@ -546,10 +538,9 @@ def _assemble_index(xn, hashes_T, sketches, assignment: np.ndarray,
     cid = torch.as_tensor(centers_idx.astype(np.int64), device=dev)
     dense = {}
     if config.dense_layout:
-        with TRACER.span("build/dense_layout"):
+        with TRACER.span("build/dense_layout", block_on=dev):
             dense = build_dense_layout(xn, sorted_idx[0], starts, xn[cid], radii,
                                        config.dense_seg_cap)
-            TRACER.enabled and _sync(dense["seg_vectors"])
 
     if family is None:
         family = make_hash_family(

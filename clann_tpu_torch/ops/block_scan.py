@@ -30,6 +30,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from clann_tpu_torch.metrics.trace import TRACER
 from clann_tpu_torch.ops.distances import (
     _normalize_queries, as_device_f32, refuse_interpret, rescore, resolve_device)
 from clann_tpu_torch.ops.scan_topk import (
@@ -451,9 +452,8 @@ def block_scan_search_adaptive(
     from clann_tpu_torch.ops.ivf import DenseSearchStats, pallas_scan_plan
 
     k = index.config.k if k is None else k
-    q = (queries.detach().cpu().numpy() if isinstance(queries, torch.Tensor)
-         else np.asarray(queries, np.float32))
-    if q.ndim == 1:
+    q = as_device_f32(queries, index.vectors.device)
+    if q.dim() == 1:
         q = q[None, :]
     Q = q.shape[0]
     n = index.vectors.shape[0]
@@ -532,17 +532,19 @@ def block_scan_search(
         # makes a single device-to-host copy
         outs.append(torch.cat([sims.view(torch.int32), ids.to(torch.int32),
                                dc[:, None], unc[:, None]], dim=1))
-    flat = (torch.cat(outs) if outs
-            else torch.zeros((0, 2 * k + 2), dtype=torch.int32)).cpu().numpy()
-    sims = np.ascontiguousarray(flat[:, :k]).view(np.float32)
-    ids = np.ascontiguousarray(flat[:, k : 2 * k])
-    dists = np.where(ids >= 0, np.clip(1.0 - sims, 0.0, 2.0), np.inf)
-    Q = ids.shape[0]
-    stats = DenseSearchStats(
-        distance_computations=flat[:, 2 * k].copy(),
-        candidates=flat[:, 2 * k].copy(),
-        clusters_visited=np.full(Q, B, np.int32),
-        dropped_probes=np.int32(0),
-        uncertified=flat[:, 2 * k + 1].copy(),
-    )
+    with TRACER.span("search/pull"):  # waits for the scan
+        flat = (torch.cat(outs) if outs
+                else torch.zeros((0, 2 * k + 2), dtype=torch.int32)).cpu().numpy()
+    with TRACER.span("search/to_numpy"):
+        sims = np.ascontiguousarray(flat[:, :k]).view(np.float32)
+        ids = np.ascontiguousarray(flat[:, k : 2 * k])
+        dists = np.where(ids >= 0, np.clip(1.0 - sims, 0.0, 2.0), np.inf)
+        Q = ids.shape[0]
+        stats = DenseSearchStats(
+            distance_computations=flat[:, 2 * k].copy(),
+            candidates=flat[:, 2 * k].copy(),
+            clusters_visited=np.full(Q, B, np.int32),
+            dropped_probes=np.int32(0),
+            uncertified=flat[:, 2 * k + 1].copy(),
+        )
     return dists, ids, stats

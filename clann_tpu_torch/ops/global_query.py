@@ -44,6 +44,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from clann_tpu_torch.metrics.trace import TRACER
 from clann_tpu_torch.ops.distances import as_device_f32, exact_dot, l2_normalize
 from clann_tpu_torch.ops.gather import gather_rows
 from clann_tpu_torch.ops.prefixmap import (
@@ -64,6 +65,7 @@ from clann_tpu_torch.ops.query import (
     _score_candidates,
     batched_query_driver,
     probs_lookup,
+    sims_to_dists,
 )
 from clann_tpu_torch.ops.sketches import popcount32
 from clann_tpu_torch.parallel.mesh import host_read
@@ -98,15 +100,17 @@ def _prepare_streams(index, queries_n, query_hashes, query_sketches, *,
     zero = torch.zeros((Q,), dtype=torch.int32, device=dev)
     # table width, not len(vectors): pending insertions are not in the tables
     full_n = torch.full((Q,), index.g_sorted_hash.shape[1], dtype=torch.int32, device=dev)
-    lo, hi = depth_bounds(
-        index.g_sorted_hash, query_hashes, zero, full_n, D, index.g_dir_iters,
-        up_to_depth=d_entry, prefix_dir=index.g_dir, cluster=zero,
-        dir_bits=index.config.global_dir_bits,
-    )  # (Q, L, d_entry+1)
-    starts_s, sizes_s = candidate_stream(lo, hi, query_hashes, D, min_depth,
-                                         start_depth=d_entry)  # (Q, M)
-    bstarts, bcounts = block_stream(starts_s, sizes_s, g_log)
-    fc = torch.cumsum(bcounts, dim=1, dtype=torch.int32)  # cumulative block counts
+    with TRACER.span("engine/bounds"):
+        lo, hi = depth_bounds(
+            index.g_sorted_hash, query_hashes, zero, full_n, D, index.g_dir_iters,
+            up_to_depth=d_entry, prefix_dir=index.g_dir, cluster=zero,
+            dir_bits=index.config.global_dir_bits,
+        )  # (Q, L, d_entry+1)
+    with TRACER.span("engine/streams"):
+        starts_s, sizes_s = candidate_stream(lo, hi, query_hashes, D, min_depth,
+                                             start_depth=d_entry)  # (Q, M)
+        bstarts, bcounts = block_stream(starts_s, sizes_s, g_log)
+        fc = torch.cumsum(bcounts, dim=1, dtype=torch.int32)  # cumulative block counts
     streams = {
         "qn": queries_n,
         "qsk": query_sketches,
@@ -269,52 +273,59 @@ def _loop_pieces(index, streams: dict, delta, *, k: int, chunk: int,
         return kth_sim, full, kth_dist
 
     def body(s, use_map: bool):
+        # the phases' spans keep each under a few hundred profiler events
         topk_sims, topk_ids, qdone, off, dc, cand_ct = s
-        t_sel, rec, valid = fetch(qdone, off, use_map)
-        cand_ids = rec[..., 0].reshape(Q, WL)
-        cand_cluster = torch.clamp(rec[..., 1 + Wd].reshape(Q, WL), 0, C - 1)
+        with TRACER.span("engine/fetch"):
+            t_sel, rec, valid = fetch(qdone, off, use_map)
+        with TRACER.span("engine/sketch"):
+            # the query sketch is constant across a block's G lanes
+            q_sk = torch.gather(query_sketches, 1,
+                                (t_sel % S).to(torch.int64)[:, :, None].expand(Q, WB, Wd))
+            ham = torch.sum(popcount32(rec[..., 1 : 1 + Wd] ^ q_sk[:, :, None, :]),
+                            dim=-1, dtype=torch.int32).reshape(Q, WL)
+        with TRACER.span("engine/filter"):
+            cand_ids = rec[..., 0].reshape(Q, WL)
+            cand_cluster = torch.clamp(rec[..., 1 + Wd].reshape(Q, WL), 0, C - 1)
+            kth_sim, full, kth_dist = kth(topk_sims, topk_ids)
+            maxdiff = index.maxdiff_table[torch.clamp(
+                (kth_sim / index.sim_eps).to(torch.int64), 0, index.maxdiff_table.shape[0] - 1)]
+            # per-candidate ball feasibility (index.rs:342-361 per candidate)
+            ok = feas_bound <= kth_dist[:, None]  # (Q, C)
+            feas = torch.gather(ok, 1, cand_cluster.to(torch.int64))
+            passes = valid & feas
+            if filter_type != "none":
+                passes = passes & (ham <= maxdiff[:, None])
 
-        kth_sim, full, kth_dist = kth(topk_sims, topk_ids)
-        maxdiff = index.maxdiff_table[torch.clamp(
-            (kth_sim / index.sim_eps).to(torch.int64), 0, index.maxdiff_table.shape[0] - 1)]
-        # the query sketch is constant across a block's G lanes
-        q_sk = torch.gather(query_sketches, 1,
-                            (t_sel % S).to(torch.int64)[:, :, None].expand(Q, WB, Wd))
-        ham = torch.sum(popcount32(rec[..., 1 : 1 + Wd] ^ q_sk[:, :, None, :]),
-                        dim=-1, dtype=torch.int32).reshape(Q, WL)
-        # per-candidate ball feasibility (index.rs:342-361 per candidate)
-        ok = feas_bound <= kth_dist[:, None]  # (Q, C)
-        feas = torch.gather(ok, 1, cand_cluster.to(torch.int64))
-        passes = valid & feas
-        if filter_type != "none":
-            passes = passes & (ham <= maxdiff[:, None])
+        with TRACER.span("engine/take"):
+            consumed, in_window = consume(passes)
+            take = passes & in_window
+            compact_ids = _compact_take(take, cand_ids, cap=CB, n_sentinel=n)
+        with TRACER.span("engine/score"):
+            sims = _score_candidates(index, queries_n, queries_q8,
+                                     torch.clamp(compact_ids, 0, n - 1))
+            topk_sims, topk_ids = _merge_topk(topk_sims, topk_ids, compact_ids, sims,
+                                              n_sentinel=n)
 
-        consumed, in_window = consume(passes)
-        take = passes & in_window
-        compact_ids = _compact_take(take, cand_ids, cap=CB, n_sentinel=n)
-        sims = _score_candidates(index, queries_n, queries_q8,
-                                 torch.clamp(compact_ids, 0, n - 1))
-        topk_sims, topk_ids = _merge_topk(topk_sims, topk_ids, compact_ids, sims, n_sentinel=n)
+        with TRACER.span("engine/stop"):
+            dc = dc + take.sum(dim=1, dtype=torch.int32)
+            cand_ct = cand_ct + (valid & in_window).sum(dim=1, dtype=torch.int32)
 
-        dc = dc + take.sum(dim=1, dtype=torch.int32)
-        cand_ct = cand_ct + (valid & in_window).sum(dim=1, dtype=torch.int32)
+            # finished queries' cursors stay frozen
+            off_new = torch.where(qdone, off, off + consumed)
+            exhausted = off_new >= total
+            r_star = count_leq(fc, off_new[:, None])[:, 0]
+            depth_cur = torch.clamp(d_entry - torch.div(r_star, L, rounding_mode="floor"),
+                                    min=min_depth)
+            tables_consumed = (r_star % L).to(torch.float32)
 
-        # finished queries' cursors stay frozen
-        off_new = torch.where(qdone, off, off + consumed)
-        exhausted = off_new >= total
-        r_star = count_leq(fc, off_new[:, None])[:, 0]
-        depth_cur = torch.clamp(d_entry - torch.div(r_star, L, rounding_mode="floor"),
-                                min=min_depth)
-        tables_consumed = (r_star % L).to(torch.float32)
-
-        kth_sim, full, kth_dist = kth(topk_sims, topk_ids)
-        p_d = probs_lookup(index, depth_cur, kth_sim)
-        p_d1 = probs_lookup(index, depth_cur + 1, kth_sim)
-        rest = torch.where(depth_cur == d_entry, 0.0,
-                           torch.clamp(L - tables_consumed, min=0.0))
-        failure = torch.pow(1.0 - p_d, tables_consumed) * torch.pow(1.0 - p_d1, rest)
-        ball_stop = full & (ball_floor > kth_dist)
-        qdone = qdone | (failure <= stop_at) | exhausted | ball_stop
+            kth_sim, full, kth_dist = kth(topk_sims, topk_ids)
+            p_d = probs_lookup(index, depth_cur, kth_sim)
+            p_d1 = probs_lookup(index, depth_cur + 1, kth_sim)
+            rest = torch.where(depth_cur == d_entry, 0.0,
+                               torch.clamp(L - tables_consumed, min=0.0))
+            failure = torch.pow(1.0 - p_d, tables_consumed) * torch.pow(1.0 - p_d1, rest)
+            ball_stop = full & (ball_floor > kth_dist)
+            qdone = qdone | (failure <= stop_at) | exhausted | ball_stop
         return (topk_sims, topk_ids, qdone, off_new, dc, cand_ct)
 
     return cond, body
@@ -342,17 +353,19 @@ def _advance(cond, body, state, *, tb: int, wb: int, max_iters: Optional[int] = 
     iters = syncs = 0
     while max_iters is None or iters < max_iters:
         qdone, off = state[2], state[3]
-        live, live_max = host_read(torch.stack([
-            cond(state).to(torch.int64),
-            torch.max(torch.where(qdone, 0, off)).to(torch.int64),
-        ]).tolist)  # the one host sync per SYNC_EVERY steps
+        with TRACER.span("engine/read"):  # the one host sync per SYNC_EVERY steps
+            live, live_max = host_read(torch.stack([
+                cond(state).to(torch.int64),
+                torch.max(torch.where(qdone, 0, off)).to(torch.int64),
+            ]).tolist)
         syncs += 1
         if not live:
             break
         steps = SYNC_EVERY if max_iters is None else min(SYNC_EVERY, max_iters - iters)
         for j in range(steps):
             # cursors move at most WB blocks per step
-            state = body(state, tb > 0 and live_max + (j + 1) * wb <= tb)
+            with TRACER.span("engine/body"):
+                state = body(state, tb > 0 and live_max + (j + 1) * wb <= tb)
             iters += 1
     return state, iters, syncs
 
@@ -374,7 +387,8 @@ def _run_loop(index, streams, delta, *, k, chunk, min_depth, filter_type,
         loop_stats.batches += 1
         loop_stats.iterations += iters
         loop_stats.syncs += syncs
-    return _finalize(index, streams, state, k=k)
+    with TRACER.span("engine/finalize"):
+        return _finalize(index, streams, state, k=k)
 
 
 def global_search_batch_impl(index, queries_n, query_hashes, query_sketches, delta, *,
@@ -388,12 +402,13 @@ def global_search_batch_impl(index, queries_n, query_hashes, query_sketches, del
     static_map_tb > 0 attaches the stream map at that position count
     without a host sync; cursors past it take the in-loop derivation.
     """
-    streams = _prepare_streams(index, queries_n, query_hashes, query_sketches,
-                               min_depth=min_depth)
-    G = max(1, index.config.gather_block)
-    if static_map_tb > 0 and index.config.stream_map and G <= 32:
-        streams = _attach_stream_map(streams, g=int(np.log2(G)),
-                                     L=index.g_sorted_hash.shape[0], tb=static_map_tb)
+    with TRACER.span("engine/prepare"):
+        streams = _prepare_streams(index, queries_n, query_hashes, query_sketches,
+                                   min_depth=min_depth)
+        G = max(1, index.config.gather_block)
+        if static_map_tb > 0 and index.config.stream_map and G <= 32:
+            streams = _attach_stream_map(streams, g=int(np.log2(G)),
+                                         L=index.g_sorted_hash.shape[0], tb=static_map_tb)
     return _run_loop(index, streams, delta, k=k, chunk=chunk, min_depth=min_depth,
                      filter_type=filter_type, filter_expand=filter_expand,
                      loop_stats=loop_stats)
@@ -435,15 +450,17 @@ def global_search_batch_mapped(index, queries_n, query_hashes, query_sketches, d
             min_depth=min_depth, filter_type=filter_type, filter_expand=filter_expand,
             loop_stats=loop_stats,
         )
-    streams = _prepare_streams(index, queries_n, query_hashes, query_sketches,
-                               min_depth=min_depth)
-    total_max = host_read(torch.max(streams["total"]).item)
-    if loop_stats is not None:
-        loop_stats.syncs += 1
-    wb = max(1, (chunk * filter_expand) // G)
-    tb = _map_tb(total_max, index.config.stream_map_blocks, wb, queries_n.shape[0])
-    streams = _attach_stream_map(streams, g=int(np.log2(G)),
-                                 L=index.g_sorted_hash.shape[0], tb=tb)
+    with TRACER.span("engine/prepare"):
+        streams = _prepare_streams(index, queries_n, query_hashes, query_sketches,
+                                   min_depth=min_depth)
+        with TRACER.span("engine/map"):
+            total_max = host_read(torch.max(streams["total"]).item)
+            if loop_stats is not None:
+                loop_stats.syncs += 1
+            wb = max(1, (chunk * filter_expand) // G)
+            tb = _map_tb(total_max, index.config.stream_map_blocks, wb, queries_n.shape[0])
+            streams = _attach_stream_map(streams, g=int(np.log2(G)),
+                                         L=index.g_sorted_hash.shape[0], tb=tb)
     return _run_loop(index, streams, delta, k=k, chunk=chunk, min_depth=min_depth,
                      filter_type=filter_type, filter_expand=filter_expand,
                      loop_stats=loop_stats)
@@ -487,7 +504,8 @@ def global_search(
     batch_size defaults to the JAX package's 256 (there it avoids a TPU
     worker fault); the engine is batch-invariant, so any size gives the
     same per-query results. `loop_stats` (a LoopStats) accumulates the
-    loops' iterations and host syncs.
+    loops' iterations and host syncs (the tracer's own while it is active
+    and the caller passes none).
     """
     from clann_tpu_torch.errors import DataError
 
@@ -500,6 +518,7 @@ def global_search(
     delta = cfg.delta if delta is None else delta
     source, filterer = index.rebuild_objects()
 
+    loop_stats = TRACER.loop_stats(loop_stats)
     q = as_device_f32(queries, index.device)
     if q.dim() == 1:
         q = q[None, :]
@@ -513,8 +532,10 @@ def global_search(
         qn = qn[torch.as_tensor(perm, device=qn.device)]
 
     def run_block(block):
+        with TRACER.span("engine/hash"):
+            qh, qs = source.hash(block), filterer.sketch(block)
         return global_search_batch_mapped(
-            index, block, source.hash(block), filterer.sketch(block), delta,
+            index, block, qh, qs, delta,
             k=k, chunk=cfg.candidate_chunk, min_depth=cfg.min_depth,
             filter_type=filter_type, filter_expand=cfg.filter_expand,
             loop_stats=loop_stats,
@@ -526,9 +547,7 @@ def global_search(
         inv[perm] = np.arange(len(perm))
         sims, ids = sims[inv], ids[inv]
         stats = SearchStats(*(np.asarray(f)[inv] for f in stats))
-    dists = 2.0 * (1.0 - sims)
-    dists = np.where(ids < 0, np.inf, dists)
-    return dists, ids, stats
+    return sims_to_dists(sims, ids), ids, stats
 
 
 def _global_step_packed(index, streams_all: dict, state_all: tuple, active: torch.Tensor,

@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from clann_tpu_torch.metrics.trace import TRACER
 from clann_tpu_torch.ops.distances import (
     _certified_scan_impl,
     _dense_scan_impl,
@@ -250,12 +251,13 @@ def scan_search(
         )
         base_p = _pallas_base(index, block_n)
         for s in range(0, qn.shape[0], batch_q):
-            ts, ti = fused_scan_topk_e2e(
-                base_p, index.vectors, qn[s : s + batch_q],
-                n_real=n, k=k, rescore_m=rescore_m,
-                num_bins=num_bins, block_n=block_n, q_tile=q_tile,
-                normalize=True, biased=True,
-            )
+            with TRACER.span("scan/sub_batch"):
+                ts, ti = fused_scan_topk_e2e(
+                    base_p, index.vectors, qn[s : s + batch_q],
+                    n_real=n, k=k, rescore_m=rescore_m,
+                    num_bins=num_bins, block_n=block_n, q_tile=q_tile,
+                    normalize=True, biased=True,
+                )
             outs_s.append(ts)
             outs_i.append(ti)
     else:
@@ -296,27 +298,29 @@ def scan_search(
 
     ids_dev = torch.cat(outs_i)
     Q = ids_dev.shape[0]
-    dc = np.full(Q, n, np.int32)
-    uncert = (torch.cat(uncert_rows).cpu().numpy() if uncert_rows
-              else np.zeros(Q, np.int32))
-    stats = DenseSearchStats(
-        distance_computations=dc,
-        candidates=dc,
-        clusters_visited=np.full(Q, index.n_clusters, np.int32),
-        dropped_probes=np.int32(0),
-        uncertified=uncert,
-    )
     if pull == "ids-packed":
-        raw = _pack_ids_device(ids_dev, n=n, bits=bits, words=words)
-        ids = _unpack_ids_host(raw.cpu().numpy().view(np.uint32), n=n,
-                               bits=bits, k=k)
-        return None, ids, stats
-    ids = ids_dev.cpu().numpy().astype(np.int32)
-    if pull == "ids":
-        return None, ids, stats
-    dots = torch.cat(outs_s).cpu().numpy()
-    dists = np.where(ids >= 0, np.clip(1.0 - dots, 0.0, 2.0), np.inf)
-    return dists, ids, stats
+        ids_dev = _pack_ids_device(ids_dev, n=n, bits=bits, words=words)
+    with TRACER.span("search/pull"):  # waits for the scan
+        uncert = (torch.cat(uncert_rows).cpu().numpy() if uncert_rows
+                  else np.zeros(Q, np.int32))
+        ids = ids_dev.cpu().numpy()
+        dots = None if pull in ("ids", "ids-packed") else torch.cat(outs_s).cpu().numpy()
+    with TRACER.span("search/to_numpy"):
+        dc = np.full(Q, n, np.int32)
+        stats = DenseSearchStats(
+            distance_computations=dc,
+            candidates=dc,
+            clusters_visited=np.full(Q, index.n_clusters, np.int32),
+            dropped_probes=np.int32(0),
+            uncertified=uncert,
+        )
+        if pull == "ids-packed":
+            return None, _unpack_ids_host(ids.view(np.uint32), n=n, bits=bits, k=k), stats
+        ids = ids.astype(np.int32)
+        if dots is None:
+            return None, ids, stats
+        dists = np.where(ids >= 0, np.clip(1.0 - dots, 0.0, 2.0), np.inf)
+        return dists, ids, stats
 
 
 def _dedup_topk_np(cat_s: np.ndarray, cat_i: np.ndarray, k: int):
@@ -371,81 +375,84 @@ def ivf_search_batch_impl(index, queries_n: torch.Tensor, *, k: int, n_probe: in
     cap = probe_cap
     seg_sizes = index.seg_sizes
 
-    # 1. rank rows per query (index.rs:592-616; rows of one cluster share a
-    # center, exact ties that lax.top_k breaks toward the lower row)
-    center_dist = torch.clamp(1.0 - exact_dot(queries_n, index.seg_centers.T), 0.0, 2.0)
-    if probe_rows is None:
-        P = min(n_probe, C)
-        probe = topk_stable(-center_dist, P)[1]
-    else:
-        probe = probe_rows.to(device=dev, dtype=torch.int64)
-        P = probe.shape[1]
+    with TRACER.span("ivf/probe"):
+        # 1. rank rows per query (index.rs:592-616; rows of one cluster share a
+        # center, exact ties that lax.top_k breaks toward the lower row)
+        center_dist = torch.clamp(1.0 - exact_dot(queries_n, index.seg_centers.T), 0.0, 2.0)
+        if probe_rows is None:
+            P = min(n_probe, C)
+            probe = topk_stable(-center_dist, P)[1]
+        else:
+            probe = probe_rows.to(device=dev, dtype=torch.int64)
+            P = probe.shape[1]
 
-    # 2. invert to row-major padded query lists: a stable sort keeps each
-    # row's queries ascending (JAX's sort leaves that order open; it
-    # decides only which probes a full row drops)
-    sc, flat = torch.sort(probe.reshape(-1), stable=True)
-    sq, sp = torch.div(flat, P, rounding_mode="floor"), flat % P
-    crange = torch.arange(C, device=dev)
-    cl_start = torch.searchsorted(sc, crange, side="left")
-    counts = torch.searchsorted(sc, crange, side="right") - cl_start  # probes per row
-    jj = torch.arange(cap, device=dev)
-    take = torch.clamp(cl_start[:, None] + jj[None, :], 0, Q * P - 1)
-    slot_valid = jj[None, :] < counts[:, None]  # (C, cap)
-    qidx = torch.where(slot_valid, sq[take], Q)  # Q == dump row
-    pidx = torch.where(slot_valid, sp[take], 0)
-    dropped = torch.sum(torch.clamp(counts - cap, min=0))
+        # 2. invert to row-major padded query lists: a stable sort keeps each
+        # row's queries ascending (JAX's sort leaves that order open; it
+        # decides only which probes a full row drops)
+        sc, flat = torch.sort(probe.reshape(-1), stable=True)
+        sq, sp = torch.div(flat, P, rounding_mode="floor"), flat % P
+        crange = torch.arange(C, device=dev)
+        cl_start = torch.searchsorted(sc, crange, side="left")
+        counts = torch.searchsorted(sc, crange, side="right") - cl_start  # probes per row
+        jj = torch.arange(cap, device=dev)
+        take = torch.clamp(cl_start[:, None] + jj[None, :], 0, Q * P - 1)
+        slot_valid = jj[None, :] < counts[:, None]  # (C, cap)
+        qidx = torch.where(slot_valid, sq[take], Q)  # Q == dump row
+        pidx = torch.where(slot_valid, sp[take], 0)
+        dropped = torch.sum(torch.clamp(counts - cap, min=0))
 
-    # 3+4. score groups of rows (a fixed budget of f32 scores per group),
-    # each reduced at once to a top-k per (row, slot)
-    kk = min(k, S_max)
-    qpad = torch.cat([queries_n, queries_n.new_zeros((1, d))])
-    col = torch.arange(S_max, device=dev)
-    group = max(1, min(C, SCORE_BUDGET // max(1, cap * S_max * 4)))
-    top_s = torch.empty((C, cap, kk), dtype=torch.float32, device=dev)
-    top_i = torch.empty((C, cap, kk), dtype=torch.int32, device=dev)
-    for g0 in range(0, C, group):
-        rows = slice(g0, min(C, g0 + group))
-        qv = qpad[qidx[rows]]  # (group, cap, d); the dump row scores zeros
-        dots = torch.bmm(qv, index.seg_vectors[rows].transpose(1, 2))  # (group, cap, S_max)
-        sims = torch.clamp((dots + 1.0) * 0.5, 0.0, 1.0)  # cosine.hpp:19-23
-        ok = slot_valid[rows][:, :, None] & (col[None, :] < seg_sizes[rows][:, None])[:, None, :]
-        ts, tj = torch.topk(torch.where(ok, sims, -1.0), kk, dim=2)
-        top_s[rows] = ts
-        top_i[rows] = torch.gather(index.seg_ids[rows][:, None, :].expand(-1, cap, -1), 2, tj)
-    if kk < k:
-        top_s = torch.nn.functional.pad(top_s, (0, k - kk), value=-1.0)
-        top_i = torch.nn.functional.pad(top_i, (0, k - kk), value=-1)
-    out_s = torch.full((Q + 1, P, k), -1.0, dtype=torch.float32, device=dev)
-    out_i = torch.full((Q + 1, P, k), -1, dtype=torch.int32, device=dev)
-    out_s.index_put_((qidx, pidx), top_s)
-    out_i.index_put_((qidx, pidx), top_i)
-    final_s, sel = topk_stable(out_s[:Q].reshape(Q, P * k), k)
-    final_i = torch.gather(out_i[:Q].reshape(Q, P * k), 1, sel)
-    final_i = torch.where((final_s < 0) | (final_i < 0), -1, final_i)
-    final_s = torch.clamp(final_s, min=0.0)
+    with TRACER.span("ivf/scan"):
+        # 3+4. score groups of rows (a fixed budget of f32 scores per group),
+        # each reduced at once to a top-k per (row, slot)
+        kk = min(k, S_max)
+        qpad = torch.cat([queries_n, queries_n.new_zeros((1, d))])
+        col = torch.arange(S_max, device=dev)
+        group = max(1, min(C, SCORE_BUDGET // max(1, cap * S_max * 4)))
+        top_s = torch.empty((C, cap, kk), dtype=torch.float32, device=dev)
+        top_i = torch.empty((C, cap, kk), dtype=torch.int32, device=dev)
+        for g0 in range(0, C, group):
+            rows = slice(g0, min(C, g0 + group))
+            qv = qpad[qidx[rows]]  # (group, cap, d); the dump row scores zeros
+            dots = torch.bmm(qv, index.seg_vectors[rows].transpose(1, 2))  # (group, cap, S_max)
+            sims = torch.clamp((dots + 1.0) * 0.5, 0.0, 1.0)  # cosine.hpp:19-23
+            ok = (slot_valid[rows][:, :, None]
+                  & (col[None, :] < seg_sizes[rows][:, None])[:, None, :])
+            ts, tj = torch.topk(torch.where(ok, sims, -1.0), kk, dim=2)
+            top_s[rows] = ts
+            top_i[rows] = torch.gather(index.seg_ids[rows][:, None, :].expand(-1, cap, -1), 2, tj)
+        if kk < k:
+            top_s = torch.nn.functional.pad(top_s, (0, k - kk), value=-1.0)
+            top_i = torch.nn.functional.pad(top_i, (0, k - kk), value=-1)
+        out_s = torch.full((Q + 1, P, k), -1.0, dtype=torch.float32, device=dev)
+        out_i = torch.full((Q + 1, P, k), -1, dtype=torch.int32, device=dev)
+        out_s.index_put_((qidx, pidx), top_s)
+        out_i.index_put_((qidx, pidx), top_i)
+        final_s, sel = topk_stable(out_s[:Q].reshape(Q, P * k), k)
+        final_i = torch.gather(out_i[:Q].reshape(Q, P * k), 1, sel)
+        final_i = torch.where((final_s < 0) | (final_i < 0), -1, final_i)
+        final_s = torch.clamp(final_s, min=0.0)
 
-    # stats + ball-overlap certificate (index.rs:342-361, per row with the
-    # owner cluster's radius). probed_ok: the (query, probe) pairs actually
-    # scanned — a probe dropped by a full row certifies nothing
-    probed_ok = torch.zeros((Q + 1, P), dtype=torch.bool, device=dev)
-    probed_ok.index_put_((qidx, pidx), torch.ones_like(qidx, dtype=torch.bool))
-    probed_ok = probed_ok[:Q]
-    probed_sizes = seg_sizes[probe] * probed_ok  # (Q, P)
-    kth_dist = torch.where(final_i[:, k - 1] >= 0, 2.0 * (1.0 - final_s[:, k - 1]), torch.inf)
-    overlapping = (center_dist - index.seg_radii[None, :]) <= kth_dist[:, None]  # (Q, C)
-    is_probed = torch.zeros((Q, C), dtype=torch.int32, device=dev).scatter_add_(
-        1, probe, probed_ok.to(torch.int32)) > 0
-    uncertified = torch.sum(overlapping & ~is_probed & (seg_sizes[None, :] > 0), dim=1)
-    stats = DenseSearchStats(
-        distance_computations=probed_sizes.sum(dim=1, dtype=torch.int32),
-        candidates=probed_sizes.sum(dim=1, dtype=torch.int32),
-        clusters_visited=probed_ok.sum(dim=1, dtype=torch.int32),
-        dropped_probes=dropped.to(torch.int32),
-        uncertified=uncertified.to(torch.int32),
-        probed_clusters=index.seg_cluster[probe],
-        probed_counts=probed_sizes.to(torch.int32),
-    )
+        # stats + ball-overlap certificate (index.rs:342-361, per row with the
+        # owner cluster's radius). probed_ok: the (query, probe) pairs actually
+        # scanned — a probe dropped by a full row certifies nothing
+        probed_ok = torch.zeros((Q + 1, P), dtype=torch.bool, device=dev)
+        probed_ok.index_put_((qidx, pidx), torch.ones_like(qidx, dtype=torch.bool))
+        probed_ok = probed_ok[:Q]
+        probed_sizes = seg_sizes[probe] * probed_ok  # (Q, P)
+        kth_dist = torch.where(final_i[:, k - 1] >= 0, 2.0 * (1.0 - final_s[:, k - 1]), torch.inf)
+        overlapping = (center_dist - index.seg_radii[None, :]) <= kth_dist[:, None]  # (Q, C)
+        is_probed = torch.zeros((Q, C), dtype=torch.int32, device=dev).scatter_add_(
+            1, probe, probed_ok.to(torch.int32)) > 0
+        uncertified = torch.sum(overlapping & ~is_probed & (seg_sizes[None, :] > 0), dim=1)
+        stats = DenseSearchStats(
+            distance_computations=probed_sizes.sum(dim=1, dtype=torch.int32),
+            candidates=probed_sizes.sum(dim=1, dtype=torch.int32),
+            clusters_visited=probed_ok.sum(dim=1, dtype=torch.int32),
+            dropped_probes=dropped.to(torch.int32),
+            uncertified=uncertified.to(torch.int32),
+            probed_clusters=index.seg_cluster[probe],
+            probed_counts=probed_sizes.to(torch.int32),
+        )
     return final_s, final_i, stats
 
 
@@ -514,7 +521,8 @@ def adaptive_dense_search(index, queries, k: Optional[int] = None, wave: int = 1
             if cap_w >= Q or int(wst.dropped_probes) == 0:
                 break
             cap_w = min(Q, 2 * cap_w)
-        sims, ids = sims.cpu().numpy(), ids.cpu().numpy()
+        with TRACER.span("search/pull"):
+            sims, ids = sims.cpu().numpy(), ids.cpu().numpy()
         active = ~done
         cat_s = np.concatenate([top_s, np.where(active[:, None], sims, -1)], 1)
         cat_i = np.concatenate([top_i, np.where(active[:, None], ids, -1)], 1)
@@ -573,18 +581,20 @@ def dense_search(index, queries, k: Optional[int] = None, n_probe: Optional[int]
         sims, ids, stats = ivf_search_batch_impl(index, block, k=k, n_probe=n_probe,
                                                  probe_cap=cap)
         keep = block.shape[0] - pad
-        out_s.append(sims[:keep].cpu().numpy())
-        out_i.append(ids[:keep].cpu().numpy())
-        out_st.append(stats)
+        with TRACER.span("search/pull"):  # waits for the block's device work
+            out_s.append(sims[:keep].cpu().numpy())
+            out_i.append(ids[:keep].cpu().numpy())
+            # dropped_probes counts the batches' pad rows too, as JAX's does
+            out_st.append({f: int(v) if f == "dropped_probes" else v[:keep].cpu().numpy()
+                           for f, v in zip(DenseSearchStats._fields, stats)})
 
-    sims = np.concatenate(out_s, axis=0)
-    ids = np.concatenate(out_i, axis=0)
-    # dropped_probes counts the batches' pad rows too, as JAX's does
-    stats = DenseSearchStats(**{
-        f: np.sum([int(st.dropped_probes) for st in out_st]) if f == "dropped_probes"
-        else np.concatenate([getattr(st, f)[:keep].cpu().numpy()
-                             for st, keep in zip(out_st, map(len, out_i))])
-        for f in DenseSearchStats._fields})
-    dists = 2.0 * (1.0 - sims)
-    dists = np.where(ids < 0, np.inf, dists)
+    with TRACER.span("search/to_numpy"):
+        sims = np.concatenate(out_s, axis=0)
+        ids = np.concatenate(out_i, axis=0)
+        stats = DenseSearchStats(**{
+            f: np.sum([st[f] for st in out_st]) if f == "dropped_probes"
+            else np.concatenate([st[f] for st in out_st])
+            for f in DenseSearchStats._fields})
+        dists = 2.0 * (1.0 - sims)
+        dists = np.where(ids < 0, np.inf, dists)
     return dists, ids, stats

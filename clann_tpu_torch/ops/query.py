@@ -34,13 +34,12 @@ the merge's ties (empty slots, equal scores) decide which ids survive.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from clann_tpu_torch.metrics.trace import TRACER
+from clann_tpu_torch.metrics.trace import TRACER, LoopStats
 from clann_tpu_torch.ops.distances import as_device_f32, exact_dot, l2_normalize
 from clann_tpu_torch.ops.gather import gather_rows
 from clann_tpu_torch.ops.prefixmap import (
@@ -57,21 +56,6 @@ from clann_tpu_torch.parallel.mesh import host_read
 
 # body steps between two host reads of a loop's stop flag
 SYNC_EVERY = 4
-
-
-@dataclasses.dataclass
-class LoopStats:
-    """What the adaptive loops of a search did (accumulated over calls):
-    batches run, outer steps (the walk's (group, window) steps; the
-    continuous global driver's lane steps; 0 for the batched global
-    engine), loop-body iterations, and host syncs (stop-flag, map-sizing,
-    descend and lane done-flag pulls; the results pull of each batch is
-    not counted)."""
-
-    batches: int = 0
-    outer_steps: int = 0
-    iterations: int = 0
-    syncs: int = 0
 
 
 class SearchStats(NamedTuple):
@@ -110,14 +94,23 @@ def batched_query_driver(qn, batch_size, run_block):
         if pad:
             sims, ids = sims[:-pad], ids[:-pad]
             stats = SearchStats(*(s[:-pad] for s in stats))
-        all_sims.append(sims.cpu().numpy())
-        all_ids.append(ids.cpu().numpy())
-        all_stats.append([s.cpu().numpy() for s in stats])
-    sims = np.concatenate(all_sims, axis=0)
-    ids = np.concatenate(all_ids, axis=0)
-    stats = SearchStats(*(np.concatenate([s[i] for s in all_stats])
-                          for i in range(len(SearchStats._fields))))
+        with TRACER.span("search/pull"):  # waits for the block's device work
+            all_sims.append(sims.cpu().numpy())
+            all_ids.append(ids.cpu().numpy())
+            all_stats.append([s.cpu().numpy() for s in stats])
+    with TRACER.span("search/to_numpy"):
+        sims = np.concatenate(all_sims, axis=0)
+        ids = np.concatenate(all_ids, axis=0)
+        stats = SearchStats(*(np.concatenate([s[i] for s in all_stats])
+                              for i in range(len(SearchStats._fields))))
     return sims, ids, stats
+
+
+def sims_to_dists(sims: np.ndarray, ids: np.ndarray) -> np.ndarray:
+    """Host distances of the LSH engines' similarities (puffinn_types.rs:77-79
+    inverse), inf for empty slots."""
+    with TRACER.span("search/to_numpy"):
+        return np.where(ids < 0, np.inf, 2.0 * (1.0 - sims))
 
 
 # the int8 dots are exact in f32 while every partial sum of 127^2-sized
@@ -582,6 +575,8 @@ def search(index, queries, k: int = None, delta: float = None, batch_size: int =
     if per_cluster and index.pc_sketch_params is None:
         raise ValueError("an index with per-cluster hash functions needs pc_sketch_params")
 
+    loop_stats = TRACER.loop_stats(loop_stats)
+
     def run_block(block):
         with TRACER.span("search/hashing"):
             qh = (hash_per_cluster(source, index.pc_hash_params, block) if per_cluster
@@ -589,21 +584,16 @@ def search(index, queries, k: int = None, delta: float = None, batch_size: int =
         with TRACER.span("search/sketching"):
             qs = (hash_per_cluster(filterer, index.pc_sketch_params, block) if per_cluster
                   else filterer.sketch(block))
-        with TRACER.span("search/scan"):
-            out = search_batch_impl(
+        with TRACER.span("search/scan", block_on=block):
+            return search_batch_impl(
                 index, block, qh, qs, delta, k=k, chunk=cfg.candidate_chunk,
                 min_depth=cfg.min_depth, filter_type=filter_type,
                 filter_expand=cfg.filter_expand, group_ranks=cfg.lsh_group_ranks,
                 loop_stats=loop_stats,
             )
-            if TRACER.enabled and out[0].is_cuda:
-                torch.cuda.synchronize(out[0].device)
-        return out
 
     sims, ids, stats = batched_query_driver(qn, batch_size, run_block)
-    dists = 2.0 * (1.0 - sims)  # puffinn_types.rs:77-79 inverse
-    dists = np.where(ids < 0, np.inf, dists)
-    return dists, ids, stats
+    return sims_to_dists(sims, ids), ids, stats
 
 
 def search_by_id(index, point_ids, k: int = None, delta: float = None,

@@ -33,20 +33,16 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from clann_tpu_torch.metrics.trace import TRACER
+
 CLUSTER_AXIS = "cluster"
 QUERY_AXIS = "query"
-
-# Per-card spans of the shard bodies, a reading of how the cards overlap:
-# while this is a list, `run_shards` appends (device, start event, end
-# event) around each shard body it runs on a CUDA device, recorded on that
-# card's current stream (no host sync). None (the default) records nothing.
-SHARD_SPANS: Optional[list] = None
 
 # True inside `_shards_in_order()`: run_shards then runs every body in shard
 # order from the calling thread, as the port did before it ran the cards at
 # once. For readings and tests only.
 _IN_ORDER = False
-_LOCK = threading.Lock()  # SHARD_SPANS appends and the worker pool
+_LOCK = threading.Lock()  # the worker pool
 _WORKERS: Dict[torch.device, concurrent.futures.ThreadPoolExecutor] = {}
 # .worker: this thread is a card's worker; .turn: it holds _TURN
 _THREAD = threading.local()
@@ -92,23 +88,6 @@ class Mesh:
 
 
 @contextlib.contextmanager
-def shard_span(device):
-    """Record one shard body on `device` into SHARD_SPANS, when it is a
-    list."""
-    spans, dev = SHARD_SPANS, torch.device(device)
-    if spans is None or dev.type != "cuda":
-        yield
-        return
-    stream = torch.cuda.current_stream(dev)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record(stream)
-    yield
-    end.record(stream)
-    with _LOCK:
-        spans.append((dev, start, end))
-
-
-@contextlib.contextmanager
 def _shards_in_order():
     """Within this block run_shards runs every shard body in shard order
     from the calling thread (the in-order reading beside the at-once one)."""
@@ -129,11 +108,13 @@ def taking_turns():
     retakes the interpreter lock, so workers issuing small ops side by side
     hand the lock over at every op, which costs far more than the op on
     some hosts; taking turns hands it over once per host read. Outside a
-    worker (inline runs, one card) it does nothing."""
+    worker (inline runs, one card) it does nothing. The waits for the turn
+    are the tracer's `shards/turn_wait` spans."""
     if not getattr(_THREAD, "worker", False) or getattr(_THREAD, "turn", False):
         yield
         return
-    _TURN.acquire()
+    with TRACER.span("shards/turn_wait"):
+        _TURN.acquire()
     _THREAD.turn = True
     try:
         yield
@@ -152,7 +133,8 @@ def host_read(fn: Callable[[], Any]) -> Any:
     try:
         return fn()
     finally:
-        _TURN.acquire()
+        with TRACER.span("shards/turn_wait"):
+            _TURN.acquire()
         _THREAD.turn = True
 
 
@@ -176,7 +158,7 @@ def _worker(dev: torch.device) -> concurrent.futures.ThreadPoolExecutor:
 def run_shards(devices: Sequence[Optional[torch.device]],
                body: Callable[[int], Any]) -> List[Any]:
     """`body(i)` for every shard i whose device is not None (the shards of
-    this process), each inside shard_span(devices[i]); returns the results
+    this process), each inside a `shards/body` span; returns the results
     by shard (None for the others). The shard_map of the single controller.
 
     The shards are grouped by device, and each device gets one worker
@@ -188,7 +170,9 @@ def run_shards(devices: Sequence[Optional[torch.device]],
     lies on one device (a one-card mesh, a CPU mesh, one process per card),
     under `_shards_in_order()`, or when called from a worker, the bodies run
     inline in shard order. Loop bodies that issue many small ops take turns
-    (taking_turns, host_read).
+    (taking_turns, host_read). While the tracer is active in the calling
+    thread, the workers are marked traced for these bodies (their spans
+    are on the host clock: the profiler does not reach them).
 
     Waits for every worker. If bodies raised, the first one's exception (in
     shard order) is raised once every worker has stopped, with the others'
@@ -201,7 +185,7 @@ def run_shards(devices: Sequence[Optional[torch.device]],
         groups.setdefault(_card(devices[i]), []).append(i)
 
     def run(i):
-        with shard_span(devices[i]):
+        with TRACER.span("shards/body"):
             return body(i)
 
     if _IN_ORDER or len(groups) <= 1 or getattr(_THREAD, "worker", False):
@@ -209,10 +193,12 @@ def run_shards(devices: Sequence[Optional[torch.device]],
             out[i] = run(i)
         return out
     streams = [torch.cuda.current_stream(d) for d in groups if d.type == "cuda"]
+    traced = TRACER.active()
 
     def work(dev, shards):
         _THREAD.worker = True
         with contextlib.ExitStack() as scope:
+            scope.enter_context(TRACER.marked(traced))
             for st in streams:
                 scope.enter_context(torch.cuda.stream(st))
             if dev.type == "cuda":

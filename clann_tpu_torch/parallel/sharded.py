@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from clann_tpu_torch.config import Config
+from clann_tpu_torch.metrics.trace import TRACER, LoopStats
 from clann_tpu_torch.ops.query import SearchStats, search_batch_impl, topk_stable
 from clann_tpu_torch.parallel.mesh import (
     CLUSTER_AXIS,
@@ -50,7 +51,6 @@ from clann_tpu_torch.parallel.mesh import (
     make_mesh,
     psum,
     run_shards,
-    shard_span,
     taking_turns,
 )
 
@@ -342,7 +342,6 @@ def build_sharded(data, config: Config, mesh=None, metric: str = "angular") -> S
     """
     from clann_tpu_torch.core.index import _generators, _hash_in_blocks, derive_probs_tables
     from clann_tpu_torch.errors import DataError, IndexCreationError
-    from clann_tpu_torch.metrics.trace import TRACER
     from clann_tpu_torch.ops.distances import l2_normalize
     from clann_tpu_torch.ops.hashing import make_hash_family
     from clann_tpu_torch.ops.prefixmap import sort_tables_segmented
@@ -633,6 +632,7 @@ def sharded_global_search_batch(
     *,
     k: int,
     mesh=None,
+    loop_stats: Optional[LoopStats] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, SearchStats]:
     """Point-sharded ball-filtered global LSH over the mesh.
 
@@ -641,7 +641,9 @@ def sharded_global_search_batch(
     per-shard top-k merged as in sharded_search_batch. Per-shard k-th
     bests are never tighter than the global one, so per-shard termination
     is conservative: recall can only improve vs the single-device engine.
-    Supports the same 2-D meshes as sharded_search_batch.
+    Supports the same 2-D meshes as sharded_search_batch. `loop_stats`
+    accumulates every shard's loop (a batch per shard): each body counts
+    into its own, added up once the bodies are done.
     """
     from clann_tpu_torch.ops.global_query import _map_tb, global_search_batch_impl
 
@@ -664,18 +666,28 @@ def sharded_global_search_batch(
         map_tb = _map_tb(cfg.stream_map_blocks, cfg.stream_map_blocks, wb,
                          queries_n.shape[0])
 
+    shard_loops: List[LoopStats] = []
+
     def body(index, qn, qh, qs):
+        ls = None
+        if loop_stats is not None:
+            ls = LoopStats()
+            shard_loops.append(ls)
         return global_search_batch_impl(
             index, qn, qh, qs, float(delta), k=k, chunk=cfg.candidate_chunk,
             min_depth=cfg.min_depth, filter_expand=cfg.filter_expand,
-            static_map_tb=map_tb)
+            static_map_tb=map_tb, loop_stats=ls)
 
-    return _run_shards(sharded, mesh, queries_n, query_hashes, query_sketches, body, k=k)
+    out = _run_shards(sharded, mesh, queries_n, query_hashes, query_sketches, body, k=k)
+    for ls in shard_loops:
+        loop_stats.add(ls)
+    return out
 
 
-def _search(batch_fn, sharded: ShardedIndex, queries, k, delta, mesh):
+def _search(batch_fn, sharded: ShardedIndex, queries, k, delta, mesh, **kw):
     """Normalize + hash the queries on the mesh's first device, run
-    `batch_fn`, return host (distances ascending, global ids, stats)."""
+    `batch_fn` (with `kw`), return host (distances ascending, global ids,
+    stats)."""
     from clann_tpu_torch.ops.distances import as_device_f32, l2_normalize
 
     cfg = sharded.config
@@ -688,14 +700,18 @@ def _search(batch_fn, sharded: ShardedIndex, queries, k, delta, mesh):
     source.params = _params_to(source.params, lead)
     filterer.params = _params_to(filterer.params, lead)
 
-    qn = l2_normalize(as_device_f32(queries, lead))
-    qn, n_real = _pad_queries(qn, mesh)
+    with TRACER.span("search/to_device"):
+        q = as_device_f32(queries, lead)
+    qn, n_real = _pad_queries(l2_normalize(q), mesh)
     sims, ids, stats = batch_fn(sharded, qn, source.hash(qn), filterer.sketch(qn), delta,
-                                k=k, mesh=mesh)
+                                k=k, mesh=mesh, **kw)
     sims, ids, stats = _slice_queries(sims, ids, stats, n_real)
-    sims, ids = sims.cpu().numpy(), ids.cpu().numpy()
-    dists = np.where(ids < 0, np.inf, 2.0 * (1.0 - sims))
-    return dists, ids, SearchStats(*(f.cpu().numpy() for f in stats))
+    with TRACER.span("search/pull"):  # waits for every card's work
+        sims, ids = sims.cpu().numpy(), ids.cpu().numpy()
+        stats = SearchStats(*(f.cpu().numpy() for f in stats))
+    with TRACER.span("search/to_numpy"):
+        dists = np.where(ids < 0, np.inf, 2.0 * (1.0 - sims))
+    return dists, ids, stats
 
 
 def sharded_global_search(
@@ -704,10 +720,14 @@ def sharded_global_search(
     k: Optional[int] = None,
     delta: Optional[float] = None,
     mesh=None,
+    loop_stats: Optional[LoopStats] = None,
 ) -> Tuple[np.ndarray, np.ndarray, SearchStats]:
     """Full point-sharded global-engine search: numpy (distances ascending
-    (Q, k), global ids, stats)."""
-    return _search(sharded_global_search_batch, sharded, queries, k, delta, mesh)
+    (Q, k), global ids, stats). `loop_stats` accumulates the shards' loop
+    counts (the tracer's own while it is active and the caller passes
+    none)."""
+    return _search(sharded_global_search_batch, sharded, queries, k, delta, mesh,
+                   loop_stats=TRACER.loop_stats(loop_stats))
 
 
 def sharded_search(
@@ -1028,7 +1048,7 @@ def sharded_scan_search(
     for s, dev in enumerate(local):
         if dev is None:
             continue
-        with shard_span(dev):
+        with TRACER.span("shards/body"):
             vecs, gids, q = vec_in[s].to(dev), gid_in[s].to(dev), qn.to(dev)
             # padded rows (gid < 0) are zero vectors; masked via global ids
             if use_pallas:

@@ -31,9 +31,8 @@ its multichip checks on four cards, in both forms:
 Each prints one line per reading, prefixed "[cards]", and raises
 AssertionError on a failed gate (nothing is caught). Readings: seconds or
 QPS beside the one-card mesh and the single-device path, each card's peak
-memory (`torch.cuda.max_memory_allocated(card)`) and each card's busy
-share: the summed CUDA-event spans of the shard bodies run on that card
-(`parallel.mesh.SHARD_SPANS`), over the call's wall time. chip_smoke.py
+memory (`torch.cuda.max_memory_allocated(card)`); each card's device
+busy share comes from the profiler (`profile_overlap`). chip_smoke.py
 --cards 4 drives them. A rank of `nccl_ranks` is this module run as
 
     python -m clann_tpu_torch.probes.multicard --rank R --world W --init URL --work DIR
@@ -127,45 +126,33 @@ def still_on_card_0(what: str) -> None:
 
 @dataclasses.dataclass
 class Reading:
-    """One timed call: its result, wall seconds, each card's busy share
-    (card index -> share of the wall time its shard bodies took) and the
-    K1 / K7 launches by card."""
+    """One timed call: its result, wall seconds and the K1 / K7 launches by
+    card."""
 
     out: object
     seconds: float
-    busy: Dict[int, float]
     k1: Dict[int, int]
     k7: Dict[int, int]
 
     def line(self) -> str:
-        busy = ", ".join(f"cuda:{i} {s:.3f}" for i, s in sorted(self.busy.items()))
-        return f"{self.seconds:.3f} s (busy share {busy or 'none recorded'})"
+        return f"{self.seconds:.3f} s"
 
 
 def timed(fn: Callable[[], object]) -> Reading:
-    """Run fn with the launch counts at 0 and the shard spans recorded,
-    every card synchronized before and after."""
+    """Run fn with the launch counts at 0, every card synchronized before
+    and after."""
     from clann_tpu_torch.ops import gather as tg
     from clann_tpu_torch.ops import scan_topk as st
-    from clann_tpu_torch.parallel import mesh as pm
 
     sync_all()
     st.KERNEL_LAUNCHES = 0
     st.KERNEL_DEVICE_LAUNCHES.clear()
     tg.reset_launches()
-    pm.SHARD_SPANS = []
     t0 = time.perf_counter()
-    try:
-        out = fn()
-        sync_all()
-    finally:
-        spans, pm.SHARD_SPANS = pm.SHARD_SPANS, None
-    wall = time.perf_counter() - t0
-    busy_ms: Dict[int, float] = collections.defaultdict(float)
-    for dev, start, end in spans:
-        busy_ms[dev.index] += start.elapsed_time(end)
-    return Reading(out, wall, {i: ms / (wall * 1e3) for i, ms in busy_ms.items()},
-                   dict(st.KERNEL_DEVICE_LAUNCHES), dict(tg.ROWS_DEVICE_LAUNCHES))
+    out = fn()
+    sync_all()
+    return Reading(out, time.perf_counter() - t0, dict(st.KERNEL_DEVICE_LAUNCHES),
+                   dict(tg.ROWS_DEVICE_LAUNCHES))
 
 
 def timed_spans(fn: Callable[[], object]):
@@ -284,13 +271,27 @@ def _covered(intervals) -> float:
     return total
 
 
+def _is_span(e) -> bool:
+    """A range of the package tracer (`engine/body`, ...), not a torch op."""
+    return "/" in e.name and "::" not in e.name
+
+
+def _outside_ops(e) -> bool:
+    """No torch op encloses the profiler event `e` (tracer ranges may)."""
+    p = e.cpu_parent
+    while p is not None and _is_span(p):
+        p = p.cpu_parent
+    return p is None
+
+
 def profile_overlap(fn: Callable[[], object], what: str) -> None:
     """fn under torch.profiler, its shard bodies in order and then at once
     (the second of two sessions each): each card's device busy share (the
     union of its kernels and copies over the wall; the profiler sees every
     thread's device work) and, in order, the calling thread's time inside
-    torch ops (the union of its outermost ops, host syncs included; the
-    profiler records the ops of that thread only). The rest of the in-order
+    torch ops (the union of its outermost ops, host syncs included, the
+    package tracer's ranges not counted as ops; the profiler records the
+    ops of that thread only). The rest of the in-order
     wall is Python between the ops, which holds the interpreter lock: the
     at-once run cannot take less than it, so wall / Python bounds its
     speed-up."""
@@ -313,7 +314,7 @@ def profile_overlap(fn: Callable[[], object], what: str) -> None:
             iv = (e.time_range.start, e.time_range.end)
             if e.device_type == DeviceType.CUDA:
                 cards_iv[e.device_index].append(iv)
-            elif e.cpu_parent is None:
+            elif not _is_span(e) and _outside_ops(e):
                 ops_iv.append(iv)
         busy = ", ".join(f"cuda:{c} {_covered(v) / wall_us:.3f}"
                          for c, v in sorted(cards_iv.items()))
@@ -628,11 +629,9 @@ def glove_lsh(lsh, train, test, gt_d, gt_i, label: str, n_cards: int = 4,
     rec_g = _recall(gd, gi, ref["global"][0], ref["global"][1])[0]
     rec_s, idr_s = _recall(gt_d, gt_i, ref["scan"][0], ref["scan"][1])
     log(f"[cards] on that build: sharded_global_search {queries} queries recall@10 "
-        f"{rec_g:.4f}, {queries / ref['global_s']:.1f} QPS (busy share "
-        f"{_busy(ref['busy_global'])}); sharded_scan_search(use_pallas=True) {len(test)} "
-        f"queries recall@10 {rec_s:.4f}, id-recall {idr_s:.4f}, "
-        f"{len(test) / ref['scan_s']:.0f} QPS (second call, busy share "
-        f"{_busy(ref['busy_scan'])})")
+        f"{rec_g:.4f}, {queries / ref['global_s']:.1f} QPS; "
+        f"sharded_scan_search(use_pallas=True) {len(test)} queries recall@10 {rec_s:.4f}, "
+        f"id-recall {idr_s:.4f}, {len(test) / ref['scan_s']:.0f} QPS (second call)")
     check(rec_g >= LSH_GATE * delta and rec_s >= RECALL_GATE and idr_s >= ID_RECALL_GATE,
           "the four-card lsh build's searches are below their gates")
     return k7, ref
@@ -644,7 +643,7 @@ def controller_run(train, test, cfg, mesh, lsh_queries: int = GLOVE_LSH_QUERIES,
     build_sharded, the global engine on the first lsh_queries at delta,
     the fused scan on every query (its second call timed). Returns (the
     sharded index, {"global", "scan": (dists, ids, stats), their seconds,
-    the build's, the busy shares and launches by card})."""
+    the build's and the launches by card})."""
     from clann_tpu_torch.parallel import sharded as sh
 
     b = timed(lambda: sh.build_sharded(train, cfg, mesh=mesh))
@@ -655,8 +654,7 @@ def controller_run(train, test, cfg, mesh, lsh_queries: int = GLOVE_LSH_QUERIES,
     s = timed(lambda: sh.sharded_scan_search(built, test, k=K, use_pallas=True, mesh=mesh))
     sh._SHARD_BASE_CACHE.clear()
     return built, {"global": g.out, "scan": s.out, "global_s": g.seconds, "scan_s": s.seconds,
-                   "build_s": b.seconds, "busy_global": g.busy, "busy_scan": s.busy,
-                   "k7_global": g.k7, "k1_scan": s.k1}
+                   "build_s": b.seconds, "k7_global": g.k7, "k1_scan": s.k1}
 
 
 def glove_walk(walk, test, gt_d, gt_i, single_batch_s: float, label: str,
@@ -857,18 +855,11 @@ def nccl_ranks(cfg, reference, label: str, work_dir: str, world: int = 4,
         f"{reference['build_s']:.3f} s); sharded_global_search {nq_g / ranks[0]['global_s']:.1f} "
         f"QPS (single controller {nq_g / reference['global_s']:.1f}); sharded_scan_search "
         f"(use_pallas) {nq_s / ranks[0]['scan_s']:.0f} QPS (single controller "
-        f"{nq_s / reference['scan_s']:.0f}); busy share per card, global "
-        f"{[round(r['busy_global'], 3) for r in ranks]} (single controller "
-        f"{_busy(reference['busy_global'])}), scan {[round(r['busy_scan'], 3) for r in ranks]} "
-        f"(single controller {_busy(reference['busy_scan'])}); K1 launches per rank "
+        f"{nq_s / reference['scan_s']:.0f}); K1 launches per rank "
         f"{[r['k1'] for r in ranks]}, K7 {[r['k7'] for r in ranks]}; peak memory per card "
         f"{[r['peak_gb'] for r in ranks]} GB on {label}")
     check(not on_cards or all(r["k1"] == 1 and r["k7"] > 0 for r in ranks),
           "a rank did not launch K1 once and K7 on its own card")
-
-
-def _busy(busy: Dict[int, float]) -> List[float]:
-    return [round(busy.get(i, 0.0), 3) for i in range(max(busy, default=-1) + 1)]
 
 
 def rank_main(rank: int, world: int, init: str, work: str) -> None:
@@ -916,8 +907,7 @@ def rank_main(rank: int, world: int, init: str, work: str) -> None:
                           **{f"{key}_{f}": getattr(st, f) for f in st._fields})
         np.savez(os.path.join(work, "rank0.npz"), **arrays)
     readings = {"build_s": run["build_s"], "global_s": run["global_s"],
-                "scan_s": run["scan_s"], "busy_global": run["busy_global"].get(rank, 0.0),
-                "busy_scan": run["busy_scan"].get(rank, 0.0), "k1": k1.get(rank, 0),
+                "scan_s": run["scan_s"], "k1": k1.get(rank, 0),
                 "k7": k7.get(rank, 0), "peak_gb": peaks_gb()}
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(readings, f)

@@ -12,13 +12,14 @@ What one card hides, pinned where the CPU can see it:
   of distinct devices run at once, one worker per device (CPU devices
   cpu:0-3 stand for cards here), and give what the in-order run gives, bit
   for bit, on every sharded path; a worker's exception reaches the caller
-  once every worker has stopped; the launch counters and SHARD_SPANS count
-  exactly from several threads;
+  once every worker has stopped; the launch counters and the tracer's
+  spans count exactly from several threads;
 - the kernel launches (csrc/) switch cards only through DeviceScope, which
   gives the caller's current device back on every return path;
 - build_sharded normalizes each shard's rows on its own device: no call
   ever sees the whole dataset;
-- parallel.mesh.shard_span records CUDA events only on CUDA devices;
+- parallel.mesh.run_shards marks its workers traced while the caller is
+  traced, so their shard bodies and turn waits are recorded;
 - probes/multicard: its comparisons, its placement check, and its
   one-process-per-card run, whose rank 0 must equal the single-controller
   run (here over gloo, one CPU shard per process); the sharded functions
@@ -201,14 +202,35 @@ def test_build_sharded_never_normalizes_the_whole_set(monkeypatch):
     assert rows[-7::2] == list(built.shard_clusters)
 
 
-def test_shard_spans_only_on_cuda(monkeypatch):
-    assert tmesh.SHARD_SPANS is None
-    with tmesh.shard_span("cpu"):
-        pass
-    monkeypatch.setattr(tmesh, "SHARD_SPANS", [])
-    with tmesh.shard_span(torch.device("cpu")):
-        pass
-    assert tmesh.SHARD_SPANS == []
+def test_run_shards_marks_its_workers_traced(monkeypatch):
+    """Under a profiler (which reaches the calling thread only) the workers
+    record their `shards/body` and `shards/turn_wait` spans; without one,
+    nothing is recorded and the workers are left unmarked."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from clann_tpu_torch.metrics.trace import Tracer
+
+    tracer = Tracer(enabled=False)
+    monkeypatch.setattr(tmesh, "TRACER", tracer)
+    seen = []
+
+    def body(i):
+        seen.append(tracer.active())
+        with tmesh.taking_turns():
+            return tmesh.host_read(lambda: i)
+
+    assert tmesh.run_shards(CPU_CARDS, body) == [0, 1, 2, 3]
+    assert tracer.totals == {} and seen == [False] * 4
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert tmesh.run_shards(CPU_CARDS, body) == [0, 1, 2, 3]
+    assert seen[4:] == [True] * 4
+    assert tracer.named("shards/body")[2] == 4
+    # each worker waits for the turn once on entry and once after its read
+    assert tracer.named("shards/turn_wait")[2] == 8
+    assert set(tracer.totals) == {"shards/body", "shards/body/shards/turn_wait"}
+    seen.clear()
+    tmesh.run_shards(CPU_CARDS, body)
+    assert seen == [False] * 4 and tracer.named("shards/body")[2] == 4
 
 
 def _stats(dc):
@@ -241,9 +263,14 @@ def test_shards_on_cards_names_a_stray_tensor():
 
 def test_timed_reads_launches_and_spans_on_the_cpu():
     r = mc.timed(lambda: 7)
-    assert r.out == 7 and r.seconds >= 0 and r.busy == {} and r.k1 == {} and r.k7 == {}
-    assert tmesh.SHARD_SPANS is None
-    assert "busy share none recorded" in r.line()
+    assert r.out == 7 and r.seconds >= 0 and r.k1 == {} and r.k7 == {}
+    assert r.line() == f"{r.seconds:.3f} s"
+    r, spans = mc.timed_spans(lambda: tsh.build_sharded(
+        clustered_unit_vectors(600, 8, n_modes=6, seed=2),
+        Config(num_tables=2, num_clusters_factor=0.5, k=3, hash_family="simhash", seed=0),
+        mesh=tmesh.make_mesh(2, devices=[torch.device("cpu")] * 2)))
+    assert {"sharded_build/gmm", "sharded_build/partition", "sharded_build/shards"} <= set(spans)
+    assert all(v >= 0 for v in spans.values())
 
 
 def test_one_process_per_shard_equals_the_controller(tmp_path, monkeypatch):
@@ -330,22 +357,15 @@ class Yielding(collections.Counter):
 
 
 def test_counts_are_exact_from_several_threads(monkeypatch):
-    """K1's and K7's launch counts (total and by card) and SHARD_SPANS,
-    written from four workers with the interpreter switching threads as
-    often as it can."""
+    """K1's and K7's launch counts (total and by card) and the tracer's
+    spans, written from four workers with the interpreter switching threads
+    as often as it can."""
+    from clann_tpu_torch.metrics.trace import Tracer
     from clann_tpu_torch.ops import gather as tg
     from clann_tpu_torch.ops import scan_topk as st
 
-    class Event:  # shard_span's CUDA events, without a card
-        def __init__(self, **kw):
-            pass
-
-        def record(self, stream):
-            pass
-
-    monkeypatch.setattr(torch.cuda, "Event", Event)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: None)
-    monkeypatch.setattr(tmesh, "SHARD_SPANS", [])
+    tracer = Tracer(enabled=True)
+    monkeypatch.setattr(tmesh, "TRACER", tracer)
     monkeypatch.setattr(st, "KERNEL_LAUNCHES", 0)
     monkeypatch.setattr(st, "KERNEL_DEVICE_LAUNCHES", Yielding())
     monkeypatch.setattr(tg, "ROWS_LAUNCHES", 0)
@@ -356,7 +376,7 @@ def test_counts_are_exact_from_several_threads(monkeypatch):
         for _ in range(n):
             tg._count_launch("ROWS_LAUNCHES", i // 2)
             st._count_launch("KERNEL_LAUNCHES", i // 2)
-            with tmesh.shard_span(torch.device("cuda", i)):
+            with tracer.span("shards/step"):
                 pass
 
     interval = sys.getswitchinterval()
@@ -368,7 +388,8 @@ def test_counts_are_exact_from_several_threads(monkeypatch):
     assert tg.ROWS_LAUNCHES == st.KERNEL_LAUNCHES == 4 * n
     want = {0: 2 * n, 1: 2 * n}
     assert dict(tg.ROWS_DEVICE_LAUNCHES) == dict(st.KERNEL_DEVICE_LAUNCHES) == want
-    assert len(tmesh.SHARD_SPANS) == 4 * n
+    # each worker's steps nest in its own body: the stacks are per thread
+    assert tracer.counts == {"shards/body": 4, "shards/body/shards/step": 4 * n}
 
 
 def _same(a, b):
