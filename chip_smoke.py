@@ -20,7 +20,8 @@ caught):
    bulk gather (K4, K5) issues bulk copies (UBLKCP), and that the warp
    gather warp_gather_kernel (K6, K7) is there in the 11 instances its plan
    launches (4-byte units at each inflight, 16-byte units up to 16), each
-   taking its rows' indices by shuffle (SHFL.IDX), and no other kernel.
+   taking its rows' indices by shuffle (SHFL.IDX), that the window filter's
+   window_filter_kernel is there in its two instances, and no other kernel.
 3. kernels vs plain, each against its plain PyTorch version on the card, at
    the main paths' shapes and at small ragged ones, then CUDA-event times of
    both at the main paths' shapes, beside the kernel's bound (the larger of
@@ -72,13 +73,29 @@ caught):
    same 537 MB). Then the gather-rate probe's entry point
    (clann_tpu_torch.probes.gather_rate.run) as a path of its own, which
    must launch K4-K7.
+5b. window-filter: the global engine's window filter
+   (csrc/window_filter.cu) against its plain version (the engine's former
+   torch chain, K7 for the records) on the card, bit for bit on every
+   output (ids, consumed, taken, seen): every case of
+   testing.WINDOW_FILTER_CASES on both windows (qdone rows, fully masked
+   blocks, all or none passing, chunk below G, the filter off, routing
+   off, G 1 / 8 / 32 / 64), and every edge case at the glove engine's
+   window (256 queries, L 128, G 32, WB 512, chunk 2,048, 435 clusters),
+   filter on and off; then the kernel, its plain version and K7 alone
+   timed there (device ms by CUDA-graph replay, call ms by a loop) beside
+   the calls' byte bound. After phase 7, on its index: global_search on the
+   2,048 lsh queries at delta 0.95 through the kernel and through the plain
+   version, identical in every bit, the launches of each (one kernel an
+   iteration, no K7), QPS of both in turns, and the three timed on the
+   windows of one 256-query batch.
 6. lsh-build: the LSH configuration of bench.py's lsh_at_0.9 row
    (LSH_AT_09.json "chosen": L = 128, gather_block 32, chunk 2048,
    filter_expand 8, global engine, no dense layout) built with
    init_with_config -> build on the same data: seconds per build span,
    bytes of each LSH array, peak device memory.
 7. lsh: search_batch(mode="lsh") over the first 2,048 queries at delta 0.95
-   and 0.9, gated recall@10 >= 0.8 * delta, failing if K7 was not launched;
+   and 0.9, gated recall@10 >= 0.8 * delta, failing unless the window
+   filter was launched and K7 was not;
    recall, id-recall, dc and candidates per query, QPS, loop iterations and
    host syncs per batch; batch 256 against one batch of 1,024.
 8. dense (on the main-path index, whose default build also makes the dense
@@ -182,7 +199,7 @@ SQLite metrics sink and the upstream PUFFINN surface on the same data:
    scan-pallas (K1, which reads the vectors and sees pending points) on the
    10,000 queries gated recall@10 >= 0.9 and id-recall >= 0.8 against the
    ground truth over all 1,183,514 points; rebuild(); the old points'
-   hashes and sketches unchanged bit for bit, mode="lsh" (K7) gated
+   hashes and sketches unchanged bit for bit, mode="lsh" (the window filter) gated
    recall@10 >= 0.8 * delta over all points, and 256 inserted points as
    queries finding an inserted point at distance < 1e-5 at a rate >= 0.9
    (JAX's bar). Seconds of each insert, the rebuild and the build, peak
@@ -195,8 +212,8 @@ SQLite metrics sink and the upstream PUFFINN surface on the same data:
    byte model (parallel/capacity.py, the JAX package's) turns into L =
    128, checked; the 1,183,514 points inserted one call each, rebuild();
    256 single-query search(q, 10, 0.9) calls gated by the compat contract
-   (correct ids >= 0.8 * recall * k * queries), failing if K7 was not
-   launched; search_from_index on 3 ids excludes each; closest_pairs(10,
+   (correct ids >= 0.8 * recall * k * queries), failing if the window
+   filter was not launched; search_from_index on 3 ids excludes each; closest_pairs(10,
    0.9) (ids only) equal to ops.join.closest_pairs on the same index,
    whose pairs and sims are held to the windowed join as in 7d, its share
    in range of the oracle's 10th pair a reading; a pickle round trip (its
@@ -217,8 +234,8 @@ bodies run one after another), the CLI and the benchmark harness:
    each step).
 7e. sharded lsh (right after phase 7d, on the lsh index):
    sharded_global_search on the 2,048 lsh queries at delta 0.95, gated
-   recall@10 >= 0.8 * delta, failing if K7 was not launched; a 2 x 2
-   make_mesh_2d equal to its 1-D 2-shard mesh on 256 queries;
+   recall@10 >= 0.8 * delta, failing if the window filter was not
+   launched; a 2 x 2 make_mesh_2d equal to its 1-D 2-shard mesh on 256 queries;
    sharded_closest_pairs(k=100, delta=0.9) equal to ops.join.closest_pairs.
 11d. sharded walk (right after phase 11c, on the walk index, whose shards
    keep slot records): one 256-query sharded_search batch at delta 0.9,
@@ -238,7 +255,8 @@ bodies run one after another), the CLI and the benchmark harness:
    10,000, printed) into build/bench_metrics.db, gated recall@10 >= 0.8 *
    delta and failing if K7 was not launched; compare_implementations_time
    (10 sampled queries, 3 repetitions: a cut of the reference's 15,
-   printed); the ann-benchmarks adapter ClannTPU: fit, batch_query of the
+   printed), failing if its global engine did not launch the window
+   filter; the ann-benchmarks adapter ClannTPU: fit, batch_query of the
    10,000 queries and one query.
 
 With --cards 4 (it fails unless four cards are visible) the run adds the
@@ -252,7 +270,8 @@ it; the host's cost per torch op issued from one thread per card against
 one thread in order (probes.multicard.thread_ops); after each sharded phase, the same paths with the
 shards on cuda:0-3 (make_mesh(4), one controller) held to the one-card
 4-shard mesh (ids per query up to ties, dc and launches equal, every shard
-tensor on its card, K1 / K7 launched on every card); the global engine,
+tensor on its card, K1 / K7 / the window filter launched on every card);
+the global engine,
 the walk, Jaccard and build_sharded (and the 20,000,000-point build) read
 twice, their shard bodies forced in order and then at once (one worker
 thread per card, parallel.mesh.run_shards), each reading's wall time and
@@ -419,7 +438,8 @@ def check_sass(lib_path):
     cp.async.bulk); warp_gather_kernel (K6, K7) must be there in every
     instance its plan launches (4-byte units at each inflight, 16-byte
     units up to WARP_VEC16_INFLIGHT), each shuffling its rows' indices
-    (SHFL.IDX); no other kernel may be there."""
+    (SHFL.IDX); window_filter_kernel in its two instances; no other kernel
+    may be there."""
     from clann_tpu_torch.ops import gather as tg
 
     import re
@@ -449,6 +469,8 @@ def check_sass(lib_path):
             key = "K6/K7 warp_gather_kernel"
         elif "gather_kernel" in name:
             key = f"other gather kernel {name}"
+        elif "window_filter_kernel" in name:
+            key = "window_filter_kernel"
         else:
             key = f"other kernel {name}"
         counts.setdefault(key, []).append((len(re.findall(r"\bHGMMA\.", part)),
@@ -474,6 +496,9 @@ def check_sass(lib_path):
         fail("bulk_gather_kernel (K4, K5) must issue its bulk load and store (UBLKCP) in every "
              "instance, warp_gather_kernel (K6, K7) must be there in every instance with its "
              "index shuffle (SHFL.IDX), and no other kernel may be in the library")
+    if len(counts.get("window_filter_kernel", [])) != 2:
+        fail("window_filter_kernel must be in the library in its two instances (16-byte "
+             "records and any width)")
 
 
 def _norm(x):
@@ -1476,6 +1501,239 @@ def phase_gather_probe(card):
     return counts
 
 
+# --- the window filter ------------------------------------------------------
+
+WF_OUTPUTS = ("compact_ids", "consumed", "taken", "seen")
+# the glove engine's window: 256 queries, L 128, G 32, chunk 2,048,
+# filter_expand 8 -> WB 512, cap chunk + G; ~435 clusters (factor 0.4)
+WF_CELL = dict(q=256, tables=128, slots=N_TRAIN, gather_block=32, wb=512, clusters=435)
+WF_CELL_CHUNK = 2048
+
+
+def check_window_filter(label, c, *, chunk, cap, use_filter, routing):
+    """The window filter's kernel against its plain version on the card on
+    one case, on both windows where the case has a stream map; fails on a
+    differing bit. Returns the windows checked."""
+    import torch
+
+    from clann_tpu_torch.ops import window_filter as twf
+    from clann_tpu_torch.testing import run_window_filter
+
+    n = 0
+    for use_map in ((True, False) if c["smap"] is not None else (False,)):
+        kw = dict(use_map=use_map, chunk=chunk, cap=cap, use_filter=use_filter, routing=routing)
+        before = twf.FILTER_LAUNCHES
+        got = run_window_filter(twf.window_filter, c, **kw)
+        want = run_window_filter(twf.window_filter_plain, c, **kw)
+        sync()
+        bad = [w for w, g, p in zip(WF_OUTPUTS, got, want) if not torch.equal(g, p)]
+        if bad or twf.FILTER_LAUNCHES != before + 1:
+            fail(f"[window-filter] {label} ({'map' if use_map else 'derived'} window): the "
+                 f"kernel differs from its plain version in {bad} or did not launch")
+        n += 1
+    return n
+
+
+def window_bytes(records, window, off, qdone, qsk, feas_bound, cap, wb, gather_block):
+    """The bytes one window filter call needs (each read once, each output
+    written once): the valid lanes' records, the live queries' WB window
+    entries, their ball bounds and sketches, the ids and counts written.
+    Returns (bytes, valid lanes)."""
+    import torch
+
+    from clann_tpu_torch.ops.sketches import popcount32
+
+    Q, P, ew = window.shape
+    live = ~qdone
+    pos = torch.clamp(off, 0, P - wb)[:, None].to(torch.int64) + torch.arange(
+        wb, device=off.device)
+    win = torch.gather(window, 1, pos[:, :, None].expand(Q, wb, ew))
+    lanes = int(torch.sum(popcount32(win[..., 2:]).sum(dim=(1, 2)) * live))
+    n_live = int(live.sum())
+    R = records.shape[2]
+    nbytes = (4 * R * lanes + 4 * ew * wb * n_live
+              + 4 * n_live * (feas_bound.shape[1] + qsk.shape[1] * qsk.shape[2])
+              + 4 * Q * (cap + 3) + 9 * Q)
+    return nbytes, lanes
+
+
+def window_rows(records, window, off, qdone, gather_block, wb):
+    """The record-block rows the former chain gathered through K7 for one
+    window (dead blocks routed to row 0), as K7's (L nb, G R) source and
+    its int32 row indices."""
+    from clann_tpu_torch.ops import window_filter as twf
+
+    L, n_pad, R = records.shape
+    G = gather_block
+    entries = twf.window_entries(window, off, wb=wb, gather_block=G)
+    _, rows, _ = twf.block_rows(*entries, qdone, blocks=n_pad // G, routing=True)
+    return records.view(L * (n_pad // G), G * R), rows.reshape(-1)
+
+
+def window_filter_times(calls, card, what):
+    """The kernel, its plain version and K7 alone (the former chain's
+    record gather) on a list of window filter calls ((args, kwargs) as the
+    engine makes them), each timed by CUDA-graph replay of the list (device
+    ms a call) and by a Python loop (call ms), in turns plain, kernel,
+    kernel, plain, K7; beside the calls' byte bound. Returns the kernels
+    line's numbers."""
+    from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.ops import window_filter as twf
+    from clann_tpu_torch.probes import gather_rate as gr
+
+    def plain(a, kw):
+        return twf.window_filter_plain(*a, **dict(kw, cap=min(kw["cap"],
+                                                              kw["wb"] * kw["gather_block"])))
+
+    sets = [(a, kw) for a, kw in calls]
+    k7_sets = [window_rows(a[0], a[1], a[2], a[3], kw["gather_block"], kw["wb"])
+               for a, kw in calls]
+    runs = {}
+    for name, fn, s in (("plain", plain, sets),
+                        ("kernel", lambda a, kw: twf.window_filter(*a, **kw), sets),
+                        ("kernel", lambda a, kw: twf.window_filter(*a, **kw), sets),
+                        ("plain", plain, sets), ("K7", tg.gather_rows, k7_sets)):
+        runs.setdefault(name, []).append((gr.time_graph(fn, s, 3), gr.time_iters(fn, s, 3)))
+    t = {k: (sum(d for d, _ in v) / len(v), sum(c for _, c in v) / len(v),
+             [d for d, _ in v]) for k, v in runs.items()}
+    sizes = [window_bytes(*a[:6], min(kw["cap"], kw["wb"] * kw["gather_block"]), kw["wb"],
+                          kw["gather_block"]) for a, kw in calls]
+    nbytes = sum(b for b, _ in sizes) / len(sizes)
+    lanes = sum(n for _, n in sizes) / len(sizes)
+    b_ms, b_by = bound(0.0, nbytes)
+    ms, call_ms, each = t["kernel"]
+    log(f"[window-filter-time] {what}: kernel device {ms:.4f} ms a call ({each[0]:.4f}, "
+        f"{each[1]:.4f}; {b_ms / ms:.3f} of the {b_ms:.4f} ms bound by {b_by}: "
+        f"{nbytes / 1e6:.2f} MB, {lanes:.0f} valid lanes), call {call_ms:.4f} ms; plain device "
+        f"{t['plain'][0]:.4f} / call {t['plain'][1]:.4f} ms; K7 alone (the former chain's "
+        f"record gather) device {t['K7'][0]:.4f} / call {t['K7'][1]:.4f} ms; {len(calls)} "
+        f"calls, device ms by CUDA-graph replay, call ms by a Python loop, on {card}")
+    return {"ms": ms, "plain_ms": t["plain"][0], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "k7_ms": t["K7"][0], "call_ms": call_ms}
+
+
+def phase_window_filter(card):
+    """[window-filter] The window filter's kernel against its plain version
+    on the card, bit for bit on every output: every case of
+    testing.WINDOW_FILTER_CASES (both windows), and every edge case at the
+    glove engine's window (WF_CELL); then the kernel, its plain version and
+    K7 alone timed there on 20 windows of one random case (the tables
+    rotated, so each reads other records)."""
+    import torch
+
+    from clann_tpu_torch.ops import window_filter as twf
+    from clann_tpu_torch.testing import (WINDOW_CASES, WINDOW_FILTER_CASES,
+                                         WINDOW_FILTER_SHAPE, window_filter_case)
+
+    dev = torch.device(DEVICE)
+    twf.reset_launches()
+    n = 0
+    for name, (case, G, wb, chunk, cap, use_filter, routing, seed) in \
+            WINDOW_FILTER_CASES.items():
+        c = window_filter_case(gather_block=G, wb=wb, case=case, seed=seed, device=dev,
+                               **WINDOW_FILTER_SHAPE)
+        n += check_window_filter(name, c, chunk=chunk, cap=min(cap, wb * G),
+                                 use_filter=use_filter, routing=routing)
+    log(f"[window-filter] kernel equal to its plain version bit for bit on {n} windows of "
+        f"{len(WINDOW_FILTER_CASES)} cases ({', '.join(WINDOW_FILTER_CASES)}) on {card}")
+    cap = WF_CELL_CHUNK + WF_CELL["gather_block"]
+    for i, case in enumerate(WINDOW_CASES):
+        c = window_filter_case(case=case, seed=100 + i, device=dev, **WF_CELL)
+        for use_filter in (True, False):
+            check_window_filter(f"{case} at the engine's window", c, chunk=WF_CELL_CHUNK,
+                                cap=cap, use_filter=use_filter, routing=True)
+        del c
+    log(f"[window-filter] kernel equal to its plain version bit for bit at the engine's "
+        f"window ({WF_CELL}, chunk {WF_CELL_CHUNK}, cap {cap}) on every case "
+        f"({', '.join(WINDOW_CASES)}), filter on and off, both windows on {card}")
+    c = window_filter_case(case="random", seed=99, device=dev, **WF_CELL)
+    L = WF_CELL["tables"]
+    kw = dict(gather_block=WF_CELL["gather_block"], wb=WF_CELL["wb"], chunk=WF_CELL_CHUNK,
+              cap=cap, n_sentinel=c["n_sentinel"], use_filter=True)
+    calls = []
+    for r in range(20):
+        smap = c["smap"].clone()
+        smap[..., 0] = (smap[..., 0] + r) % L
+        calls.append(((c["records"], smap, c["off"], c["qdone"], c["qsk"], c["feas_bound"],
+                       c["kth_dist"], c["maxdiff"]), kw))
+    out = window_filter_times(calls, card, f"random windows at the engine's shape {WF_CELL}")
+    del c, calls
+    torch.cuda.empty_cache()
+    return dict(out, max_abs_err=0.0, launches=twf.FILTER_LAUNCHES)
+
+
+def phase_window_filter_path(handle, test, card):
+    """[window-filter] the main path: global_search on the lsh queries at
+    delta 0.95 through the kernel, then through its plain version (the
+    engine's former chain, K7 for the records): distances, ids and every
+    stat identical, the launches of each, QPS of both in turns; then the
+    kernel, its plain version and K7 alone timed on the windows of one
+    256-query batch's loop."""
+    import numpy as np
+
+    from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.ops import global_query as tgq
+    from clann_tpu_torch.ops import window_filter as twf
+
+    idx, q, delta = handle.index, test[:LSH_QUERIES], LSH_DELTAS[0]
+    kernel_filter = tgq.window_filter
+
+    def plain_filter(*a, cap, **kw):
+        return twf.window_filter_plain(*a, cap=min(cap, kw["wb"] * kw["gather_block"]), **kw)
+
+    def search(fn, ls=None, queries=q):
+        tgq.window_filter = fn
+        try:
+            return tgq.global_search(idx, queries, delta=delta, loop_stats=ls)
+        finally:
+            tgq.window_filter = kernel_filter
+
+    res, launches = {}, {}
+    for name, fn in (("kernel", kernel_filter), ("plain", plain_filter)):
+        ls = tgq.LoopStats()
+        tg.reset_launches()
+        twf.reset_launches()
+        res[name] = search(fn, ls)
+        sync()
+        launches[name] = (twf.FILTER_LAUNCHES, tg.ROWS_LAUNCHES, ls)
+    (kd, ki, kst), (pd, pi, pst) = res["kernel"], res["plain"]
+    same = (np.array_equal(kd, pd) and np.array_equal(ki, pi)
+            and all(np.array_equal(a, b) for a, b in zip(kst, pst)))
+    wf, k7, ls = launches["kernel"]
+    rates = {}
+    for name, fn in (("plain", plain_filter), ("kernel", kernel_filter),
+                     ("kernel", kernel_filter), ("plain", plain_filter)):
+        rates.setdefault(name, []).append(qps(lambda: search(fn), reps=3,
+                                              n_queries=LSH_QUERIES)[0])
+    log(f"[window-filter] global_search delta={delta}, {LSH_QUERIES} queries: through the "
+        f"kernel and through its plain version (the former chain): distances, ids and stats "
+        f"identical {same}; dc/query {float(np.mean(kst.distance_computations)):.1f}; kernel "
+        f"path: window filter launches {wf} (LoopStats.filter_launches {ls.filter_launches}, "
+        f"iterations {ls.iterations}), K7 launches {k7}; plain path: window filter launches "
+        f"{launches['plain'][0]}, K7 launches {launches['plain'][1]}; QPS (median of 3, in "
+        f"turns plain, kernel, kernel, plain): kernel {', '.join(f'{r:.1f}' for r in rates['kernel'])}"
+        f", plain {', '.join(f'{r:.1f}' for r in rates['plain'])} on {card}")
+    if not same:
+        fail("[window-filter] global_search through the kernel differs from its plain version")
+    if (wf < 1 or k7 or wf != ls.filter_launches or wf != ls.iterations
+            or launches["plain"][2].filter_launches):
+        fail(f"[window-filter] the main path launched the window filter {wf} times and K7 "
+             f"{k7} times over {ls.iterations} iterations; LoopStats counted "
+             f"{ls.filter_launches} (plain path: {launches['plain'][2].filter_launches})")
+
+    calls = []
+
+    def capture(*a, **kw):
+        calls.append((a, kw))
+        return kernel_filter(*a, **kw)
+
+    search(capture, queries=q[:256])
+    out = window_filter_times(calls, card, f"the {len(calls)} windows of one 256-query batch "
+                                           f"of global_search at delta {delta}")
+    del calls
+    return out, wf
+
+
 def lsh_config():
     """bench.py's lsh_at_0.9 row with LSH_AT_09.json's chosen knobs."""
     import clann_tpu_torch
@@ -1526,15 +1784,17 @@ def phase_lsh(handle, test, gt_d, gt_i, card):
 
     from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
     from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.ops import window_filter as twf
     from clann_tpu_torch.ops.global_query import LoopStats, global_search
 
     q, gd, gi = test[:LSH_QUERIES], gt_d[:LSH_QUERIES], gt_i[:LSH_QUERIES]
     launches = 0
     for delta in LSH_DELTAS:
         tg.reset_launches()
+        twf.reset_launches()
         d, i, st = handle.search_batch(q, mode="lsh", delta=delta)
         sync()
-        launches_d = tg.ROWS_LAUNCHES
+        launches_d, k7_d = twf.FILTER_LAUNCHES, tg.ROWS_LAUNCHES
         launches += launches_d
         check_result(d, i, f"lsh delta={delta}", LSH_QUERIES)
         rec, idr = recall_values(gd, d, K)[0], recall_by_ids(gi, i, K)
@@ -1545,12 +1805,12 @@ def phase_lsh(handle, test, gt_d, gt_i, card):
         log(f"[lsh] delta={delta}: recall@10 {rec:.4f} (gate {0.8 * delta:.2f}), id-recall "
             f"{idr:.4f}; dc/query {float(np.mean(st.distance_computations)):.1f}, "
             f"candidates/query {float(np.mean(st.candidates)):.1f}, feasible clusters/query "
-            f"{float(np.mean(st.clusters_visited)):.1f}; K7 launches {launches_d}; "
-            f"{ls.batches} batches of 256: {ls.iterations / ls.batches:.1f} loop iterations "
+            f"{float(np.mean(st.clusters_visited)):.1f}; window filter launches {launches_d}, "
+            f"K7 {k7_d}; {ls.batches} batches of 256: {ls.iterations / ls.batches:.1f} loop iterations "
             f"and {ls.syncs / ls.batches:.2f} host syncs per batch; {rate:.1f} QPS "
             f"(s/call of {LSH_QUERIES}: {', '.join(f'{x:.4f}' for x in times)}) on {card}")
-        if launches_d < 1:
-            fail(f"lsh delta={delta} did not launch the K7 kernel")
+        if launches_d < 1 or k7_d:
+            fail(f"lsh delta={delta} launched the window filter {launches_d} times, K7 {k7_d}")
         if rec < 0.8 * delta:
             fail(f"lsh delta={delta}: recall@10 {rec:.4f} below 0.8 * delta")
 
@@ -1893,6 +2153,7 @@ def phase_lsh_continuous(handle, test, gt_d, gt_i, card):
 
     from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
     from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.ops import window_filter as twf
     from clann_tpu_torch.ops.global_query import (LoopStats, global_search,
                                                   global_search_continuous)
 
@@ -1902,9 +2163,10 @@ def phase_lsh_continuous(handle, test, gt_d, gt_i, card):
                                            step_iters=CONT_STEP_ITERS, loop_stats=ls)
     ls = LoopStats()
     tg.reset_launches()
+    twf.reset_launches()
     cd, ci, cst = run()
     sync()
-    launches = tg.ROWS_LAUNCHES
+    launches, k7 = twf.FILTER_LAUNCHES, tg.ROWS_LAUNCHES
     steps, iters, syncs = ls.outer_steps, ls.iterations, ls.syncs
     bd, bi, bst = global_search(idx, q, delta=delta, batch_size=CONT_LANES)
     check_result(cd, ci, "lsh-continuous", LSH_QUERIES)
@@ -1924,14 +2186,14 @@ def phase_lsh_continuous(handle, test, gt_d, gt_i, card):
         f"{0.8 * delta:.2f}), id-recall {idr:.4f}; against global_search at batch "
         f"{CONT_LANES}: same ids {same_ids:.5f}, same dc {same_dc:.5f}, largest sim difference "
         f"{sim_err:.3g}; {steps} steps, {LSH_QUERIES - CONT_LANES} refills, {iters} loop "
-        f"iterations, {syncs} host syncs; K7 launches {launches}; dc/query "
+        f"iterations, {syncs} host syncs; window filter launches {launches}, K7 {k7}; dc/query "
         f"{float(np.mean(cst.distance_computations)):.1f} on {card}")
     log(f"[lsh-continuous] QPS (median of 3): continuous {rate_c:.1f} (s/call "
         f"{_qps_line(times_c)}), global_search batch {CONT_LANES} {rate_b:.1f} (s/call "
         f"{_qps_line(times_b)}); global_search batch {LSH_BIG_BATCH} {rate_big:.1f} (one call, "
         f"{_qps_line(times_big)}; not gated) on {card}")
-    if launches < 1:
-        fail("global_search_continuous did not launch the K7 kernel")
+    if launches < 1 or k7:
+        fail(f"global_search_continuous launched the window filter {launches} times, K7 {k7}")
     if same_ids < 1.0 or same_dc < 1.0 or sim_err > 1e-6:
         fail("global_search_continuous differs from global_search per query")
     if rec < 0.8 * delta:
@@ -1977,6 +2239,7 @@ def phase_lsh_int8(handle, test, gt_d, gt_i, card):
 
     from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
     from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.ops import window_filter as twf
 
     q, gd, gi = test[:LSH_QUERIES], gt_d[:LSH_QUERIES], gt_i[:LSH_QUERIES]
     delta = LSH_DELTAS[0]
@@ -1989,10 +2252,11 @@ def phase_lsh_int8(handle, test, gt_d, gt_i, card):
         sync()
         reset_peak()
         tg.reset_launches()
+        twf.reset_launches()
         d, i, st = h.search_batch(q, mode="lsh", delta=delta)
         sync()
         peak = torch.cuda.max_memory_allocated()
-        launches_d = tg.ROWS_LAUNCHES
+        launches_d, k7_d = twf.FILTER_LAUNCHES, tg.ROWS_LAUNCHES
         check_result(d, i, f"lsh-int8 {label}", LSH_QUERIES)
         rec, idr = recall_values(gd, d, K)[0], recall_by_ids(gi, i, K)
         rate, times = qps(lambda: h.search_batch(q, mode="lsh", delta=delta), reps=3,
@@ -2001,11 +2265,12 @@ def phase_lsh_int8(handle, test, gt_d, gt_i, card):
             f"{f' (gate {0.8 * delta:.2f})' if label == 'int8' else ''}, id-recall {idr:.4f}; "
             f"dc/query {float(np.mean(st.distance_computations)):.1f}; {rate:.1f} QPS (median "
             f"of 3: {_qps_line(times)}); peak device memory of the search {peak / 1e9:.3f} GB "
-            f"(index resident); K7 launches {launches_d} on {card}")
+            f"(index resident); window filter launches {launches_d}, K7 {k7_d} on {card}")
         if label == "int8":
             launches = launches_d
-            if launches_d < 1:
-                fail("the int8 lsh search did not launch the K7 kernel")
+            if launches_d < 1 or k7_d:
+                fail(f"the int8 lsh search launched the window filter {launches_d} times, "
+                     f"K7 {k7_d}")
             if rec < 0.8 * delta:
                 fail(f"lsh-int8: recall@10 {rec:.4f} below 0.8 * delta")
     return launches
@@ -2551,10 +2816,10 @@ def phase_update(train, test, gt_d, gt_i, card):
     the SQLite sink on): build on the first N_UPDATE_OLD points, insert the
     rest in UPDATE_CALLS calls; the balls cover the new points; mode="lsh"
     sees none of them, scan-pallas (K1) sees all; after rebuild the old
-    points' hashes and sketches are unchanged, mode="lsh" (K7) meets the
-    recall gate over all points and inserted points find themselves.
-    Returns (handle, K1 launches, K7 launches, queries searched since
-    reset_metrics, the build's memory_usage)."""
+    points' hashes and sketches are unchanged, mode="lsh" (the window
+    filter) meets the recall gate over all points and inserted points find
+    themselves. Returns (handle, K1 launches, window filter launches,
+    queries searched since reset_metrics, the build's memory_usage)."""
     import numpy as np
     import torch
 
@@ -2562,7 +2827,7 @@ def phase_update(train, test, gt_d, gt_i, card):
     from clann_tpu_torch.config import MetricsOutput
     from clann_tpu_torch.core.index import unsort_hashes
     from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
-    from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.ops import window_filter as twf
     from clann_tpu_torch.ops import scan_topk as st
 
     cfg = lsh_config().replace(metrics_output=MetricsOutput.DB)
@@ -2600,10 +2865,10 @@ def phase_update(train, test, gt_d, gt_i, card):
         fail("[update] an inserted point lies outside its ball, or a radius shrank")
 
     q, gd, gi = test[:LSH_QUERIES], gt_d[:LSH_QUERIES], gt_i[:LSH_QUERIES]
-    tg.reset_launches()
+    twf.reset_launches()
     d, i, _ = h.search_batch(q, mode="lsh")
     sync()
-    k7 = tg.ROWS_LAUNCHES
+    wf = twf.FILTER_LAUNCHES
     check_result(d, i, "update lsh before rebuild", LSH_QUERIES)
     if i.max() >= n_old:
         fail("[update] mode=lsh returned a pending point before rebuild")
@@ -2636,17 +2901,17 @@ def phase_update(train, test, gt_d, gt_i, card):
     same_sk = torch.equal(idx.sketches[:n_old], idx0.sketches)
     del idx0
     h.reset_metrics()
-    tg.reset_launches()
+    twf.reset_launches()
     d, i, stats = h.search_batch(q, mode="lsh")
     sync()
-    k7_after = tg.ROWS_LAUNCHES
+    wf_after = twf.FILTER_LAUNCHES
     check_result(d, i, "update lsh after rebuild", LSH_QUERIES)
     rec, idr = recall_values(gd, d, K)[0], recall_by_ids(gi, i, K)
     ids = n_old + np.arange(UPDATE_SELF) * ((N_TRAIN - n_old) // UPDATE_SELF)
-    tg.reset_launches()
+    twf.reset_launches()
     sd, si, _ = h.search_batch(train[ids], mode="lsh")
     sync()
-    k7_after += tg.ROWS_LAUNCHES
+    wf_after += twf.FILTER_LAUNCHES
     self_rate = float(np.mean((si[:, 0] >= n_old) & (sd[:, 0] < 1e-5)))
     peak = torch.cuda.max_memory_allocated()
     log(f"[update] rebuild {rebuild_s:.3f} s (build of {n_old} points {build_s:.3f} s); "
@@ -2654,18 +2919,18 @@ def phase_update(train, test, gt_d, gt_i, card):
         f"{same_sk}; lsh delta={delta} over all points: recall@10 {rec:.4f} (gate "
         f"{0.8 * delta:.2f}), id-recall {idr:.4f}, dc/query "
         f"{float(np.mean(stats.distance_computations)):.1f}, returned inserted ids "
-        f"{int((i >= n_old).sum())}, K7 launches {k7_after}; {UPDATE_SELF} inserted points "
+        f"{int((i >= n_old).sum())}, window filter launches {wf_after}; {UPDATE_SELF} inserted points "
         f"as queries find themselves at < 1e-5: {self_rate:.4f} (gate 0.9); peak device memory "
         f"{peak / 1e9:.3f} GB on {card}")
     if idx.num_pending or not (same_h and same_sk):
         fail("[update] rebuild left points pending or changed the old points' tables")
-    if k7_after < 1:
-        fail("[update] lsh after rebuild did not launch the K7 kernel")
+    if wf_after < 1:
+        fail("[update] lsh after rebuild did not launch the window filter kernel")
     if rec < 0.8 * delta:
         fail(f"[update] lsh recall@10 {rec:.4f} below 0.8 * delta")
     if self_rate < 0.9:
         fail(f"[update] inserted points found themselves at a rate of {self_rate:.4f}")
-    return h, k1, k7 + k7_after, LSH_QUERIES + UPDATE_SELF, build_bytes, (gd, d)
+    return h, k1, wf + wf_after, LSH_QUERIES + UPDATE_SELF, build_bytes, (gd, d)
 
 
 def phase_metrics_db(h, n_searched, build_bytes, gd, d, card):
@@ -2712,15 +2977,16 @@ def phase_puffinn(train, test, gt_d, o_pairs, o_sims, card):
     to ops.join.closest_pairs on the same index, whose pairs and sims are
     held to the windowed join (check_join) and read against the join
     oracle, and a pickle round trip (a second, lazy build) giving identical
-    results. Returns its K7 launches."""
+    results. Returns its window filter launches (its searches run the
+    global engine)."""
     import pickle
 
     import numpy as np
     import torch
 
     from clann_tpu_torch import puffinn
-    from clann_tpu_torch.ops import gather as tg
     from clann_tpu_torch.ops import join as tjoin
+    from clann_tpu_torch.ops import window_filter as twf
 
     sync()
     reset_peak()
@@ -2744,7 +3010,7 @@ def phase_puffinn(train, test, gt_d, o_pairs, o_sims, card):
 
     q = test[:PUFFINN_QUERIES]
     kth_dot = 1.0 - gt_d[:PUFFINN_QUERIES, K - 1]
-    tg.reset_launches()
+    twf.reset_launches()
     correct, times = 0, []
     for qi in range(PUFFINN_QUERIES):
         t0 = time.perf_counter()
@@ -2753,13 +3019,13 @@ def phase_puffinn(train, test, gt_d, o_pairs, o_sims, card):
         if len(res) != K:
             fail(f"[puffinn] search returned {len(res)} ids")
         correct += int(np.sum(train[res] @ q[qi] >= kth_dot[qi] - 1e-6))
-    k7 = tg.ROWS_LAUNCHES
+    wf = twf.FILTER_LAUNCHES
     gate = 0.8 * PUFFINN_RECALL * K * PUFFINN_QUERIES
     log(f"[puffinn] {PUFFINN_QUERIES} single-query search(q, {K}, {PUFFINN_RECALL}): correct "
         f"ids {correct} (gate {gate:.0f}); ms per call median {np.median(times) * 1e3:.2f}, "
-        f"max {np.max(times) * 1e3:.2f}; K7 launches {k7}")
-    if k7 < 1:
-        fail("[puffinn] search did not launch the K7 kernel")
+        f"max {np.max(times) * 1e3:.2f}; window filter launches {wf}")
+    if wf < 1:
+        fail("[puffinn] search did not launch the window filter kernel")
     if correct < gate:
         fail("[puffinn] the compat recall contract failed")
 
@@ -2767,7 +3033,7 @@ def phase_puffinn(train, test, gt_d, o_pairs, o_sims, card):
         res = pf.search_from_index(i, K, PUFFINN_RECALL)
         if i in res or len(res) != K:
             fail(f"[puffinn] search_from_index({i}) returned the point itself or {len(res)} ids")
-    tg.reset_launches()
+    twf.reset_launches()
     pairs, windows, cp_s, _ = timed_join(lambda: np.asarray(pf.closest_pairs(10, PUFFINN_RECALL)))
     # the surface returns ids only: they must be ops.join's pairs on the same
     # index, in its order, and those pairs with its sims go to check_join
@@ -2783,26 +3049,26 @@ def phase_puffinn(train, test, gt_d, o_pairs, o_sims, card):
         f"{in_range:.2f} (the JAX compat test's 0.5 at 600 points; not gated here), of the "
         f"true top 10: "
         f"{len({tuple(p) for p in pairs.tolist()} & {tuple(p) for p in o_pairs[:10].tolist()})}")
-    k7 += tg.ROWS_LAUNCHES
+    wf += twf.FILTER_LAUNCHES
 
     t0 = time.perf_counter()
     blob = pickle.dumps(pf)
     pf2 = pickle.loads(blob)
     pickle_s = time.perf_counter() - t0
-    tg.reset_launches()
+    twf.reset_launches()
     t0 = time.perf_counter()
     same = all(pf2.search(q[qi], K, PUFFINN_RECALL) == pf.search(q[qi], K, PUFFINN_RECALL)
                for qi in range(2))
     sync()
     lazy_s = time.perf_counter() - t0
-    k7 += tg.ROWS_LAUNCHES
+    wf += twf.FILTER_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     log(f"[puffinn] pickle round trip {len(blob) / 1e6:.1f} MB in {pickle_s:.3f} s; the lazy "
         f"second build and 2 queries on each {lazy_s:.3f} s; identical results: {same}; peak "
         f"device memory {peak / 1e9:.3f} GB (two indexes) on {card}")
     if not same:
         fail("[puffinn] the pickled index answers differently")
-    return k7
+    return wf
 
 
 def profile_lsh(handle, test, label="lsh", sessions=2, host_ops=True):
@@ -2925,14 +3191,14 @@ def phase_sharded_scan(handle, train, test, gt_d, gt_i, card):
 
 
 def phase_sharded_lsh(lsh, test, gt_d, gt_i, card):
-    """[sharded] on the lsh index: the global engine per shard (K7), the
-    2 x 2 mesh against its 1-D mesh, the table-sharded join. Returns the
-    K7 launches of the sharded paths."""
+    """[sharded] on the lsh index: the global engine per shard (the window
+    filter), the 2 x 2 mesh against its 1-D mesh, the table-sharded join.
+    Returns the window filter launches of the sharded paths."""
     import numpy as np
     import torch
 
     from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
-    from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.ops import window_filter as twf
     from clann_tpu_torch.ops.join import closest_pairs
     from clann_tpu_torch.parallel import sharded as sh
     from clann_tpu_torch.parallel.join import sharded_closest_pairs
@@ -2947,22 +3213,22 @@ def phase_sharded_lsh(lsh, test, gt_d, gt_i, card):
     shards = sh.shard_index(lsh.index, SHARDS, mesh=mesh)
     sync()
     shard_s = time.perf_counter() - t0
-    tg.reset_launches()
+    twf.reset_launches()
     t0 = time.perf_counter()
     d, i, st = sh.sharded_global_search(shards, q, delta=delta, mesh=mesh)
     sync()
     search_s = time.perf_counter() - t0
-    launches = tg.ROWS_LAUNCHES
+    launches = twf.FILTER_LAUNCHES
     check_result(d, i, "sharded global", LSH_QUERIES)
     rec, idr = recall_values(gd, d, K)[0], recall_by_ids(gi, i, K)
     log(f"[sharded] lsh index over {SHARDS} shards: shard_index {shard_s:.3f} s; "
         f"sharded_global_search delta={delta}, {LSH_QUERIES} queries in one batch: recall@10 "
         f"{rec:.4f} (gate {0.8 * delta:.2f}), id-recall {idr:.4f}; dc/query "
-        f"{float(np.mean(st.distance_computations)):.1f} (summed over shards); K7 launches "
-        f"{launches}; {search_s:.3f} s, {LSH_QUERIES / search_s:.1f} QPS; peak device memory "
+        f"{float(np.mean(st.distance_computations)):.1f} (summed over shards); window filter "
+        f"launches {launches}; {search_s:.3f} s, {LSH_QUERIES / search_s:.1f} QPS; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB on {card}")
     if launches < 1:
-        fail("the sharded global engine did not launch the K7 kernel")
+        fail("the sharded global engine did not launch the window filter kernel")
     if rec < 0.8 * delta:
         fail(f"sharded global: recall@10 {rec:.4f} below 0.8 * delta")
     del shards
@@ -2971,16 +3237,17 @@ def phase_sharded_lsh(lsh, test, gt_d, gt_i, card):
     mesh1 = shard_mesh(2)
     half = sh.shard_index(lsh.index, 2, mesh=mesh1)
     q2 = q[:MESH_2D_QUERIES]
-    tg.reset_launches()
+    twf.reset_launches()
     a = sh.sharded_global_search(half, q2, delta=delta, mesh=mesh1)
     b = sh.sharded_global_search(half, q2, delta=delta,
                                  mesh=make_mesh_2d(2, 2, devices=[f"{DEVICE}:0"] * 4))
     sync()
-    launches_2d = tg.ROWS_LAUNCHES
+    launches_2d = twf.FILTER_LAUNCHES
     same = (np.array_equal(a[1], b[1]) and np.array_equal(a[0], b[0])
             and all(np.array_equal(x, y) for x, y in zip(a[2], b[2])))
     log(f"[sharded] 2 x 2 make_mesh_2d against its 1-D 2-shard mesh, {MESH_2D_QUERIES} "
-        f"queries: ids, distances and stats equal: {same}; K7 launches {launches_2d}")
+        f"queries: ids, distances and stats equal: {same}; window filter launches "
+        f"{launches_2d}")
     if not same:
         fail("the 2-D mesh's results differ from the 1-D mesh's")
     del half
@@ -3166,7 +3433,8 @@ def phase_cli(card):
 def phase_bench(train, test, gt_d, gt_i, card):
     """[bench] the harness and the ann-benchmarks adapter on the main-path
     data (run_benchmark_config_clann caches its index in HDF5 files and is
-    tested on the host). Returns the K7 launches of its LSH paths."""
+    tested on the host). Returns the K7 launches of its LSH paths and the
+    window filter launches (the global engine's searches)."""
     import sqlite3
 
     import numpy as np
@@ -3178,6 +3446,7 @@ def phase_bench(train, test, gt_d, gt_i, card):
     from clann_tpu_torch.data.hdf5 import AnnDataset
     from clann_tpu_torch.metrics.recall import recall_by_ids
     from clann_tpu_torch.ops import gather as tg
+    from clann_tpu_torch.ops import window_filter as twf
 
     name = f"glove-{DIMS}-angular-synthetic"
     ds = AnnDataset(train, test, gt_d, gt_i, name=name)
@@ -3228,15 +3497,18 @@ def phase_bench(train, test, gt_d, gt_i, card):
     cfg = clann_tpu_torch.Config(num_tables=50, num_clusters_factor=0.4, k=K, delta=0.9,
                                  seed=0, dataset_name=name)
     tg.reset_launches()
+    twf.reset_launches()
     t0 = time.perf_counter()
     times = hb.compare_implementations_time(cfg, ds, device=DEVICE)
     sync()
-    launches_t = tg.ROWS_LAUNCHES
+    launches_t, wf = tg.ROWS_LAUNCHES, twf.FILTER_LAUNCHES
     log(f"[bench] compare_implementations_time (the reference's 10 sampled queries, 15 "
         f"repetitions): {json.dumps(times)} in "
-        f"{time.perf_counter() - t0:.3f} s (two builds included); K7 launches {launches_t}")
-    if launches_t < 1:
-        fail("[bench] compare_implementations_time's lsh search did not launch K7")
+        f"{time.perf_counter() - t0:.3f} s (two builds included); window filter launches {wf} "
+        f"(the global engine), K7 launches {launches_t}")
+    if wf < 1:
+        fail("[bench] compare_implementations_time's lsh search did not launch the window "
+             "filter")
 
     t0 = time.perf_counter()
     algo = ClannTPU(metric="angular", num_tables=50, num_clusters_factor=0.4, device=DEVICE)
@@ -3257,7 +3529,7 @@ def phase_bench(train, test, gt_d, gt_i, card):
     if len(batch) != N_QUERIES or any(len(r) != K for r in batch):
         fail("[bench] ClannTPU batch results are not K ids per query")
     algo.done()
-    return launches + launches_t
+    return launches + launches_t, wf
 
 
 def main():
@@ -3319,7 +3591,7 @@ def main():
         for mode in ("scan-pallas", "scan-block", "dense"):
             profile_search(handle, test, mode)
     sh_k1 = phase_sharded_scan(handle, train, test, gt_d, gt_i, label)
-    cards_k1 = cards_k7 = 0
+    cards_k1 = cards_k7 = cards_wf = 0
     if n_cards > 1:
         cards_k1 += cards_phase(mc.glove_scan, handle, train, test, gt_d, gt_i, label, n_cards)
     del handle
@@ -3327,8 +3599,10 @@ def main():
 
     gather = phase_gather(label)
     probe_launches = phase_gather_probe(label)
+    wf = phase_window_filter(label)
     lsh = phase_lsh_build(train, label)
     launches_lsh = phase_lsh(lsh, test, gt_d, gt_i, label)
+    wf_path, launches_wf_path = phase_window_filter_path(lsh, test, label)
     if args.profile:
         profile_lsh(lsh, test)
     # the new LSH paths run on this index here, so that the walk's build
@@ -3338,9 +3612,9 @@ def main():
     o_pairs, o_sims = phase_join(lsh, label)
     sh_lsh = phase_sharded_lsh(lsh, test, gt_d, gt_i, label)
     if n_cards > 1:
-        k7, cards_ref = cards_phase(mc.glove_lsh, lsh, train, test, gt_d, gt_i, label, n_cards,
-                                    profile=args.profile)
-        cards_k7 += k7
+        wf_cards, cards_ref = cards_phase(mc.glove_lsh, lsh, train, test, gt_d, gt_i, label,
+                                          n_cards, profile=args.profile)
+        cards_wf += wf_cards
     del lsh
     torch.cuda.empty_cache()
     walk = phase_walk_build(train, label)
@@ -3366,7 +3640,7 @@ def main():
             n_cards)
     del jac_data, jac_queries
     torch.cuda.empty_cache()
-    upd, k1_upd, k7_upd, n_searched, build_bytes, (gd_upd, d_upd) = phase_update(
+    upd, k1_upd, wf_upd, n_searched, build_bytes, (gd_upd, d_upd) = phase_update(
         train, test, gt_d, gt_i, label)
     phase_metrics_db(upd, n_searched, build_bytes, gd_upd, d_upd, label)
     del upd
@@ -3375,7 +3649,7 @@ def main():
     torch.cuda.empty_cache()
     cli_k1 = phase_cli(label)
     torch.cuda.empty_cache()
-    bench_k7 = phase_bench(train, test, gt_d, gt_i, label)
+    bench_k7, bench_wf = phase_bench(train, test, gt_d, gt_i, label)
     torch.cuda.empty_cache()
     if n_cards > 1:
         cards_phase(mc.dryruns, n_cards)
@@ -3384,17 +3658,24 @@ def main():
         del train, test
         past = cards_phase(mc.past_one_card, lsh_config(), label, n_cards=n_cards)
         cards_k1 += past["k1"]
-        cards_k7 += past["k7"]
-    counts = {"lsh": launches_lsh, "lsh-continuous": launches_cont, "lsh-int8": launches_lsh8,
-              "walk": launches_walk, "walk-int8": launches_walk8, "interop": launches_interop,
-              "jaccard": launches_jac,
-              "update": k7_upd, "puffinn": launches_pf, "sharded lsh": sh_lsh,
-              "sharded walk": sh_walk, "sharded jaccard": sh_jac, "bench": bench_k7}
+        cards_wf += past["wf"]
+    counts = {"walk": launches_walk, "walk-int8": launches_walk8, "interop": launches_interop,
+              "jaccard": launches_jac, "sharded walk": sh_walk, "sharded jaccard": sh_jac,
+              "bench": bench_k7}
     if n_cards > 1:
         counts["cards"] = cards_k7
     launches_k7 = sum(counts.values())
     log(f"[main] K7 launches: {launches_k7} = "
         + " + ".join(f"{k} {v}" for k, v in counts.items()))
+    wf_counts = {"window-filter": wf["launches"], "lsh": launches_lsh,
+                 "window-filter path": launches_wf_path, "lsh-continuous": launches_cont,
+                 "lsh-int8": launches_lsh8, "update": wf_upd, "puffinn": launches_pf,
+                 "sharded lsh": sh_lsh, "bench": bench_wf}
+    if n_cards > 1:
+        wf_counts["cards"] = cards_wf
+    launches_wf = sum(wf_counts.values())
+    log(f"[main] window filter launches: {launches_wf} = "
+        + " + ".join(f"{k} {v}" for k, v in wf_counts.items()))
     k1_counts = {"main": launches_k1, "scan-options": sum(opt_k1.values()), "update": k1_upd,
                  "sharded": sh_k1, "cli": cli_k1}
     if n_cards > 1:
@@ -3420,6 +3701,9 @@ def main():
          "scripts/exp_pallas_gather.py:200", probe_launches["K6"], gather["K6"]),
         ("gather_rows (K7)", "clann_tpu_torch/csrc/gather.cu",
          "scripts/exp_gather_rate.py:154", launches_k7, gather["K7"]),
+        ("window_filter", "clann_tpu_torch/csrc/window_filter.cu",
+         "clann_tpu/ops/global_query.py:222 (the loop body's fetch to take, :284-362)",
+         launches_wf, wf),
     ]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3431,9 +3715,13 @@ def main():
                              for o in k1["options"]]
     # K7's numbers above are at the engine's 512 B records; the walk, which
     # makes many of its launches, gathers 192 B records
-    entries[-1]["walk"] = walk_k7
+    entries[-2]["walk"] = walk_k7
     # and the Jaccard engine's 256 B records (G 16 x [id, 2 sketch words, cluster])
-    entries[-1]["jaccard"] = jaccard_k7
+    entries[-2]["jaccard"] = jaccard_k7
+    # the window filter's numbers above are on random windows at the engine's
+    # shape; on the windows of one batch of the main path, with K7 alone
+    entries[-1]["main_path"] = wf_path
+    entries[-1]["k7_ms"] = wf["k7_ms"]
     log(json.dumps({"kernels": entries}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -45,7 +45,6 @@ from clann_tpu_torch.ops.distances import resolve_device
 from clann_tpu_torch.ops.global_query import (
     _advance,
     _attach_stream_map,
-    _consumer,
     _map_tb,
     _record_window,
 )
@@ -72,6 +71,7 @@ from clann_tpu_torch.ops.query import (
 )
 from clann_tpu_torch.ops.sketches import pack_bits_u32, popcount32, to_int32_bits
 from clann_tpu_torch.ops.sources import IndependentHashSource
+from clann_tpu_torch.ops.window_filter import _consumer
 from clann_tpu_torch.parallel.mesh import host_read
 
 # arrays of a JaccardIndex (None where not built) and their dtypes in the

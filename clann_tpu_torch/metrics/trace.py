@@ -44,14 +44,17 @@ class LoopStats:
     """What the adaptive loops of a search did (accumulated over calls):
     batches run, outer steps (the walk's (group, window) steps; the
     continuous global driver's lane steps; 0 for the batched global
-    engine), loop-body iterations, and host syncs (stop-flag, map-sizing,
+    engine), loop-body iterations, host syncs (stop-flag, map-sizing,
     descend and lane done-flag pulls; the results pull of each batch is
-    not counted). The sharded engine counts each shard's loop as a batch."""
+    not counted), and the window-filter kernel's launches (the cosine
+    global engine's bodies on a card, one an iteration; ops/window_filter).
+    The sharded engine counts each shard's loop as a batch."""
 
     batches: int = 0
     outer_steps: int = 0
     iterations: int = 0
     syncs: int = 0
+    filter_launches: int = 0
 
     def add(self, other: "LoopStats") -> None:
         for f in dataclasses.fields(self):

@@ -136,6 +136,10 @@ def _load() -> ctypes.CDLL:
     lib.clann_gather_warp.argtypes = [vp, i64, vp, i64, vp, i64, vp]
     for fn in (lib.clann_gather_pages, lib.clann_gather_group8, lib.clann_gather_warp):
         fn.restype = i32
+    lib.clann_window_filter.argtypes = [
+        vp, i32, i64, i32, i32, vp, i32, i32, vp, vp, vp, i32, i32, vp, i32, vp, vp, i32, i32,
+        vp, i32, i32, vp, i32, i32, i32, vp]
+    lib.clann_window_filter.restype = i32
     lib.clann_cuda_error_string.argtypes = [i32]
     lib.clann_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib

@@ -23,10 +23,12 @@ What changes from the JAX engine, none of it in the results:
   the last sync the loop knows on the host, for each of the next steps,
   whether every live cursor still fits the map; where it might not, it
   takes the in-loop derivation, which gives the same values.
-- The record gather (JAX's `rec_view[t_sel, blk]`, global_query.py:284)
-  goes through K7, `ops.gather.gather_rows` (csrc/gather.cu).
-- The ball-feasibility lookup is a plain gather of the (Q, C) booleans
-  (JAX contracts a one-hot on the MXU; the values are the same).
+- The window's record gather (JAX's `rec_view[t_sel, blk]`,
+  global_query.py:284), its sketch and ball filters and the take run as one
+  kernel, the window filter (`ops.window_filter`, csrc/window_filter.cu),
+  which looks the ball feasibility up in a bit table (JAX contracts a
+  one-hot on the MXU; the values are the same). Its plain version, which
+  CPU tensors take, is the torch chain the loop ran before, over K7.
 
 `global_search_continuous` is the continuous-batching driver: a fixed set
 of lanes, each step advancing them a few iterations and refilling finished
@@ -46,7 +48,6 @@ import torch
 
 from clann_tpu_torch.metrics.trace import TRACER
 from clann_tpu_torch.ops.distances import as_device_f32, exact_dot, l2_normalize
-from clann_tpu_torch.ops.gather import gather_rows
 from clann_tpu_torch.ops.prefixmap import (
     block_stream,
     blocked_window,
@@ -59,7 +60,6 @@ from clann_tpu_torch.ops.query import (
     SYNC_EVERY,
     LoopStats,
     SearchStats,
-    _compact_take,
     _exact_rescore_topk,
     _merge_topk,
     _score_candidates,
@@ -67,7 +67,12 @@ from clann_tpu_torch.ops.query import (
     probs_lookup,
     sims_to_dists,
 )
-from clann_tpu_torch.ops.sketches import popcount32
+from clann_tpu_torch.ops.window_filter import (
+    fetch_records,
+    pack_window,
+    window_entries,
+    window_filter,
+)
 from clann_tpu_torch.parallel.mesh import host_read
 
 
@@ -154,76 +159,51 @@ def _record_window(streams: dict, records: torch.Tensor, *, gather_block: int, w
     guarantees every live cursor + WB fits it) or by the in-loop
     derivation (prefixmap.blocked_window, the same values), and their G
     packed records of R words each, fetched with one row gather per block
-    (K7, ops.gather.gather_rows). With `routing` the dead blocks (done
-    queries, fully masked edge blocks) fetch table 0's block 0; `valid`
-    masks every consumer of their words. Shared by both global engines
-    (cosine, ops/global_query.py; Jaccard, core/jaccard.py)."""
+    (K7, ops.window_filter.fetch_records, which the window filter's plain
+    version shares). With `routing` the dead blocks (done queries, fully
+    masked edge blocks) fetch table 0's block 0; `valid` masks every
+    consumer of their words. The Jaccard engine's window (core/jaccard.py);
+    the cosine engine's is the window filter's."""
     starts_s, sizes_s = streams["starts"], streams["sizes"]
     bstarts, fc = streams["bstarts"], streams["fc"]
     smap = streams.get("smap")
-    Q, dev = fc.shape[0], fc.device
-    L, n_pad, R = records.shape
+    L, n_pad = records.shape[:2]
     G = gather_block
     if n_pad % G:
         raise ValueError(
             "the records' slot axis is not a multiple of config.gather_block; "
             "build them with pad_to=gather_block"
         )
-    nb = n_pad // G
-    rec_flat = records.view(L * nb, G * R)  # (L, n_pad, R) -> block rows
     g_log = int(np.log2(G))
-    blk_iota = torch.arange(wb, dtype=torch.int32, device=dev)
-    lane_iota = torch.arange(G, dtype=torch.int32, device=dev)
 
     def window(off, use_map):
         if use_map:
             # one contiguous slice of the precomputed map per query
-            tb = smap.shape[1]
-            pos = torch.clamp(off, 0, tb - wb)[:, None].to(torch.int64) + blk_iota
-            win = torch.gather(smap, 1, pos[:, :, None].expand(Q, wb, 3))
-            lm = win[..., 2]
-            lane_valid = ((lm[:, :, None] >> lane_iota) & 1) != 0  # (Q, WB, G)
-            return win[..., 0], win[..., 1], lane_valid
+            return window_entries(smap, off, wb=wb, gather_block=G)
         j, blk, _, lane_valid = blocked_window(
             fc, off, wb, bstarts, starts_s, sizes_s, g_log, dense_index=dense_index)
         return (j % L), blk, lane_valid
 
     def fetch(qdone, off, use_map: bool):
-        t_sel, blk, lane_valid = window(off, use_map)
-        if routing:
-            block_live = lane_valid.any(dim=2) & ~qdone[:, None]
-            blk = torch.where(block_live, blk, 0)
-            t_sel = torch.where(block_live, t_sel, 0)
-        valid = (lane_valid & ~qdone[:, None, None]).reshape(Q, wb * G)
-        fidx = (t_sel * nb + torch.clamp(blk, 0, nb - 1)).to(torch.int32)
-        rec = gather_rows(rec_flat, fidx.reshape(-1)).view(Q, wb, G, R)
-        return t_sel, rec, valid
+        return fetch_records(records, *window(off, use_map), qdone, routing=routing)
 
     return fetch
 
 
-def _consumer(*, wb: int, gather_block: int, chunk: int, device):
-    """consume(passes (Q, WB * G)) -> (blocks consumed (Q,), lanes in the
-    consumed blocks (Q, WB * G)): whole blocks from the window's front
-    until ~chunk passing candidates accumulate, at least one block so the
-    cursor advances (collection.hpp:775-781)."""
-    G = gather_block
-    blk_iota = torch.arange(wb, dtype=torch.int32, device=device)
-
-    def consume(passes):
-        Q = passes.shape[0]
-        pb = passes.view(Q, wb, G).sum(dim=2, dtype=torch.int32)
-        consumed = torch.clamp(
-            (torch.cumsum(pb, dim=1) <= chunk).sum(dim=1, dtype=torch.int32), min=1)
-        in_window = (blk_iota[None, :] < consumed[:, None])[:, :, None].expand(
-            Q, wb, G).reshape(Q, wb * G)
-        return consumed, in_window
-
-    return consume
+def derived_window(streams: dict, off: torch.Tensor, *, wb: int, gather_block: int,
+                   tables: int, dense_index: bool) -> torch.Tensor:
+    """The next WB stream blocks at the cursors `off` by the in-loop
+    derivation (prefixmap.blocked_window), packed as the stream map's
+    entries for the window filter."""
+    j, blk, _, lane_valid = blocked_window(
+        streams["fc"], off, wb, streams["bstarts"], streams["starts"], streams["sizes"],
+        int(np.log2(gather_block)), dense_index=dense_index)
+    return pack_window(j % tables, blk, lane_valid)
 
 
 def _loop_pieces(index, streams: dict, delta, *, k: int, chunk: int,
-                 min_depth: int, filter_type: str, filter_expand: int):
+                 min_depth: int, filter_type: str, filter_expand: int,
+                 loop_stats: Optional[LoopStats] = None):
     """(cond, body) of the adaptive probe loop over `streams`' queries.
 
     State tuple: (topk_sims (Q,kk), topk_ids, qdone, off, dc, cand_ct).
@@ -239,24 +219,15 @@ def _loop_pieces(index, streams: dict, delta, *, k: int, chunk: int,
     queries_q8 = streams.get("q8")
     dev = queries_n.device
 
-    Q = queries_n.shape[0]
     L = index.g_sorted_hash.shape[0]
     n = index.vectors.shape[0]
-    S = index.sketches.shape[1]
-    C = feas_bound.shape[1]
     d_entry = _entry_depth(index, min_depth)
     # blocked gather: G consecutive records per gather lane; the stream
     # cursor runs in block units (prefixmap.block_stream)
     G = max(1, index.config.gather_block)
     WB = max(1, (chunk * filter_expand) // G)  # window width in blocks
-    WL = WB * G  # window width in record lanes
     CB = chunk + G  # compacted rescore capacity (block-granular overshoot)
-    Wd = index.sketches.shape[2]
-    # record layout: [id, sketch words..., cluster] (make_global_tables)
-    fetch = _record_window(streams, index.g_records, gather_block=G, wb=WB,
-                           dense_index=index.config.window_index_dense,
-                           routing=index.config.dead_block_routing)
-    consume = _consumer(wb=WB, gather_block=G, chunk=chunk, device=dev)
+    smap = streams.get("smap")
     delta = torch.as_tensor(delta, dtype=torch.float32, device=dev)
     stop_at = 1.0 - delta  # f32, as the JAX engine's 1.0 - delta
     # int8 k-th overestimation margin (see ops/query.py's walk): an inflated
@@ -275,31 +246,18 @@ def _loop_pieces(index, streams: dict, delta, *, k: int, chunk: int,
     def body(s, use_map: bool):
         # the phases' spans keep each under a few hundred profiler events
         topk_sims, topk_ids, qdone, off, dc, cand_ct = s
-        with TRACER.span("engine/fetch"):
-            t_sel, rec, valid = fetch(qdone, off, use_map)
-        with TRACER.span("engine/sketch"):
-            # the query sketch is constant across a block's G lanes
-            q_sk = torch.gather(query_sketches, 1,
-                                (t_sel % S).to(torch.int64)[:, :, None].expand(Q, WB, Wd))
-            ham = torch.sum(popcount32(rec[..., 1 : 1 + Wd] ^ q_sk[:, :, None, :]),
-                            dim=-1, dtype=torch.int32).reshape(Q, WL)
         with TRACER.span("engine/filter"):
-            cand_ids = rec[..., 0].reshape(Q, WL)
-            cand_cluster = torch.clamp(rec[..., 1 + Wd].reshape(Q, WL), 0, C - 1)
-            kth_sim, full, kth_dist = kth(topk_sims, topk_ids)
+            kth_sim, _, kth_dist = kth(topk_sims, topk_ids)
             maxdiff = index.maxdiff_table[torch.clamp(
                 (kth_sim / index.sim_eps).to(torch.int64), 0, index.maxdiff_table.shape[0] - 1)]
-            # per-candidate ball feasibility (index.rs:342-361 per candidate)
-            ok = feas_bound <= kth_dist[:, None]  # (Q, C)
-            feas = torch.gather(ok, 1, cand_cluster.to(torch.int64))
-            passes = valid & feas
-            if filter_type != "none":
-                passes = passes & (ham <= maxdiff[:, None])
-
-        with TRACER.span("engine/take"):
-            consumed, in_window = consume(passes)
-            take = passes & in_window
-            compact_ids = _compact_take(take, cand_ids, cap=CB, n_sentinel=n)
+            # record layout: [id, sketch words..., cluster] (make_global_tables)
+            compact_ids, consumed, taken, seen = window_filter(
+                index.g_records, smap if use_map else derived_window(
+                    streams, off, wb=WB, gather_block=G, tables=L,
+                    dense_index=index.config.window_index_dense), off, qdone,
+                query_sketches, feas_bound, kth_dist, maxdiff, gather_block=G, wb=WB,
+                chunk=chunk, cap=CB, n_sentinel=n, use_filter=filter_type != "none",
+                routing=index.config.dead_block_routing, loop_stats=loop_stats)
         with TRACER.span("engine/score"):
             sims = _score_candidates(index, queries_n, queries_q8,
                                      torch.clamp(compact_ids, 0, n - 1))
@@ -307,8 +265,8 @@ def _loop_pieces(index, streams: dict, delta, *, k: int, chunk: int,
                                               n_sentinel=n)
 
         with TRACER.span("engine/stop"):
-            dc = dc + take.sum(dim=1, dtype=torch.int32)
-            cand_ct = cand_ct + (valid & in_window).sum(dim=1, dtype=torch.int32)
+            dc = dc + taken
+            cand_ct = cand_ct + seen
 
             # finished queries' cursors stay frozen
             off_new = torch.where(qdone, off, off + consumed)
@@ -376,7 +334,7 @@ def _run_loop(index, streams, delta, *, k, chunk, min_depth, filter_type,
     Q = streams["qn"].shape[0]
     cond, body = _loop_pieces(
         index, streams, delta, k=k, chunk=chunk, min_depth=min_depth,
-        filter_type=filter_type, filter_expand=filter_expand,
+        filter_type=filter_type, filter_expand=filter_expand, loop_stats=loop_stats,
     )
     G = max(1, index.config.gather_block)
     tb = streams["smap"].shape[1] if "smap" in streams else 0
@@ -567,7 +525,7 @@ def _global_step_packed(index, streams_all: dict, state_all: tuple, active: torc
     lane_state = tuple(t[active] for t in state_all)
     cond, body = _loop_pieces(
         index, lane_streams, delta, k=k, chunk=chunk, min_depth=min_depth,
-        filter_type=filter_type, filter_expand=filter_expand,
+        filter_type=filter_type, filter_expand=filter_expand, loop_stats=loop_stats,
     )
     G = max(1, index.config.gather_block)
     tb = lane_streams["smap"].shape[1] if "smap" in lane_streams else 0

@@ -15,7 +15,8 @@ its multichip checks on four cards, in both forms:
   path with its shards on cuda:0-3 (`make_mesh(4)`, one controller) held
   to the same call on a one-card 4-shard mesh: ids per query up to ties,
   distance computations and kernel launches equal; each shard's tensors on
-  its own card, each K1 / K7 launch on its shard's card. The global engine,
+  its own card, each K1 / K7 / window filter launch on its shard's card
+  (the global engine launches the window filter). The global engine,
   the walk, Jaccard and build_sharded are read twice on the cards, the
   shard bodies forced in order (`parallel.mesh._shards_in_order`), then at
   once (`parallel.mesh.run_shards`, one worker per card), and the two
@@ -126,13 +127,15 @@ def still_on_card_0(what: str) -> None:
 
 @dataclasses.dataclass
 class Reading:
-    """One timed call: its result, wall seconds and the K1 / K7 launches by
-    card."""
+    """One timed call: its result, wall seconds and the K1 / K7 / window
+    filter launches by card (the global engine launches the window filter,
+    the walk and Jaccard's engine K7)."""
 
     out: object
     seconds: float
     k1: Dict[int, int]
     k7: Dict[int, int]
+    wf: Dict[int, int]
 
     def line(self) -> str:
         return f"{self.seconds:.3f} s"
@@ -143,16 +146,18 @@ def timed(fn: Callable[[], object]) -> Reading:
     and after."""
     from clann_tpu_torch.ops import gather as tg
     from clann_tpu_torch.ops import scan_topk as st
+    from clann_tpu_torch.ops import window_filter as twf
 
     sync_all()
     st.KERNEL_LAUNCHES = 0
     st.KERNEL_DEVICE_LAUNCHES.clear()
     tg.reset_launches()
+    twf.reset_launches()
     t0 = time.perf_counter()
     out = fn()
     sync_all()
     return Reading(out, time.perf_counter() - t0, dict(st.KERNEL_DEVICE_LAUNCHES),
-                   dict(tg.ROWS_DEVICE_LAUNCHES))
+                   dict(tg.ROWS_DEVICE_LAUNCHES), dict(twf.FILTER_DEVICE_LAUNCHES))
 
 
 def timed_spans(fn: Callable[[], object]):
@@ -229,14 +234,17 @@ def in_order_and_at_once(fn: Callable[[], object], spans: bool = False):
 def same_bits(a: Reading, b: Reading, what: str, by_card: bool = True) -> None:
     """Two readings of one search: distances, ids and every stat equal bit
     for bit (same_search at atol 0 first, for its message), and the same
-    K1 / K7 launches, by card (or in all, for two layouts of the cards)."""
+    K1 / K7 / window filter launches, by card (or in all, for two layouts
+    of the cards)."""
     same_search(a.out, b.out, what, atol=0.0)
     check(all(np.array_equal(x, y) for x, y in zip(a.out[:2], b.out[:2]))
           and all(np.array_equal(x, y) for x, y in zip(a.out[2], b.out[2])),
           f"{what}: the results differ in their bits")
     count = (lambda c: c) if by_card else (lambda c: sum(c.values()))
-    check(count(a.k1) == count(b.k1) and count(a.k7) == count(b.k7),
-          f"{what}: launches K1 {a.k1} / {b.k1}, K7 {a.k7} / {b.k7}")
+    check(count(a.k1) == count(b.k1) and count(a.k7) == count(b.k7)
+          and count(a.wf) == count(b.wf),
+          f"{what}: launches K1 {a.k1} / {b.k1}, K7 {a.k7} / {b.k7}, window filter "
+          f"{a.wf} / {b.wf}")
 
 
 def same_index(a, b, what: str) -> None:
@@ -546,12 +554,13 @@ def glove_lsh(lsh, train, test, gt_d, gt_i, label: str, n_cards: int = 4,
               queries: int = GLOVE_LSH_QUERIES, delta: float = GLOVE_DELTA,
               mesh_2d_queries: int = 256, join_k: int = 100, join_delta: float = 0.9,
               profile: bool = False):
-    """The lsh index over n_cards cards: the global engine per card (K7),
-    the 2 x 2 mesh, the table-sharded join; then build_sharded with the
-    lsh configuration and its two searches, which the NCCL run is held to.
-    With `profile`, profile_overlap of the four-card global engine.
-    Returns (K7 launches of the four-card global search, the reference
-    results {"global": ..., "scan": ...})."""
+    """The lsh index over n_cards cards: the global engine per card (the
+    window filter), the 2 x 2 mesh, the table-sharded join; then
+    build_sharded with the lsh configuration and its two searches, which
+    the NCCL run is held to. With `profile`, profile_overlap of the
+    four-card global engine. Returns (window filter launches of the
+    four-card global search, the reference results {"global": ...,
+    "scan": ...})."""
     from clann_tpu_torch.parallel import sharded as sh
     from clann_tpu_torch.parallel.join import sharded_closest_pairs
     from clann_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
@@ -572,20 +581,21 @@ def glove_lsh(lsh, train, test, gt_d, gt_i, label: str, n_cards: int = 4,
     same = same_search(r4.out, r1.out, "sharded global engine")
     same_bits(r4, r1, "the four-card global engine against the one-card mesh", by_card=False)
     rec, idr = _recall(gd, gi, r4.out[0], r4.out[1])
-    _every_card(r4.k7, n_cards, "the four-card global engine")
-    _only_card_0(r1.k7, "the one-card global engine", total=sum(r4.k7.values()))
+    _every_card(r4.wf, n_cards, "the four-card global engine")
+    _only_card_0(r1.wf, "the one-card global engine", total=sum(r4.wf.values()))
     check(rec >= LSH_GATE * delta, f"four-card global engine recall@10 {rec:.4f}")
     single = timed(lambda: lsh.search_batch(q, mode="lsh"))
     log(f"[cards] sharded_global_search delta={delta}, {queries} queries in one batch on "
         f"cuda:0-{n_cards - 1}: recall@10 {rec:.4f} (gate {LSH_GATE * delta:.2f}), id-recall "
         f"{idr:.4f}; ids equal to the one-card mesh up to ties ({same:.5f} identical), dc "
-        f"equal ({float(np.mean(r4.out[2].distance_computations)):.1f}/query); K7 launches "
-        f"{_launch_line(r4.k7)} (one card {_launch_line(r1.k7)}); {_pair(r4o, r4, queries)}, "
+        f"equal ({float(np.mean(r4.out[2].distance_computations)):.1f}/query); window filter "
+        f"launches {_launch_line(r4.wf)} (one card {_launch_line(r1.wf)}); "
+        f"{_pair(r4o, r4, queries)}, "
         f"bit-identical; one-card mesh {queries / r1.seconds:.1f} QPS ({r1.line()}), "
         f"bit-identical; "
         f"single device (facade, batches of 256) {queries / single.seconds:.1f} QPS; peak "
         f"memory per card {peaks_gb()} GB on {label}")
-    k7 = sum(r4.k7.values())
+    wf = sum(r4.wf.values())
     if profile:
         profile_overlap(lambda: sh.sharded_global_search(s4, q, delta=delta, mesh=four),
                         f"sharded_global_search, {queries} queries on cuda:0-{n_cards - 1}")
@@ -601,10 +611,10 @@ def glove_lsh(lsh, train, test, gt_d, gt_i, label: str, n_cards: int = 4,
     m4 = timed(lambda: sh.sharded_global_search(
         half4, q2, delta=delta, mesh=make_mesh_2d(2, 2, devices=devs[:4])))
     same2 = same_search(m4.out, m1.out, "2 x 2 mesh")
-    _every_card(m4.k7, 4, "the four-card 2 x 2 mesh")
+    _every_card(m4.wf, 4, "the four-card 2 x 2 mesh")
     log(f"[cards] 2 x 2 make_mesh_2d over cuda:0-3, {mesh_2d_queries} queries: ids equal to "
-        f"the one-card 2 x 2 mesh up to ties ({same2:.5f} identical), dc equal; K7 launches "
-        f"{_launch_line(m4.k7)}; {m4.line()} (one card {m1.seconds:.3f} s)")
+        f"the one-card 2 x 2 mesh up to ties ({same2:.5f} identical), dc equal; window filter "
+        f"launches {_launch_line(m4.wf)}; {m4.line()} (one card {m1.seconds:.3f} s)")
     del half1, half4, m1, m4
 
     j1 = timed(lambda: sharded_closest_pairs(lsh.index, join_k, delta=join_delta, mesh=one))
@@ -634,7 +644,7 @@ def glove_lsh(lsh, train, test, gt_d, gt_i, label: str, n_cards: int = 4,
         f"id-recall {idr_s:.4f}, {len(test) / ref['scan_s']:.0f} QPS (second call)")
     check(rec_g >= LSH_GATE * delta and rec_s >= RECALL_GATE and idr_s >= ID_RECALL_GATE,
           "the four-card lsh build's searches are below their gates")
-    return k7, ref
+    return wf, ref
 
 
 def controller_run(train, test, cfg, mesh, lsh_queries: int = GLOVE_LSH_QUERIES,
@@ -654,7 +664,7 @@ def controller_run(train, test, cfg, mesh, lsh_queries: int = GLOVE_LSH_QUERIES,
     s = timed(lambda: sh.sharded_scan_search(built, test, k=K, use_pallas=True, mesh=mesh))
     sh._SHARD_BASE_CACHE.clear()
     return built, {"global": g.out, "scan": s.out, "global_s": g.seconds, "scan_s": s.seconds,
-                   "build_s": b.seconds, "k7_global": g.k7, "k1_scan": s.k1}
+                   "build_s": b.seconds, "wf_global": g.wf, "k1_scan": s.k1}
 
 
 def glove_walk(walk, test, gt_d, gt_i, single_batch_s: float, label: str,
@@ -856,10 +866,10 @@ def nccl_ranks(cfg, reference, label: str, work_dir: str, world: int = 4,
         f"QPS (single controller {nq_g / reference['global_s']:.1f}); sharded_scan_search "
         f"(use_pallas) {nq_s / ranks[0]['scan_s']:.0f} QPS (single controller "
         f"{nq_s / reference['scan_s']:.0f}); K1 launches per rank "
-        f"{[r['k1'] for r in ranks]}, K7 {[r['k7'] for r in ranks]}; peak memory per card "
-        f"{[r['peak_gb'] for r in ranks]} GB on {label}")
-    check(not on_cards or all(r["k1"] == 1 and r["k7"] > 0 for r in ranks),
-          "a rank did not launch K1 once and K7 on its own card")
+        f"{[r['k1'] for r in ranks]}, window filter {[r['wf'] for r in ranks]}; peak memory "
+        f"per card {[r['peak_gb'] for r in ranks]} GB on {label}")
+    check(not on_cards or all(r["k1"] == 1 and r["wf"] > 0 for r in ranks),
+          "a rank did not launch K1 once and the window filter on its own card")
 
 
 def rank_main(rank: int, world: int, init: str, work: str) -> None:
@@ -896,9 +906,9 @@ def rank_main(rank: int, world: int, init: str, work: str) -> None:
     reset_peaks()
     built, run = controller_run(train, test, cfg, mesh, job["lsh_queries"], job["delta"])
     shards_on_cards(built, [me] * world, f"rank {rank}'s build_sharded")
-    k1, k7 = run["k1_scan"], run["k7_global"]
-    check(not on_cards or (set(k7) == {rank} and k1 == {rank: 1}),
-          f"rank {rank} launched K7 on {k7} and K1 on {k1}")
+    k1, wf = run["k1_scan"], run["wf_global"]
+    check(not on_cards or (set(wf) == {rank} and k1 == {rank: 1}),
+          f"rank {rank} launched the window filter on {wf} and K1 on {k1}")
     if rank == 0:
         arrays = {}
         for key in ("global", "scan"):
@@ -908,7 +918,7 @@ def rank_main(rank: int, world: int, init: str, work: str) -> None:
         np.savez(os.path.join(work, "rank0.npz"), **arrays)
     readings = {"build_s": run["build_s"], "global_s": run["global_s"],
                 "scan_s": run["scan_s"], "k1": k1.get(rank, 0),
-                "k7": k7.get(rank, 0), "peak_gb": peaks_gb()}
+                "wf": wf.get(rank, 0), "peak_gb": peaks_gb()}
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(readings, f)
     log(f"[cards] rank {rank} on {me}: build_sharded {run['build_s']:.3f} s, global "
@@ -941,7 +951,7 @@ def past_one_card(cfg, label: str, n: int = PAST_N, n_cards: int = 4,
     truth by brute_force_topk on cuda:0 (independent of the sharded code);
     build_sharded over cuda:0..n_cards-1 with its stage seconds; the global
     engine on lsh_queries at delta and the fused scan on all queries,
-    gated. Returns the K1 / K7 launches of the two searches."""
+    gated. Returns the K1 / window filter launches of the two searches."""
     from clann_tpu_torch.data.synthetic import clustered_unit_vectors
     from clann_tpu_torch.ops.distances import brute_force_topk
     from clann_tpu_torch.parallel import mesh as pm
@@ -1002,11 +1012,11 @@ def past_one_card(cfg, label: str, n: int = PAST_N, n_cards: int = 4,
     reset_peaks()
     g = timed(lambda: sh.sharded_global_search(built, q, delta=delta, mesh=four))
     rec_g, idr_g = _recall(gt_d[:lsh_queries], gt_i[:lsh_queries], g.out[0], g.out[1])
-    _every_card(g.k7, n_cards, "the global engine past one card")
+    _every_card(g.wf, n_cards, "the global engine past one card")
     log(f"[cards] past one card: sharded_global_search delta={delta}, {lsh_queries} queries: "
         f"recall@10 {rec_g:.4f} (gate {LSH_GATE * delta:.2f}), id-recall {idr_g:.4f}; dc/query "
-        f"{float(np.mean(g.out[2].distance_computations)):.1f}; K7 launches "
-        f"{_launch_line(g.k7)}; {lsh_queries / g.seconds:.1f} QPS, {g.line()}; peak memory "
+        f"{float(np.mean(g.out[2].distance_computations)):.1f}; window filter launches "
+        f"{_launch_line(g.wf)}; {lsh_queries / g.seconds:.1f} QPS, {g.line()}; peak memory "
         f"per card {peaks_gb()} GB")
     check(rec_g >= LSH_GATE * delta, f"past one card: global recall@10 {rec_g:.4f}")
 
@@ -1036,7 +1046,7 @@ def past_one_card(cfg, label: str, n: int = PAST_N, n_cards: int = 4,
     del built
     sh._SHARD_BASE_CACHE.clear()
     torch.cuda.empty_cache()
-    return {"k1": sum(s0.k1.values()), "k7": sum(g.k7.values())}
+    return {"k1": sum(s0.k1.values()), "wf": sum(g.wf.values())}
 
 
 def main(argv=None) -> None:

@@ -157,3 +157,124 @@ def sharded_real_slot_mismatches(a, b) -> list:
             elif x is not None and not equal(x[s], y[s]):
                 bad.append(f"{f}[{s}]")
     return bad
+
+
+# The window filter's edge cases (window_filter_case's `case`): what each
+# forces on every query of a seeded random window.
+WINDOW_CASES = ("random", "qdone", "short", "all_pass", "none_pass")
+# The cases the window filter is held to, on the CPU against the engine's
+# former chain and on the card against its plain version: (case, G, WB,
+# chunk, cap, filter on, dead_block_routing, seed) on 24 queries of 10
+# tables of 997 slots and 37 clusters: the engine's shape at the tests'
+# size (G 8, chunk 512, filter_expand 8 -> WB 512, cap chunk + G), then the
+# edge cases.
+WINDOW_FILTER_CASES = {
+    "random": ("random", 8, 512, 512, 520, True, True, 0),
+    "qdone rows": ("qdone", 8, 512, 512, 520, True, True, 1),
+    "fully masked blocks past the streams' ends": ("short", 8, 64, 128, 136, True, True, 2),
+    "every lane passes: consumed stops at chunk": ("all_pass", 8, 64, 40, 48, True, True, 3),
+    "chunk below G: consumed held at 1, ranks past cap dropped":
+        ("all_pass", 8, 16, 3, 5, True, True, 4),
+    "none pass": ("none_pass", 8, 64, 128, 136, True, True, 5),
+    "filter_type none": ("random", 8, 64, 128, 136, False, True, 6),
+    "dead_block_routing off": ("qdone", 8, 64, 128, 136, True, False, 7),
+    "G 32 (one mask word a block)": ("random", 32, 64, 512, 544, True, True, 8),
+    "G 64 (two mask words a block; no stream map)": ("short", 64, 16, 256, 320, True, True, 9),
+    "G 1": ("random", 1, 100, 37, 38, True, True, 10),
+}
+WINDOW_FILTER_SHAPE = dict(q=24, tables=10, slots=997, clusters=37)
+
+
+def window_filter_case(*, q: int, tables: int, slots: int, gather_block: int, wb: int,
+                       clusters: int, case: str = "random", sketches: int = 32,
+                       sketch_words: int = 2, ranges: int = 0, seed: int = 0,
+                       device="cpu") -> Dict[str, object]:
+    """Seeded random operands of `ops.window_filter.window_filter`, made as
+    the global engine makes them: (Q, M) stream ranges over `tables`
+    hash-sorted tables of `slots` slots (M = `ranges`, default 3 a table),
+    their block stream (`fc`, `bstarts`), its stream map `smap` (G <= 32;
+    else None), cursors `off` inside each stream, records (L, n_pad,
+    2 + Wd) with clusters a little outside [0, C) (the filter clamps),
+    query sketches, ball bounds, k-th distances and sketch thresholds.
+    `case` (WINDOW_CASES): "qdone" marks a third of the queries done,
+    "short" gives most queries fewer blocks than the window (fully masked
+    blocks past the stream's end), "all_pass" makes every cluster feasible
+    and every sketch pass, "none_pass" none."""
+    from clann_tpu_torch.ops.prefixmap import block_stream, stream_block_map
+
+    if case not in WINDOW_CASES:
+        raise ValueError(f"case {case!r} not in {WINDOW_CASES}")
+    G, dev = gather_block, torch.device(device)
+    g_log = G.bit_length() - 1
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    big = torch.Generator(device=dev).manual_seed(seed)  # the records, made where they live
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int64)
+
+    M = ranges or 3 * tables
+    long_share = 0.15 if case == "short" else 0.85
+    scale = torch.where(torch.rand((q, 1), generator=gen) < long_share, 6 * G, 1)
+    sizes = torch.minimum(ints(0, 1 << 30, (q, M)) % (scale + 1), torch.tensor(slots))
+    sizes = torch.where(torch.rand((q, M), generator=gen) < 0.2, 0, sizes)
+    starts = ints(0, 1 << 30, (q, M)) % (slots - sizes + 1)
+    starts, sizes = starts.to(torch.int32), sizes.to(torch.int32)
+    bstarts, bcounts = block_stream(starts, sizes, g_log)
+    fc = torch.cumsum(bcounts, dim=1, dtype=torch.int32)
+    total = fc[:, -1]
+    off = (torch.rand((q,), generator=gen) * (total.to(torch.float32) + 1)).to(torch.int32)
+    off = torch.minimum(off, total)
+    smap = None
+    if G <= 32:
+        tb = 1 << max(int(total.max()) + wb, 1).bit_length()
+        smap = stream_block_map(fc, bstarts, starts, sizes, g_log, tables, tb)
+
+    n_pad = -(-slots // G) * G
+    W = sketch_words
+    records = torch.cat([
+        torch.randint(lo, hi, (tables, n_pad, w), generator=big, dtype=torch.int64,
+                      device=dev).to(torch.int32)
+        for lo, hi, w in ((0, slots, 1), (-(1 << 31), 1 << 31, W), (-2, clusters + 2, 1))],
+        dim=2)
+    qsk = ints(-(1 << 31), 1 << 31, (q, sketches, W)).to(torch.int32)
+    feas_bound = torch.rand((q, clusters), generator=gen) * 2.0 - 1.0
+    kth_dist = torch.rand((q,), generator=gen) * 1.2 - 0.2
+    kth_dist = torch.where(torch.rand((q,), generator=gen) < 0.1, torch.inf, kth_dist)
+    maxdiff = ints(16 * W - 2, 16 * W + 3, (q,)).to(torch.int32)
+    qdone = torch.zeros((q,), dtype=torch.bool)
+    if case == "qdone":
+        qdone = torch.rand((q,), generator=gen) < 1 / 3
+    elif case == "all_pass":
+        kth_dist = torch.full((q,), torch.inf)
+        maxdiff = torch.full((q,), 32 * W, dtype=torch.int32)
+    elif case == "none_pass":
+        kth_dist = torch.full((q,), -torch.inf)
+        maxdiff = torch.full((q,), -1, dtype=torch.int32)
+    out = dict(records=records, starts=starts, sizes=sizes, bstarts=bstarts, fc=fc, off=off,
+               smap=smap, qdone=qdone, qsk=qsk, feas_bound=feas_bound.to(torch.float32),
+               kth_dist=kth_dist.to(torch.float32), maxdiff=maxdiff)
+    out = {k: None if v is None else v.to(dev) for k, v in out.items()}  # records: there
+    out.update(g_log=g_log, wb=wb, n_sentinel=slots)
+    return out
+
+
+def packed_derived_window(case: Dict[str, object], tables: int) -> torch.Tensor:
+    """The in-loop derivation of a `window_filter_case`'s next WB blocks
+    at its cursors, packed by the global engine's `derived_window`."""
+    from clann_tpu_torch.ops.global_query import derived_window
+
+    return derived_window(case, case["off"], wb=case["wb"], gather_block=1 << case["g_log"],
+                          tables=tables, dense_index=False)
+
+
+def run_window_filter(fn, case: Dict[str, object], *, use_map: bool, chunk: int, cap: int,
+                      use_filter: bool, routing: bool, loop_stats=None):
+    """`fn` (ops.window_filter's wrapper or plain version) on a
+    `window_filter_case`: its stream map, or its derived window packed."""
+    tables = case["records"].shape[0]
+    window = case["smap"] if use_map else packed_derived_window(case, tables)
+    return fn(case["records"], window, case["off"], case["qdone"], case["qsk"],
+              case["feas_bound"], case["kth_dist"], case["maxdiff"],
+              gather_block=1 << case["g_log"], wb=case["wb"], chunk=chunk, cap=cap,
+              n_sentinel=case["n_sentinel"], use_filter=use_filter, routing=routing,
+              loop_stats=loop_stats)

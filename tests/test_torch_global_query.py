@@ -43,6 +43,7 @@ from clann_tpu_torch.core.index import index_from_arrays
 from clann_tpu_torch.metrics.recall import recall_values
 from clann_tpu_torch.ops import gather as tg
 from clann_tpu_torch.ops import global_query as tgq
+from clann_tpu_torch.ops import window_filter as twf
 from clann_tpu_torch.testing import assert_topk_match, index_arrays
 
 torch.set_num_threads(1)
@@ -97,13 +98,38 @@ def _with(tidx, **cfg):
 def test_engine_matches_jax(world, delta, filter_type):
     ls = tgq.LoopStats()
     launches = tg.ROWS_LAUNCHES
+    filter_launches = twf.FILTER_LAUNCHES
     out = tgq.global_search_batch_mapped(world["tidx"], *world["tq"], delta,
                                          filter_type=filter_type, loop_stats=ls, **KW)
     _assert_same(_jax_ref(world, delta, filter_type), *out)
     assert tg.ROWS_LAUNCHES == launches  # CPU tensors: K7's plain version
+    # and the window filter's plain version: no kernel launched, none counted
+    assert twf.FILTER_LAUNCHES == filter_launches and ls.filter_launches == 0
     assert ls.batches == 1 and ls.iterations >= 1
     # one stream-map sizing pull + one stop-flag pull per SYNC_EVERY steps
     assert ls.syncs == 1 + 1 + -(-ls.iterations // tgq.SYNC_EVERY)
+
+
+@pytest.mark.parametrize("path", ["batched", "continuous"])
+def test_bodies_count_filter_launches_into_their_loop(world, monkeypatch, path):
+    """Every loop body hands the window filter its loop's LoopStats, in
+    which the wrapper counts each kernel launch (a card's; the CPU's plain
+    version counts none): one call a body, all into the caller's stats."""
+    seen = []
+
+    def spy(*a, loop_stats=None, **kw):
+        seen.append(loop_stats)
+        return twf.window_filter(*a, loop_stats=loop_stats, **kw)
+
+    monkeypatch.setattr(tgq, "window_filter", spy)
+    ls = tgq.LoopStats()
+    if path == "batched":
+        tgq.global_search_batch_mapped(world["tidx"], *world["tq"], 0.9, loop_stats=ls, **KW)
+    else:
+        tgq.global_search_continuous(world["tidx"], world["ds"].test, lanes=16, step_iters=3,
+                                     loop_stats=ls)
+    assert len(seen) == ls.iterations >= 1 and all(s is ls for s in seen)
+    assert ls.filter_launches == 0
 
 
 @pytest.mark.parametrize("knob", [

@@ -263,7 +263,7 @@ def test_shards_on_cards_names_a_stray_tensor():
 
 def test_timed_reads_launches_and_spans_on_the_cpu():
     r = mc.timed(lambda: 7)
-    assert r.out == 7 and r.seconds >= 0 and r.k1 == {} and r.k7 == {}
+    assert r.out == 7 and r.seconds >= 0 and r.k1 == {} and r.k7 == {} and r.wf == {}
     assert r.line() == f"{r.seconds:.3f} s"
     r, spans = mc.timed_spans(lambda: tsh.build_sharded(
         clustered_unit_vectors(600, 8, n_modes=6, seed=2),
@@ -486,6 +486,8 @@ def test_probe_pairs_in_order_and_at_once(runner_world):
         mc.same_bits(first, dataclasses.replace(second, out=(d, i, st2)), "stats")
     with pytest.raises(AssertionError, match="launches"):
         mc.same_bits(first, dataclasses.replace(second, k7={0: 1}), "launches")
+    with pytest.raises(AssertionError, match="window filter"):
+        mc.same_bits(first, dataclasses.replace(second, wf={0: 1}), "launches")
     (b1, spans1), (b2, _) = mc.in_order_and_at_once(
         lambda: tsh.build_sharded(w["train"], w["cfg"], mesh=mesh), spans=True)
     mc.same_index(b1.out, b2.out, "build")

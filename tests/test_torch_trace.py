@@ -157,9 +157,10 @@ def test_marked_threads_are_active():
 
 
 def test_loop_stats_add():
-    a, b = LoopStats(1, 2, 3, 4), LoopStats(10, 20, 30, 40)
+    a, b = LoopStats(1, 2, 3, 4, 5), LoopStats(10, 20, 30, 40, 50)
     a.add(b)
-    assert a == LoopStats(11, 22, 33, 44) and tq.LoopStats is LoopStats
+    assert a == LoopStats(11, 22, 33, 44, 55) and tq.LoopStats is LoopStats
+    assert a.filter_launches == 55
 
 
 @pytest.fixture(scope="module")
