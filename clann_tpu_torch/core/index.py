@@ -44,7 +44,11 @@ from clann_tpu_torch.ops.collision import HashSourceProbs
 from clann_tpu_torch.ops.distances import as_device_f32, exact_dot, l2_normalize
 from clann_tpu_torch.ops.gmm import greedy_minimum_maximum
 from clann_tpu_torch.ops.hashing import make_hash_family
-from clann_tpu_torch.ops.prefixmap import build_prefix_directory, sort_tables_segmented
+from clann_tpu_torch.ops.prefixmap import (
+    build_prefix_directory,
+    sort_tables_segmented,
+    table_blocks,
+)
 from clann_tpu_torch.ops.sketches import SketchFilterer, simhash_p1
 from clann_tpu_torch.ops.sources import make_hash_source
 
@@ -350,13 +354,6 @@ def derive_prefix_directory(sorted_hash, starts, config: Config, max_seg: int):
     return prefix_dir, dir_bits, _iters(max_bucket)
 
 
-def _pad_slots(rec: torch.Tensor, pad_to: int) -> torch.Tensor:
-    pad = (-rec.shape[1]) % pad_to
-    if pad:
-        rec = torch.nn.functional.pad(rec, (0, 0, 0, pad))
-    return rec
-
-
 def make_global_tables(hashes_T: torch.Tensor, sketches: torch.Tensor,
                        assignment: torch.Tensor, pad_to: int = 1):
     """Hash-sorted global tables + [id, sketch words, cluster] records.
@@ -368,17 +365,29 @@ def make_global_tables(hashes_T: torch.Tensor, sketches: torch.Tensor,
     zero records so the blocked query gather can view it as
     (L, n_pad / G, G * R) rows. Returns (g_sorted_hash (L, n) int32,
     g_records (L, n_pad, 2 + W) int32).
+
+    Tables are sorted and gathered in blocks (prefixmap.table_blocks), each
+    written straight into the preallocated, already padded outputs; every
+    block size gives the same bits.
     """
-    L = hashes_T.shape[0]
-    S = sketches.shape[1]
-    g_hash, order = torch.sort(hashes_T, dim=1, stable=True)
-    sk_idx = (torch.arange(L, device=order.device) % S)[:, None]
-    g_records = torch.cat([
-        order.to(torch.int32)[:, :, None],
-        sketches[order, sk_idx, :],
-        assignment.to(torch.int32)[order][:, :, None],
-    ], dim=2)
-    return g_hash, _pad_slots(g_records, pad_to)
+    from clann_tpu_torch.metrics.trace import TRACER
+
+    L, n = hashes_T.shape
+    S, W = sketches.shape[1:]
+    dev = hashes_T.device
+    n_pad = n + (-n) % pad_to
+    g_hash = torch.empty_like(hashes_T)
+    g_records = torch.empty((L, n_pad, 2 + W), dtype=torch.int32, device=dev)
+    g_records[:, n:] = 0
+    sk_idx = (torch.arange(L, device=dev) % S)[:, None]
+    for b in table_blocks(L):
+        with TRACER.span("build/table_block", block_on=dev):
+            g_hash[b], order = torch.sort(hashes_T[b], dim=1, stable=True)
+            rec = g_records[b, :n]
+            rec[:, :, 0] = order
+            rec[:, :, 1:1 + W] = sketches[order, sk_idx[b], :]
+            rec[:, :, 1 + W] = assignment[order]
+    return g_hash, g_records
 
 
 def unsort_hashes(sorted_hash: torch.Tensor, sorted_idx: torch.Tensor, n: int = None):
@@ -392,22 +401,38 @@ def unsort_hashes(sorted_hash: torch.Tensor, sorted_idx: torch.Tensor, n: int = 
 def make_slot_records(sorted_idx: torch.Tensor, sketches: torch.Tensor,
                       pad_to: int = 1) -> torch.Tensor:
     """[id, sketch words] per (table, slot); table t carries sketch t % S
-    (collection.hpp:826); `pad_to` pads the slot axis as in
-    make_global_tables."""
-    L = sorted_idx.shape[0]
-    S = sketches.shape[1]
-    sk_idx = (torch.arange(L, device=sorted_idx.device) % S)[:, None]
-    rec = torch.cat([sorted_idx[:, :, None],
-                     sketches[sorted_idx.to(torch.int64), sk_idx, :]], dim=2)
-    return _pad_slots(rec, pad_to)
+    (collection.hpp:826); `pad_to` pads the slot axis with zero records as
+    in make_global_tables."""
+    L, n = sorted_idx.shape
+    S, W = sketches.shape[1:]
+    dev = sorted_idx.device
+    rec = torch.zeros((L, n + (-n) % pad_to, 1 + W), dtype=torch.int32, device=dev)
+    sk_idx = (torch.arange(L, device=dev) % S)[:, None]
+    rec[:, :n, 0] = sorted_idx
+    rec[:, :n, 1:] = sketches[sorted_idx.to(torch.int64), sk_idx, :]
+    return rec
 
 
-def _hash_in_blocks(fn, x: torch.Tensor, block: int) -> torch.Tensor:
-    """fn over point blocks of `block` rows, concatenated: bounds the
-    (num_functions, block, padded_dim) floats of cross-polytope hashing."""
-    if x.shape[0] <= block:
-        return fn(x)
-    return torch.cat([fn(x[s : s + block]) for s in range(0, x.shape[0], block)], dim=0)
+def _hash_in_blocks(fn, x: torch.Tensor, block: int, transpose: bool = False) -> torch.Tensor:
+    """fn over point blocks of `block` rows, each written into one
+    preallocated output: (n, ...), or with `transpose` the (L, n) transpose
+    of fn's (rows, L) output. Bounds the (num_functions, block,
+    padded_dim) floats of cross-polytope hashing, and holds no second copy
+    of the output."""
+    n = x.shape[0]
+    out = None
+    for s in range(0, n, block):
+        part = fn(x[s:s + block])
+        if transpose:
+            part = part.T
+        if out is None:
+            shape = (part.shape[0], n) if transpose else (n, *part.shape[1:])
+            out = torch.empty(shape, dtype=part.dtype, device=part.device)
+        if transpose:
+            out[:, s:s + block] = part
+        else:
+            out[s:s + block] = part
+    return out
 
 
 def _generators(seed: int):
@@ -436,7 +461,9 @@ def build_index(
     2. Cluster bookkeeping: radii, brute-force flags (index.rs:204-205).
     3. One hashing pass over all points for the L tables.
     4. One sketching pass.
-    5. Per-table segmented sort, prefix directory, global tables.
+    5. Per-table segmented sort, prefix directory, global tables, in
+       blocks of tables (prefixmap.table_blocks); every block size builds
+       the same index, bit for bit.
     """
     if isinstance(data, torch.Tensor):
         x = data
@@ -483,13 +510,13 @@ def build_index(
         g_sketch, xn.device)
     # (reference timer nodes Hashing/Sketching, performance.hpp:15-27)
     with TRACER.span("build/hashing", block_on=xn.device):
-        hashes = _hash_in_blocks(source.hash, xn, hash_block)  # (n, L) int32
+        hashes_T = _hash_in_blocks(source.hash, xn, hash_block, transpose=True)  # (L, n)
     with TRACER.span("build/sketching", block_on=xn.device):
         sketches = _hash_in_blocks(filterer.sketch, xn, hash_block)
 
     # one host sync for the integer bookkeeping
     return _assemble_index(
-        xn, hashes.T.contiguous(), sketches, assignment.cpu().numpy(),
+        xn, hashes_T, sketches, assignment.cpu().numpy(),
         centers_idx.cpu().numpy(), radii, config, metric,
         hash_params=source.params, sketch_params=filterer.params, family=family,
     )
@@ -646,11 +673,13 @@ def rebuild(index: ClusteredIndex, hash_block: int = 8192) -> ClusteredIndex:
         return index
     source, filterer = index.rebuild_objects()
     new_x = index.vectors[n_idx:]
-    h_new = _hash_in_blocks(source.hash, new_x, hash_block)  # (p, L)
+    # the old points' hashes unsorted into the first n_idx columns, the
+    # pending points' written after them
+    hashes_T = unsort_hashes(index.sorted_hash, index.sorted_idx, n=n)
+    hashes_T[:, n_idx:] = _hash_in_blocks(source.hash, new_x, hash_block, transpose=True)
     sk_new = _hash_in_blocks(filterer.sketch, new_x, hash_block)
-    old_T = unsort_hashes(index.sorted_hash, index.sorted_idx, n=n_idx)
     return _assemble_index(
-        index.vectors, torch.cat([old_T, h_new.T], dim=1),
+        index.vectors, hashes_T,
         torch.cat([index.sketches, sk_new]), index.assignment.cpu().numpy(),
         index.center_ids.cpu().numpy(), index.radii, index.config, index.metric,
         hash_params=index.hash_params, sketch_params=index.sketch_params,

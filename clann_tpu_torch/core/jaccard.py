@@ -527,12 +527,13 @@ def _jaccard_run_loop(index: JaccardIndex, streams: dict, delta, *, k: int, chun
              streams["total"] <= 0, z, z.clone(), z.clone())
     G = max(1, index.config.gather_block)
     tb = streams["smap"].shape[1] if "smap" in streams else 0
-    state, iters, syncs = _advance(cond, body, state, tb=tb,
-                                   wb=max(1, (chunk * filter_expand) // G))
+    state, iters, syncs, unmapped = _advance(cond, body, state, tb=tb,
+                                             wb=max(1, (chunk * filter_expand) // G))
     if loop_stats is not None:
         loop_stats.batches += 1
         loop_stats.iterations += iters
         loop_stats.syncs += syncs
+        loop_stats.unmapped_iterations += unmapped
     topk_sims, topk_ids, _, _, dc, cand_ct = state
     if "feas_bound" in streams:
         kth_dist = torch.where(topk_ids[:, k - 1] >= 0, 1.0 - topk_sims[:, k - 1], torch.inf)

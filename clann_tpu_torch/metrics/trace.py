@@ -48,13 +48,20 @@ class LoopStats:
     descend and lane done-flag pulls; the results pull of each batch is
     not counted), and the window-filter kernel's launches (the cosine
     global engine's bodies on a card, one an iteration; ops/window_filter).
-    The sharded engine counts each shard's loop as a batch."""
+    The global and Jaccard engines also count the iterations whose window
+    was derived in the loop (`derived_window`: a live cursor past the
+    batch's stream map, or no map), and the global engines the valid
+    window lanes their filter examined (the sum of SearchStats.candidates,
+    added where a batch's stats reach the host). The sharded engine counts
+    each shard's loop as a batch."""
 
     batches: int = 0
     outer_steps: int = 0
     iterations: int = 0
     syncs: int = 0
     filter_launches: int = 0
+    unmapped_iterations: int = 0
+    lanes: int = 0
 
     def add(self, other: "LoopStats") -> None:
         for f in dataclasses.fields(self):

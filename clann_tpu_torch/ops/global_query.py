@@ -307,8 +307,8 @@ def _advance(cond, body, state, *, tb: int, wb: int, max_iters: Optional[int] = 
     SYNC_EVERY steps; a step may read the stream map where every live
     cursor + its WB blocks still fit it. Steps past the last live query
     change nothing (frozen cursors, no valid lane). Returns (state,
-    iterations, host syncs)."""
-    iters = syncs = 0
+    iterations, host syncs, iterations without the map)."""
+    iters = syncs = unmapped = 0
     while max_iters is None or iters < max_iters:
         qdone, off = state[2], state[3]
         with TRACER.span("engine/read"):  # the one host sync per SYNC_EVERY steps
@@ -322,10 +322,12 @@ def _advance(cond, body, state, *, tb: int, wb: int, max_iters: Optional[int] = 
         steps = SYNC_EVERY if max_iters is None else min(SYNC_EVERY, max_iters - iters)
         for j in range(steps):
             # cursors move at most WB blocks per step
+            use_map = tb > 0 and live_max + (j + 1) * wb <= tb
             with TRACER.span("engine/body"):
-                state = body(state, tb > 0 and live_max + (j + 1) * wb <= tb)
+                state = body(state, use_map)
             iters += 1
-    return state, iters, syncs
+            unmapped += not use_map
+    return state, iters, syncs, unmapped
 
 
 def _run_loop(index, streams, delta, *, k, chunk, min_depth, filter_type,
@@ -339,12 +341,13 @@ def _run_loop(index, streams, delta, *, k, chunk, min_depth, filter_type,
     G = max(1, index.config.gather_block)
     tb = streams["smap"].shape[1] if "smap" in streams else 0
     state = _init_state(Q, _buffer_depth(index, k), streams["total"])
-    state, iters, syncs = _advance(cond, body, state, tb=tb,
-                                   wb=max(1, (chunk * filter_expand) // G))
+    state, iters, syncs, unmapped = _advance(cond, body, state, tb=tb,
+                                             wb=max(1, (chunk * filter_expand) // G))
     if loop_stats is not None:
         loop_stats.batches += 1
         loop_stats.iterations += iters
         loop_stats.syncs += syncs
+        loop_stats.unmapped_iterations += unmapped
     with TRACER.span("engine/finalize"):
         return _finalize(index, streams, state, k=k)
 
@@ -424,6 +427,13 @@ def global_search_batch_mapped(index, queries_n, query_hashes, query_sketches, d
                      loop_stats=loop_stats)
 
 
+def count_lanes(loop_stats: Optional[LoopStats], stats: SearchStats) -> None:
+    """Add the host stats' valid window lanes (SearchStats.candidates) to
+    `loop_stats`, where there is one."""
+    if loop_stats is not None:
+        loop_stats.lanes += int(np.asarray(stats.candidates).sum(dtype=np.int64))
+
+
 def difficulty(index, query_hashes, *, d_entry: int, min_depth: int) -> torch.Tensor:
     """Per-query total stream length (in slots), the batch-cost driver.
 
@@ -500,6 +510,7 @@ def global_search(
         )
 
     sims, ids, stats = batched_query_driver(qn, batch_size, run_block)
+    count_lanes(loop_stats, stats)
     if perm is not None:
         inv = np.empty_like(perm)
         inv[perm] = np.arange(len(perm))
@@ -529,14 +540,15 @@ def _global_step_packed(index, streams_all: dict, state_all: tuple, active: torc
     )
     G = max(1, index.config.gather_block)
     tb = lane_streams["smap"].shape[1] if "smap" in lane_streams else 0
-    lane_state, iters, syncs = _advance(cond, body, lane_state, tb=tb,
-                                        wb=max(1, (chunk * filter_expand) // G),
-                                        max_iters=max_iters)
+    lane_state, iters, syncs, unmapped = _advance(cond, body, lane_state, tb=tb,
+                                                  wb=max(1, (chunk * filter_expand) // G),
+                                                  max_iters=max_iters)
     for full, lane in zip(state_all, lane_state):
         full[active] = lane
     if loop_stats is not None:
         loop_stats.outer_steps += 1
         loop_stats.iterations += iters
+        loop_stats.unmapped_iterations += unmapped
         loop_stats.syncs += syncs
     return state_all, lane_state[2]
 
@@ -645,6 +657,7 @@ def global_search_continuous(
     sims, ids, st = _finalize(index, streams_all, state_all, k=k)
     sims, ids = sims.cpu().numpy(), ids.cpu().numpy()
     st = SearchStats(*(f.cpu().numpy() for f in st))
+    count_lanes(stats, st)
     dists = 2.0 * (1.0 - sims)
     dists = np.where(ids < 0, np.inf, dists)
     return dists, ids, st

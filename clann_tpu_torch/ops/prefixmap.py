@@ -40,6 +40,19 @@ from clann_tpu_torch.ops.sketches import to_int32_bits
 _U32 = 0xFFFFFFFF
 
 
+# tables a blocked table pass (the segmented sort, the global tables, the
+# prefix directory) handles at once, so that its transients are this many
+# tables' keys, orders and gathered records whatever the index's L; a
+# table's result depends on no other table, so every block size gives the
+# same bits
+TABLE_BLOCK = 8
+
+
+def table_blocks(num_tables: int):
+    """Slices of TABLE_BLOCK tables covering the L tables, in order."""
+    return [slice(t0, t0 + TABLE_BLOCK) for t0 in range(0, num_tables, TABLE_BLOCK)]
+
+
 def sort_tables_segmented(
     hashes: torch.Tensor, cluster_of_point: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -50,11 +63,24 @@ def sort_tables_segmented(
     (cluster, hash) keys keep ascending point ids (a stable sort); the JAX
     package's `lax.sort` is unstable, so the order inside such runs may
     differ between the packages while the runs themselves agree.
+
+    Tables are sorted in blocks (`table_blocks`), each straight into the
+    preallocated outputs; a table's stable sort depends on no other table,
+    so every block size gives the same bits.
     """
-    key = (cluster_of_point.to(torch.int64)[None, :] << 32) | (
-        hashes.to(torch.int64) & _U32)
-    _, order = torch.sort(key, dim=1, stable=True)
-    return torch.gather(hashes, 1, order), order.to(torch.int32)
+    from clann_tpu_torch.metrics.trace import TRACER
+
+    L, n = hashes.shape
+    cluster_key = cluster_of_point.to(torch.int64)[None, :] << 32
+    sorted_hash = torch.empty_like(hashes)
+    sorted_idx = torch.empty((L, n), dtype=torch.int32, device=hashes.device)
+    for b in table_blocks(L):
+        with TRACER.span("build/table_block", block_on=hashes.device):
+            h = hashes[b]
+            _, order = torch.sort(cluster_key | (h.to(torch.int64) & _U32), dim=1, stable=True)
+            sorted_hash[b] = torch.gather(h, 1, order)
+            sorted_idx[b] = order
+    return sorted_hash, sorted_idx
 
 
 def masked_binary_search(
@@ -96,7 +122,7 @@ def build_prefix_directory(
     dir_bits: int,
     n_iters: int,
     max_hashbits: int = 24,
-    table_block: int = 8,
+    table_block: int = TABLE_BLOCK,
 ) -> torch.Tensor:
     """Per-(table, cluster) prefix directory seeding later binary searches.
 

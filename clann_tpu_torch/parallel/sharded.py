@@ -441,10 +441,9 @@ def build_sharded(data, config: Config, mesh=None, metric: str = "angular") -> S
         cen = torch.zeros((C_max, d), dtype=torch.float32, device=dev)
         cen[:n_cl] = l2_normalize(torch.as_tensor(x[center_ids[s, :n_cl]], device=dev))
         cl = torch.as_tensor(clus_local[s], device=dev)
-        hashes = _hash_in_blocks(src.hash, xl, 8192)  # (n_max, L)
+        hashes_T = _hash_in_blocks(src.hash, xl, 8192, transpose=True)  # (L, n_max)
+        hashes_T[:, n_loc:] = PAD_HASH
         sk = _hash_in_blocks(flt.sketch, xl, 8192)  # (n_max, S, W)
-        pad = torch.arange(n_max, device=dev) >= n_loc
-        hashes_T = torch.where(pad[None, :], PAD_HASH, hashes.T).contiguous()
         out = {"vectors": xl, "centers": cen, "sketches": sk}
         out["sorted_hash"], out["sorted_idx"] = sort_tables_segmented(hashes_T, cl)
         if build_global:
@@ -725,9 +724,14 @@ def sharded_global_search(
     """Full point-sharded global-engine search: numpy (distances ascending
     (Q, k), global ids, stats). `loop_stats` accumulates the shards' loop
     counts (the tracer's own while it is active and the caller passes
-    none)."""
-    return _search(sharded_global_search_batch, sharded, queries, k, delta, mesh,
-                   loop_stats=TRACER.loop_stats(loop_stats))
+    none), the valid window lanes of every shard included."""
+    from clann_tpu_torch.ops.global_query import count_lanes
+
+    loop_stats = TRACER.loop_stats(loop_stats)
+    out = _search(sharded_global_search_batch, sharded, queries, k, delta, mesh,
+                  loop_stats=loop_stats)
+    count_lanes(loop_stats, out[2])
+    return out
 
 
 def sharded_search(

@@ -208,6 +208,10 @@ def _run_pairs(h, ids):
 
 
 def test_sort_tables_segmented_matches_jax(jidx):
+    _check_sorted_tables(jidx)
+
+
+def _check_sorted_tables(jidx):
     hashes_T = _i32(jindex.unsort_hashes(jidx.sorted_hash, jidx.sorted_idx))
     th, ti = tpm.sort_tables_segmented(hashes_T, _i32(jidx.assignment))
     np.testing.assert_array_equal(_u32(th), np.asarray(jidx.sorted_hash))
@@ -358,6 +362,18 @@ def test_stream_map_lane_masks_at_32_lanes():
 # --- global tables, slot records, build_index -----------------------------
 
 def test_global_tables_match_jax(jidx):
+    _check_global_tables(jidx)
+
+
+@pytest.mark.parametrize("table_block", [1, 3])
+def test_blocked_tables_match_jax(jidx, table_block, monkeypatch):
+    """The build's table passes in blocks of tables (the last one short)."""
+    monkeypatch.setattr(tpm, "TABLE_BLOCK", table_block)
+    _check_sorted_tables(jidx)
+    _check_global_tables(jidx)
+
+
+def _check_global_tables(jidx):
     hashes_T = jindex.unsort_hashes(jidx.sorted_hash, jidx.sorted_idx)
     th, trec = tindex.make_global_tables(_i32(hashes_T), _i32(jidx.sketches),
                                          _i32(jidx.assignment), pad_to=8)

@@ -157,10 +157,10 @@ def test_marked_threads_are_active():
 
 
 def test_loop_stats_add():
-    a, b = LoopStats(1, 2, 3, 4, 5), LoopStats(10, 20, 30, 40, 50)
+    a, b = LoopStats(1, 2, 3, 4, 5, 6, 7), LoopStats(10, 20, 30, 40, 50, 60, 70)
     a.add(b)
-    assert a == LoopStats(11, 22, 33, 44, 55) and tq.LoopStats is LoopStats
-    assert a.filter_launches == 55
+    assert a == LoopStats(11, 22, 33, 44, 55, 66, 77) and tq.LoopStats is LoopStats
+    assert (a.filter_launches, a.unmapped_iterations, a.lanes) == (55, 66, 77)
 
 
 @pytest.fixture(scope="module")
@@ -222,10 +222,12 @@ def test_sharded_engine_sums_its_shards(world, monkeypatch):
     total = LoopStats()
     want = tsh.sharded_global_search(sharded, q, mesh=mesh, loop_stats=total)
     assert len(per_shard) == 4 and len({id(s) for s in per_shard}) == 4
-    summed = LoopStats()
+    # the shards' loops; the lanes once, from the merged stats on the host
+    summed = LoopStats(lanes=int(want[2].candidates.sum()))
     for s in per_shard:
         summed.add(s)
     assert total == summed and total.batches == 4 and total.iterations > 0
+    assert total.lanes > 0
     # under a profiler, into the tracer's own counters; the workers' spans too
     tracer = Tracer(enabled=False)
     for mod in (trace, tgq, tsh, tmesh):
