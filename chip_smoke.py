@@ -1664,11 +1664,15 @@ def phase_window_filter(card):
 
 def phase_window_filter_path(handle, test, card):
     """[window-filter] the main path: global_search on the lsh queries at
-    delta 0.95 through the kernel, then through its plain version (the
-    engine's former chain, K7 for the records): distances, ids and every
-    stat identical, the launches of each, QPS of both in turns; then the
-    kernel, its plain version and K7 alone timed on the windows of one
-    256-query batch's loop."""
+    delta 0.95, its loop bodies issued op by op, through the kernel, then
+    through its plain version (the engine's former chain, K7 for the
+    records): distances, ids and every stat identical, the launches of
+    each; then with its bodies replayed from CUDA graphs, as global_search
+    runs: identical to the eager body, its replays and captures; QPS of
+    the three in turns; then the kernel, its plain version and K7 alone
+    timed on the windows of one 256-query batch's loop."""
+    import dataclasses
+
     import numpy as np
 
     from clann_tpu_torch.ops import gather as tg
@@ -1676,17 +1680,22 @@ def phase_window_filter_path(handle, test, card):
     from clann_tpu_torch.ops import window_filter as twf
 
     idx, q, delta = handle.index, test[:LSH_QUERIES], LSH_DELTAS[0]
-    kernel_filter = tgq.window_filter
+    kernel_filter, graphed = tgq.window_filter, tgq.global_search_batch_graphed
 
     def plain_filter(*a, cap, **kw):
         return twf.window_filter_plain(*a, cap=min(cap, kw["wb"] * kw["gather_block"]), **kw)
 
     def search(fn, ls=None, queries=q):
+        """The eager body, through the window filter `fn`."""
         tgq.window_filter = fn
+        tgq.global_search_batch_graphed = tgq.global_search_batch_mapped
         try:
             return tgq.global_search(idx, queries, delta=delta, loop_stats=ls)
         finally:
-            tgq.window_filter = kernel_filter
+            tgq.window_filter, tgq.global_search_batch_graphed = kernel_filter, graphed
+
+    def replayed(ls=None):
+        return tgq.global_search(idx, q, delta=delta, loop_stats=ls)
 
     res, launches = {}, {}
     for name, fn in (("kernel", kernel_filter), ("plain", plain_filter)):
@@ -1700,19 +1709,40 @@ def phase_window_filter_path(handle, test, card):
     same = (np.array_equal(kd, pd) and np.array_equal(ki, pi)
             and all(np.array_equal(a, b) for a, b in zip(kst, pst)))
     wf, k7, ls = launches["kernel"]
+
+    # as global_search runs: the bodies replayed from graphs captured at the
+    # first batch (the index's graphs dropped first, so this call captures)
+    idx.body_graphs = None
+    gls = tgq.LoopStats()
+    twf.reset_launches()
+    gd, gi, gst = replayed(gls)
+    sync()
+    g_wf, graphs = twf.FILTER_LAUNCHES, idx.body_graphs
+    g_same = (np.array_equal(gd, kd) and np.array_equal(gi, ki)
+              and all(np.array_equal(a, b) for a, b in zip(gst, kst)))
+    g_counts = dataclasses.replace(gls, graph_replays=0) == ls
     rates = {}
-    for name, fn in (("plain", plain_filter), ("kernel", kernel_filter),
-                     ("kernel", kernel_filter), ("plain", plain_filter)):
-        rates.setdefault(name, []).append(qps(lambda: search(fn), reps=3,
-                                              n_queries=LSH_QUERIES)[0])
-    log(f"[window-filter] global_search delta={delta}, {LSH_QUERIES} queries: through the "
-        f"kernel and through its plain version (the former chain): distances, ids and stats "
-        f"identical {same}; dc/query {float(np.mean(kst.distance_computations)):.1f}; kernel "
-        f"path: window filter launches {wf} (LoopStats.filter_launches {ls.filter_launches}, "
-        f"iterations {ls.iterations}), K7 launches {k7}; plain path: window filter launches "
-        f"{launches['plain'][0]}, K7 launches {launches['plain'][1]}; QPS (median of 3, in "
-        f"turns plain, kernel, kernel, plain): kernel {', '.join(f'{r:.1f}' for r in rates['kernel'])}"
-        f", plain {', '.join(f'{r:.1f}' for r in rates['plain'])} on {card}")
+    for name, fn in (("plain", lambda: search(plain_filter)), ("kernel", lambda: search(kernel_filter)),
+                     ("graph", replayed), ("graph", replayed),
+                     ("kernel", lambda: search(kernel_filter)), ("plain", lambda: search(plain_filter))):
+        rates.setdefault(name, []).append(qps(fn, reps=3, n_queries=LSH_QUERIES)[0])
+    log(f"[window-filter] global_search delta={delta}, {LSH_QUERIES} queries, bodies issued "
+        f"op by op: through the kernel and through its plain version (the former chain): "
+        f"distances, ids and stats identical {same}; dc/query "
+        f"{float(np.mean(kst.distance_computations)):.1f}; kernel path: window filter launches "
+        f"{wf} (LoopStats.filter_launches {ls.filter_launches}, iterations {ls.iterations}), K7 "
+        f"launches {k7}; plain path: window filter launches {launches['plain'][0]}, K7 launches "
+        f"{launches['plain'][1]} on {card}")
+    log(f"[window-filter] the main path, bodies replayed from CUDA graphs: {gls.graph_replays} "
+        f"replays over {gls.iterations} iterations, {graphs.captures} graphs captured (one a "
+        f"body form; the cache's key: {graphs.key}); distances, ids and stats identical to the "
+        f"eager body {g_same}, loop counters {g_counts} (iterations {gls.iterations}, reads "
+        f"{gls.syncs}, unmapped {gls.unmapped_iterations}, filter launches {gls.filter_launches}; "
+        f"on the card {g_wf}, the captures' warm-up bodies included) on {card}")
+    log(f"[window-filter] QPS (median of 3, in turns plain, kernel, graph, graph, kernel, "
+        f"plain): graph {', '.join(f'{r:.1f}' for r in rates['graph'])}, kernel "
+        f"{', '.join(f'{r:.1f}' for r in rates['kernel'])}, plain "
+        f"{', '.join(f'{r:.1f}' for r in rates['plain'])} on {card}")
     if not same:
         fail("[window-filter] global_search through the kernel differs from its plain version")
     if (wf < 1 or k7 or wf != ls.filter_launches or wf != ls.iterations
@@ -1720,6 +1750,11 @@ def phase_window_filter_path(handle, test, card):
         fail(f"[window-filter] the main path launched the window filter {wf} times and K7 "
              f"{k7} times over {ls.iterations} iterations; LoopStats counted "
              f"{ls.filter_launches} (plain path: {launches['plain'][2].filter_launches})")
+    if not (g_same and g_counts and gls.graph_replays == gls.iterations and graphs.captures
+            and g_wf == gls.filter_launches + graphs.captures):
+        fail(f"[window-filter] the replayed main path differs from the eager body (results "
+             f"{g_same}, counters {g_counts}), or replayed {gls.graph_replays} of "
+             f"{gls.iterations} bodies with {graphs.captures} captures and {g_wf} launches")
 
     calls = []
 

@@ -179,6 +179,10 @@ class ClusteredIndex:
     pallas_base_cache: Dict = dataclasses.field(default_factory=dict, repr=False)
     # ops/block_scan.get_block_layout's BlockLayouts, by block_n (derived)
     block_layout_cache: Dict = dataclasses.field(default_factory=dict, repr=False)
+    # ops/global_query's captured loop bodies (derived): a class attribute
+    # and not a field, so that each copy made by `replace`, `insert` or
+    # `rebuild` starts without
+    body_graphs = None
 
     def replace(self, **changes):
         """A copy with `changes` to its fields (flax's struct.dataclass
@@ -627,7 +631,8 @@ def insert(index: ClusteredIndex, points) -> ClusteredIndex:
     Centers never move. Until `rebuild` the new points are pending
     (`num_pending`): in `vectors` (and `vectors_q8`) for the dense scans,
     not in the tables or the dense IVF layout. The returned index has
-    caches of its own; `index` is left as it was.
+    caches of its own; `index` is left as it was, less its captured loop
+    bodies (`body_graphs`), which it captures again if searched.
     """
     if isinstance(points, torch.Tensor):
         x = points.to(torch.float32)
@@ -648,6 +653,7 @@ def insert(index: ClusteredIndex, points) -> ClusteredIndex:
     dist_new, assign_new = torch.min(cdist, dim=1)
     radii = index.radii.clone().scatter_reduce_(0, assign_new, dist_new, "amax",
                                                 include_self=True)
+    index.body_graphs = None
     return dataclasses.replace(
         index,
         vectors=torch.cat([index.vectors, xn_new]),
@@ -666,7 +672,8 @@ def rebuild(index: ClusteredIndex, hash_block: int = 8192) -> ClusteredIndex:
     Only the pending rows are hashed and sketched, with the index's stored
     functions, so the older points keep their exact hashes; the sorts and
     every derived layout then cover all points, as the reference rebuilds
-    every PrefixMap (prefixmap.hpp:169-247).
+    every PrefixMap (prefixmap.hpp:169-247). Where there are pending points,
+    `index` drops its captured loop bodies, as `insert` does.
     """
     n, n_idx = index.n, index.num_indexed
     if n_idx >= n:
@@ -678,6 +685,7 @@ def rebuild(index: ClusteredIndex, hash_block: int = 8192) -> ClusteredIndex:
     hashes_T = unsort_hashes(index.sorted_hash, index.sorted_idx, n=n)
     hashes_T[:, n_idx:] = _hash_in_blocks(source.hash, new_x, hash_block, transpose=True)
     sk_new = _hash_in_blocks(filterer.sketch, new_x, hash_block)
+    index.body_graphs = None
     return _assemble_index(
         index.vectors, hashes_T,
         torch.cat([index.sketches, sk_new]), index.assignment.cpu().numpy(),

@@ -48,6 +48,9 @@ class LoopStats:
     descend and lane done-flag pulls; the results pull of each batch is
     not counted), and the window-filter kernel's launches (the cosine
     global engine's bodies on a card, one an iteration; ops/window_filter).
+    `graph_replays` counts the bodies run as a replay of a captured CUDA
+    graph (the batched cosine global engine on one card, whose replays
+    also count their window-filter launches; ops/global_query._BodyGraphs).
     The global and Jaccard engines also count the iterations whose window
     was derived in the loop (`derived_window`: a live cursor past the
     batch's stream map, or no map), and the global engines the valid
@@ -62,6 +65,7 @@ class LoopStats:
     filter_launches: int = 0
     unmapped_iterations: int = 0
     lanes: int = 0
+    graph_replays: int = 0
 
     def add(self, other: "LoopStats") -> None:
         for f in dataclasses.fields(self):

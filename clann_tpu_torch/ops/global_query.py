@@ -23,6 +23,11 @@ What changes from the JAX engine, none of it in the results:
   the last sync the loop knows on the host, for each of the next steps,
   whether every live cursor still fits the map; where it might not, it
   takes the in-loop derivation, which gives the same values.
+- `global_search`'s batches on a card replay each loop body from a CUDA
+  graph captured over persistent buffers (`_BodyGraphs`, one graph a body
+  form) instead of issuing its ~80 small ops one by one; the same kernels
+  on the same inputs, so the same results. The sharded and continuous
+  loops, the Jaccard engine and CPU tensors issue the body op by op.
 - The window's record gather (JAX's `rec_view[t_sel, blk]`,
   global_query.py:284), its sketch and ball filters and the take run as one
   kernel, the window filter (`ops.window_filter`, csrc/window_filter.cu),
@@ -41,6 +46,7 @@ the int8 error bound, and `_finalize` re-scores the buffer in f32.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -68,6 +74,7 @@ from clann_tpu_torch.ops.query import (
     sims_to_dists,
 )
 from clann_tpu_torch.ops.window_filter import (
+    count_launches,
     fetch_records,
     pack_window,
     window_entries,
@@ -149,6 +156,16 @@ def _init_state(Q: int, kk: int, total: torch.Tensor) -> tuple:
         total <= 0,
         z, z.clone(), z.clone(),
     )
+
+
+def _reset_state(state: tuple, total: torch.Tensor) -> None:
+    """`_init_state`'s values, written into `state` in place."""
+    topk_sims, topk_ids, qdone, off, dc, cand_ct = state
+    topk_sims.zero_()
+    topk_ids.fill_(-1)
+    torch.le(total, 0, out=qdone)
+    for t in (off, dc, cand_ct):
+        t.zero_()
 
 
 def _record_window(streams: dict, records: torch.Tensor, *, gather_block: int, wb: int,
@@ -331,16 +348,21 @@ def _advance(cond, body, state, *, tb: int, wb: int, max_iters: Optional[int] = 
 
 
 def _run_loop(index, streams, delta, *, k, chunk, min_depth, filter_type,
-              filter_expand, loop_stats: Optional[LoopStats] = None):
-    """The adaptive loop + finalize over prepared (possibly mapped) streams."""
+              filter_expand, loop_stats: Optional[LoopStats] = None,
+              graphs: Optional["_BodyGraphs"] = None):
+    """The adaptive loop + finalize over prepared (possibly mapped) streams;
+    with `graphs` (loaded with those streams) each body is a graph replay."""
     Q = streams["qn"].shape[0]
-    cond, body = _loop_pieces(
-        index, streams, delta, k=k, chunk=chunk, min_depth=min_depth,
-        filter_type=filter_type, filter_expand=filter_expand, loop_stats=loop_stats,
-    )
+    if graphs is None:
+        cond, body = _loop_pieces(
+            index, streams, delta, k=k, chunk=chunk, min_depth=min_depth,
+            filter_type=filter_type, filter_expand=filter_expand, loop_stats=loop_stats,
+        )
+        state = _init_state(Q, _buffer_depth(index, k), streams["total"])
+    else:
+        cond, body, state = graphs.cond, graphs.replayer(loop_stats), graphs.state
     G = max(1, index.config.gather_block)
     tb = streams["smap"].shape[1] if "smap" in streams else 0
-    state = _init_state(Q, _buffer_depth(index, k), streams["total"])
     state, iters, syncs, unmapped = _advance(cond, body, state, tb=tb,
                                              wb=max(1, (chunk * filter_expand) // G))
     if loop_stats is not None:
@@ -382,18 +404,18 @@ def _attach_stream_map(streams: dict, *, g: int, L: int, tb: int) -> dict:
     return {**streams, "smap": smap}
 
 
-def _map_tb(total_max: int, cap: int, wb: int, q: int) -> int:
+def _map_tb(total_max: Optional[int], cap: int, wb: int, q: int) -> int:
     """Position count (map depth) of a batch's stream maps: pow2-rounded
     past the batch's deepest stream, capped by `cap`
     (config.stream_map_blocks) and by a ~512 MB map footprint (12 bytes
     per (query, position)), floored by the window width `wb`. JAX's sizing
-    rule verbatim; every cap is a performance choice, not a correctness one."""
-    tb = max(1024, 1 << int(max(0, total_max)).bit_length())
-    tb = min(tb, max(1024, cap))
+    rule verbatim; every cap is a performance choice, not a correctness one.
+    With total_max None: the deepest map of any batch of q queries."""
     mem_cap = (512 << 20) // (12 * max(1, q))
-    tb = min(tb, 1 << max(0, int(mem_cap).bit_length() - 1))
-    tb = max(tb, 1 << max(0, wb - 1).bit_length())
-    return tb
+    tb = min(max(1024, cap), 1 << max(0, int(mem_cap).bit_length() - 1))
+    if total_max is not None:
+        tb = min(tb, max(1024, 1 << int(max(0, total_max)).bit_length()))
+    return max(tb, 1 << max(0, wb - 1).bit_length())
 
 
 def global_search_batch_mapped(index, queries_n, query_hashes, query_sketches, delta, *,
@@ -425,6 +447,172 @@ def global_search_batch_mapped(index, queries_n, query_hashes, query_sketches, d
     return _run_loop(index, streams, delta, k=k, chunk=chunk, min_depth=min_depth,
                      filter_type=filter_type, filter_expand=filter_expand,
                      loop_stats=loop_stats)
+
+
+# Bytes of the graphed path's stream map built at once: each slice of rows
+# holds (rows, tb) int64 intermediates, several times its part of the map.
+_MAP_SLICE_BYTES = 128 << 20
+
+
+class _BodyGraphs:
+    """The batched loop's body as CUDA graphs, one for each form
+    (`use_map`), captured over persistent operands and replayed in place
+    of issuing the body's ~80 small ops one by one.
+
+    The graphs read a batch's streams from `streams`, the stream map from
+    a buffer as deep as any batch of this shape can need, and the loop
+    state from `state`, and leave the next state in `state`. A batch
+    writes its streams into the buffers and resets the state (`load`),
+    then replays: the same kernels on the same inputs as the eager body,
+    so the results are the eager body's, bit for bit. A map shallower
+    than its buffer reuses the graphs: a step reads the map only where
+    every live cursor's window ends within the batch's depth (`_advance`),
+    and there the window filter, which starts at clamp(off, 0, P - WB),
+    reads the same entries at either depth; done queries read none.
+    Replays of one object run one batch at a time (`lock`)."""
+
+    def __init__(self, key: tuple):
+        self.key = key
+        self.lock = threading.Lock()
+        self.streams = self.state = self.cond = self._body = self._pool = None
+        self.graphs = {}  # use_map -> torch.cuda.CUDAGraph
+        self.launches = {}  # use_map -> window-filter launches a replay makes
+        self.captures = 0
+
+    def load(self, index, streams: dict, depth: int, delta, **pieces) -> None:
+        """Write a batch's streams into the buffers, made at its first batch
+        (the stream map's at `depth` positions), and reset the state."""
+        if self.streams is None:
+            bufs = {name: torch.empty_like(t) for name, t in streams.items() if name != "total"}
+            bufs["total"] = bufs["fc"][:, -1]
+            Q = bufs["fc"].shape[0]
+            if depth:
+                bufs["smap"] = torch.zeros((Q, depth, 3), dtype=torch.int32,
+                                           device=bufs["fc"].device)
+            self.streams = bufs
+            self.state = _init_state(Q, _buffer_depth(index, pieces["k"]), bufs["total"])
+            self._stats = LoopStats()  # what the captured bodies count
+            # over a twin of the index, which shares its tensors and not this
+            # cache: the graphs do not keep the index alive
+            self.cond, self._body = _loop_pieces(index.replace(), bufs, delta,
+                                                 loop_stats=self._stats, **pieces)
+        for name, t in streams.items():
+            if name != "total":
+                self.streams[name].copy_(t)
+        _reset_state(self.state, self.streams["total"])
+
+    def write_map(self, tb: int, *, g: int, L: int) -> torch.Tensor:
+        """The loaded batch's stream map at depth `tb`, written into the
+        buffer's first tb positions a slice of rows at a time."""
+        s = self.streams
+        smap = s["smap"][:, :tb]
+        Q = smap.shape[0]
+        slices = -(-Q * 12 * tb // _MAP_SLICE_BYTES)
+        rows = -(-Q // slices)
+        for r in range(0, Q, rows):
+            sl = slice(r, r + rows)
+            stream_block_map(s["fc"][sl], s["bstarts"][sl], s["starts"][sl], s["sizes"][sl],
+                             g, L, tb, out=smap[sl])
+        return smap
+
+    def capture(self, forms) -> None:
+        """Capture the graph of each body form in `forms`: a warm-up body on
+        a side stream, then the capture, all forms in one memory pool (they
+        never run at once, and no tensor of one outlives its replay)."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graphs, launches = {}, {}  # kept only once every form is captured
+        with torch.cuda.device(self.state[0].device):
+            for use_map in forms:
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    self._body(self.state, use_map)  # its next state is dropped
+                torch.cuda.current_stream().wait_stream(side)
+                before = self._stats.filter_launches
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=self._pool):
+                    for buf, t in zip(self.state, self._body(self.state, use_map)):
+                        buf.copy_(t)
+                launches[use_map] = self._stats.filter_launches - before
+                graphs[use_map] = graph
+        self.graphs, self.launches = graphs, launches
+        self.captures += len(graphs)
+
+    def replayer(self, loop_stats: Optional[LoopStats]):
+        """body(state, use_map) for `_advance`: a replay of that form's
+        graph, which leaves the next state in `state`, counted into
+        `loop_stats` (its replays and the window-filter launches it makes)."""
+        dev = self.state[0].get_device()
+
+        def body(state, use_map: bool):
+            self.graphs[use_map].replay()
+            count_launches(dev, self.launches[use_map], loop_stats)
+            if loop_stats is not None:
+                loop_stats.graph_replays += 1
+            return state
+
+        return body
+
+
+_GRAPHS_LOCK = threading.Lock()
+
+
+def _graphs_for(index, key: tuple) -> _BodyGraphs:
+    """The index's body graphs for `key`, made empty where it holds
+    another key's (one key's at a time)."""
+    with _GRAPHS_LOCK:
+        graphs = index.body_graphs
+        if graphs is None or graphs.key != key:
+            graphs = index.body_graphs = _BodyGraphs(key)
+        return graphs
+
+
+def global_search_batch_graphed(index, queries_n, query_hashes, query_sketches, delta, *,
+                                k: int, chunk: int, min_depth: int = 1,
+                                filter_type: str = "default", filter_expand: int = 8,
+                                loop_stats: Optional[LoopStats] = None):
+    """global_search_batch_mapped with the loop's bodies replayed from CUDA
+    graphs (`_BodyGraphs`), cached on the index and captured at the first
+    batch of each shape: the batched search on one card. The results are
+    the eager body's, bit for bit, and leave the graphs' buffers. CPU
+    tensors take global_search_batch_mapped."""
+    if not queries_n.is_cuda:
+        return global_search_batch_mapped(
+            index, queries_n, query_hashes, query_sketches, delta, k=k, chunk=chunk,
+            min_depth=min_depth, filter_type=filter_type, filter_expand=filter_expand,
+            loop_stats=loop_stats,
+        )
+    cfg = index.config
+    G = max(1, cfg.gather_block)
+    Q = queries_n.shape[0]
+    wb = max(1, (chunk * filter_expand) // G)
+    mapped = cfg.stream_map and G <= 32
+    depth = _map_tb(None, cfg.stream_map_blocks, wb, Q) if mapped else 0
+    pieces = dict(k=k, chunk=chunk, min_depth=min_depth, filter_type=filter_type,
+                  filter_expand=filter_expand)
+    graphs = _graphs_for(index, (Q, depth, float(delta), index.vectors_q8 is not None,
+                                 *sorted(pieces.items())))
+    with graphs.lock:
+        with TRACER.span("engine/prepare"):
+            streams = _prepare_streams(index, queries_n, query_hashes, query_sketches,
+                                       min_depth=min_depth)
+            graphs.load(index, streams, depth, delta, **pieces)
+            streams = graphs.streams
+            if mapped:
+                with TRACER.span("engine/map"):
+                    total_max = host_read(torch.max(streams["total"]).item)
+                    if loop_stats is not None:
+                        loop_stats.syncs += 1
+                    tb = _map_tb(total_max, cfg.stream_map_blocks, wb, Q)
+                    streams = {**streams, "smap": graphs.write_map(
+                        tb, g=int(np.log2(G)), L=index.g_sorted_hash.shape[0])}
+            if not graphs.graphs:  # the first batch of this key
+                with TRACER.span("engine/capture"):
+                    graphs.capture((True, False) if mapped else (False,))
+        sims, ids, stats = _run_loop(index, streams, delta, loop_stats=loop_stats,
+                                     graphs=graphs, **pieces)
+        return sims.clone(), ids.clone(), SearchStats(*(t.clone() for t in stats))
 
 
 def count_lanes(loop_stats: Optional[LoopStats], stats: SearchStats) -> None:
@@ -473,7 +661,9 @@ def global_search(
     worker fault); the engine is batch-invariant, so any size gives the
     same per-query results. `loop_stats` (a LoopStats) accumulates the
     loops' iterations and host syncs (the tracer's own while it is active
-    and the caller passes none).
+    and the caller passes none). On a card each batch's loop bodies are
+    replays of CUDA graphs cached on the index
+    (global_search_batch_graphed).
     """
     from clann_tpu_torch.errors import DataError
 
@@ -502,7 +692,7 @@ def global_search(
     def run_block(block):
         with TRACER.span("engine/hash"):
             qh, qs = source.hash(block), filterer.sketch(block)
-        return global_search_batch_mapped(
+        return global_search_batch_graphed(
             index, block, qh, qs, delta,
             k=k, chunk=cfg.candidate_chunk, min_depth=cfg.min_depth,
             filter_type=filter_type, filter_expand=cfg.filter_expand,

@@ -413,6 +413,7 @@ def stream_block_map(
     g: int,
     L: int,
     tb: int,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The block-stream mapping of the first tb positions, computed once.
 
@@ -423,6 +424,9 @@ def stream_block_map(
     table block, [..., 2] lane-validity mask (bit l set iff slot
     blk*G + l lies in p's range and p < total; a 32-bit word as int32).
     Equal to blocked_window at every valid position; requires G <= 32.
+    Position p's entry does not depend on tb. `out`, a (Q, tb, 3) int32
+    tensor (a view of a deeper buffer, say), receives the map in place of
+    a new array.
     """
     Q, M = fc.shape
     G = 1 << g
@@ -445,9 +449,12 @@ def stream_block_map(
     # (1 << b) - 1 in int64: exact at b == 32, where uint32 would wrap
     mask = ((one << hi) - 1) ^ ((one << lo) - 1)
     mask = torch.where(pos < fc[:, -1:], mask, torch.zeros_like(mask))
-    return torch.stack(
-        [(j % L).to(torch.int32), blk.to(torch.int32), to_int32_bits(mask)], dim=2
-    )
+    planes = ((j % L).to(torch.int32), blk.to(torch.int32), to_int32_bits(mask))
+    if out is None:
+        return torch.stack(planes, dim=2)
+    for i, plane in enumerate(planes):
+        out[:, :, i] = plane
+    return out
 
 
 def candidate_stream(

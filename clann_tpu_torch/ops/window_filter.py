@@ -46,8 +46,10 @@ from clann_tpu_torch.ops.gather import _launcher, _stream, gather_rows
 from clann_tpu_torch.ops.query import _compact_take
 from clann_tpu_torch.ops.sketches import popcount32, to_int32_bits
 
-# Launches of the kernel made by the wrapper (the plain version never
-# counts), in all and by card index.
+# Launches of the kernel, in all and by card index: made by the wrapper,
+# or replayed from a captured CUDA graph (a launch the wrapper records into
+# a graph counts at each replay, `count_launches`). The plain version never
+# counts.
 FILTER_LAUNCHES = 0
 FILTER_DEVICE_LAUNCHES: collections.Counter = collections.Counter()
 
@@ -58,6 +60,17 @@ def reset_launches() -> None:
     global FILTER_LAUNCHES
     FILTER_LAUNCHES = 0
     FILTER_DEVICE_LAUNCHES.clear()
+
+
+def count_launches(device: int, n: int, loop_stats=None) -> None:
+    """Count `n` launches of the kernel on card `device`, also into
+    `loop_stats.filter_launches` where given."""
+    global FILTER_LAUNCHES
+    with _build.COUNT_LOCK:
+        FILTER_LAUNCHES += n
+        FILTER_DEVICE_LAUNCHES[device] += n
+    if loop_stats is not None:
+        loop_stats.filter_launches += n
 
 
 def mask_words(gather_block: int) -> int:
@@ -220,7 +233,9 @@ def window_filter(records, window, off, qdone, qsk, feas_bound, kth_dist, maxdif
     """(compact_ids, consumed, taken, seen) of one loop iteration (see the
     module docstring); `cap` is cut to the window's WB * G lanes. A launch
     of the kernel counts one in `loop_stats.filter_launches` (a LoopStats
-    of the calling loop, where given)."""
+    of the calling loop, where given) and in the module's counts; a launch
+    recorded into a CUDA graph counts in `loop_stats` alone, and each
+    replay of the graph counts it (`count_launches`)."""
     _check(records, window, off, qdone, qsk, feas_bound, kth_dist, maxdiff, gather_block, wb)
     cap = min(cap, wb * gather_block)
     if records.device.type == "cpu":
@@ -250,10 +265,10 @@ def window_filter(records, window, off, qdone, qsk, feas_bound, kth_dist, maxdif
                   counts.data_ptr(), Q, smem, dev, _stream(dev))
         if code:
             _build.check(_build.load_library(), code, "window filter launch")
-        global FILTER_LAUNCHES
-        with _build.COUNT_LOCK:
-            FILTER_LAUNCHES += 1
-            FILTER_DEVICE_LAUNCHES[dev] += 1
-        if loop_stats is not None:
-            loop_stats.filter_launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            # recorded into a graph: each replay counts it
+            if loop_stats is not None:
+                loop_stats.filter_launches += 1
+        else:
+            count_launches(dev, 1, loop_stats)
     return ids, counts[0], counts[1], counts[2]

@@ -110,6 +110,19 @@ def test_engine_matches_jax(world, delta, filter_type):
     assert ls.syncs == 1 + 1 + -(-ls.iterations // tgq.SYNC_EVERY)
 
 
+@pytest.mark.parametrize("delta,filter_type", [(0.9, "default"), (0.975, "none")])
+def test_graphed_route_runs_the_eager_body_on_cpu(world, delta, filter_type):
+    """global_search's batch route, which replays the loop body from CUDA
+    graphs on a card, runs the eager body on CPU tensors: no graph, no
+    replay, JAX's results."""
+    ls = tgq.LoopStats()
+    out = tgq.global_search_batch_graphed(world["tidx"], *world["tq"], delta,
+                                          filter_type=filter_type, loop_stats=ls, **KW)
+    _assert_same(_jax_ref(world, delta, filter_type), *out)
+    assert ls.iterations >= 1 and ls.graph_replays == 0 and ls.filter_launches == 0
+    assert world["tidx"].body_graphs is None
+
+
 @pytest.mark.parametrize("path", ["batched", "continuous"])
 def test_bodies_count_filter_launches_into_their_loop(world, monkeypatch, path):
     """Every loop body hands the window filter its loop's LoopStats, in
