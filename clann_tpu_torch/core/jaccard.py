@@ -42,12 +42,7 @@ from clann_tpu_torch.data.setdata import JaccardData, _multi_hot, multi_hot_coun
 from clann_tpu_torch.errors import DataError
 from clann_tpu_torch.ops.collision import HashSourceProbs
 from clann_tpu_torch.ops.distances import resolve_device
-from clann_tpu_torch.ops.global_query import (
-    _advance,
-    _attach_stream_map,
-    _map_tb,
-    _record_window,
-)
+from clann_tpu_torch.ops.global_query import _init_state, _map_batch, _run_loop
 from clann_tpu_torch.ops.minhash import (
     MinHash,
     MinHash1Bit,
@@ -56,6 +51,7 @@ from clann_tpu_torch.ops.minhash import (
 )
 from clann_tpu_torch.ops.prefixmap import (
     block_stream,
+    blocked_window,
     candidate_stream,
     count_leq,
     depth_bounds,
@@ -68,11 +64,11 @@ from clann_tpu_torch.ops.query import (
     _merge_topk,
     probs_lookup,
     topk_stable,
+    window_blocks,
 )
 from clann_tpu_torch.ops.sketches import pack_bits_u32, popcount32, to_int32_bits
 from clann_tpu_torch.ops.sources import IndependentHashSource
-from clann_tpu_torch.ops.window_filter import _consumer
-from clann_tpu_torch.parallel.mesh import host_read
+from clann_tpu_torch.ops.window_filter import _consumer, fetch_records, window_entries
 
 # arrays of a JaccardIndex (None where not built) and their dtypes in the
 # port; JAX's uint32 words are int32 bit patterns
@@ -408,6 +404,45 @@ def _jaccard_prepare(index: JaccardIndex, query_tokens: torch.Tensor, qh: torch.
     return streams
 
 
+def _record_window(streams: dict, records: torch.Tensor, *, gather_block: int, wb: int,
+                   dense_index: bool, routing: bool):
+    """fetch(qdone, off, use_map) -> (t_sel (Q, WB), rec (Q, WB, G, R),
+    valid (Q, WB * G)): the next WB stream blocks of every query, mapped to
+    (table, block, lane mask) from the stream map (`use_map`; the caller
+    guarantees every live cursor + WB fits it) or by the in-loop
+    derivation (prefixmap.blocked_window, the same values), and their G
+    packed records of R words each, fetched with one row gather per block
+    (K7, ops.window_filter.fetch_records, which the window filter's plain
+    version shares). With `routing` the dead blocks (done queries, fully
+    masked edge blocks) fetch table 0's block 0; `valid` masks every
+    consumer of their words. The cosine engine's window is the window
+    filter's (ops/global_query.py)."""
+    starts_s, sizes_s = streams["starts"], streams["sizes"]
+    bstarts, fc = streams["bstarts"], streams["fc"]
+    smap = streams.get("smap")
+    L, n_pad = records.shape[:2]
+    G = gather_block
+    if n_pad % G:
+        raise ValueError(
+            "the records' slot axis is not a multiple of config.gather_block; "
+            "build them with pad_to=gather_block"
+        )
+    g_log = int(np.log2(G))
+
+    def window(off, use_map):
+        if use_map:
+            # one contiguous slice of the precomputed map per query
+            return window_entries(smap, off, wb=wb, gather_block=G)
+        j, blk, _, lane_valid = blocked_window(
+            fc, off, wb, bstarts, starts_s, sizes_s, g_log, dense_index=dense_index)
+        return (j % L), blk, lane_valid
+
+    def fetch(qdone, off, use_map: bool):
+        return fetch_records(records, *window(off, use_map), qdone, routing=routing)
+
+    return fetch
+
+
 def _jaccard_loop_pieces(index: JaccardIndex, streams: dict, delta, *, k: int, chunk: int,
                          min_depth: int, filter_type: str, filter_expand: int):
     """(cond, body) of the adaptive probe loop: the global cosine engine's
@@ -431,7 +466,7 @@ def _jaccard_loop_pieces(index: JaccardIndex, streams: dict, delta, *, k: int, c
     S, Wd = index.sketches.shape[1], index.sketches.shape[2]
     d_entry = _jaccard_entry_depth(index, min_depth)
     G = max(1, cfg.gather_block)
-    WB = max(1, (chunk * filter_expand) // G)  # window width in blocks
+    WB = window_blocks(chunk, filter_expand, G)
     WL = WB * G
     CB = chunk + G  # compacted re-score capacity (block-granular overshoot)
     fetch = _record_window(streams, index.g_records, gather_block=G, wb=WB,
@@ -511,36 +546,32 @@ def _jaccard_loop_pieces(index: JaccardIndex, streams: dict, delta, *, k: int, c
     return cond, body
 
 
-def _jaccard_run_loop(index: JaccardIndex, streams: dict, delta, *, k: int, chunk: int,
-                      min_depth: int, filter_type: str, filter_expand: int,
-                      loop_stats: Optional[LoopStats] = None):
-    """The adaptive loop over prepared (possibly mapped) streams; returns
-    (sims desc (Q, k), ids (Q, k) int32, SearchStats) tensors."""
-    Q = streams["qbm"].shape[0]
-    dev = streams["qbm"].device
-    cond, body = _jaccard_loop_pieces(index, streams, delta, k=k, chunk=chunk,
-                                      min_depth=min_depth, filter_type=filter_type,
-                                      filter_expand=filter_expand)
-    z = torch.zeros((Q,), dtype=torch.int32, device=dev)
-    state = (torch.zeros((Q, k), dtype=torch.float32, device=dev),
-             torch.full((Q, k), -1, dtype=torch.int32, device=dev),
-             streams["total"] <= 0, z, z.clone(), z.clone())
-    G = max(1, index.config.gather_block)
-    tb = streams["smap"].shape[1] if "smap" in streams else 0
-    state, iters, syncs, unmapped = _advance(cond, body, state, tb=tb,
-                                             wb=max(1, (chunk * filter_expand) // G))
-    if loop_stats is not None:
-        loop_stats.batches += 1
-        loop_stats.iterations += iters
-        loop_stats.syncs += syncs
-        loop_stats.unmapped_iterations += unmapped
+def _jaccard_finalize(index: JaccardIndex, streams: dict, state: tuple, *, k: int):
+    """(sims desc (Q, k), ids (Q, k) int32, SearchStats) of a finished
+    loop state: the loop's scores are exact, so nothing is re-scored."""
     topk_sims, topk_ids, _, _, dc, cand_ct = state
     if "feas_bound" in streams:
         kth_dist = torch.where(topk_ids[:, k - 1] >= 0, 1.0 - topk_sims[:, k - 1], torch.inf)
         visited = torch.sum(streams["feas_bound"] <= kth_dist[:, None], dim=1, dtype=torch.int32)
     else:
-        visited = torch.ones((Q,), dtype=torch.int32, device=dev)
+        visited = torch.ones_like(dc)
     return topk_sims, topk_ids, SearchStats(dc, cand_ct, visited)
+
+
+def _jaccard_run_loop(index: JaccardIndex, streams: dict, delta, *, k: int, chunk: int,
+                      min_depth: int, filter_type: str, filter_expand: int,
+                      loop_stats: Optional[LoopStats] = None):
+    """The adaptive loop over prepared (possibly mapped) streams, through
+    the cosine engine's runner (ops/global_query._run_loop); returns
+    (sims desc (Q, k), ids (Q, k) int32, SearchStats) tensors."""
+    cond, body = _jaccard_loop_pieces(index, streams, delta, k=k, chunk=chunk,
+                                      min_depth=min_depth, filter_type=filter_type,
+                                      filter_expand=filter_expand)
+    state = _init_state(streams["total"].shape[0], k, streams["total"])
+    return _run_loop(streams, cond, body, state,
+                     lambda s: _jaccard_finalize(index, streams, s, k=k),
+                     wb=window_blocks(chunk, filter_expand, index.config.gather_block),
+                     loop_stats=loop_stats)
 
 
 def jaccard_search_batch(index: JaccardIndex, query_tokens: torch.Tensor, qh: torch.Tensor,
@@ -563,23 +594,13 @@ def jaccard_search_batch_mapped(index: JaccardIndex, query_tokens: torch.Tensor,
                                 filter_expand: int = 8,
                                 loop_stats: Optional[LoopStats] = None):
     """jaccard_search_batch with the stream map, sized from the batch's
-    deepest stream (one host pull, as the cosine engine's
-    global_search_batch_mapped). Per-query results equal the unmapped
-    path's."""
-    cfg = index.config
-    G = max(1, cfg.gather_block)
-    if G > 32 or not cfg.stream_map:
-        return jaccard_search_batch(index, query_tokens, qh, qsk, delta, k=k, chunk=chunk,
-                                    min_depth=min_depth, filter_type=filter_type,
-                                    filter_expand=filter_expand, loop_stats=loop_stats)
+    deepest stream where the map is on (the cosine engine's map step,
+    ops/global_query._map_batch: one host pull). Per-query results equal
+    the unmapped path's."""
     streams = _jaccard_prepare(index, query_tokens, qh, qsk, min_depth=min_depth)
-    total_max = host_read(torch.max(streams["total"]).item)
-    if loop_stats is not None:
-        loop_stats.syncs += 1
-    wb = max(1, (chunk * filter_expand) // G)
-    tb = _map_tb(total_max, cfg.stream_map_blocks, wb, query_tokens.shape[0])
-    streams = _attach_stream_map(streams, g=int(np.log2(G)), L=index.sorted_hash.shape[0],
-                                 tb=tb)
+    streams = _map_batch(streams, index.config,
+                         wb=window_blocks(chunk, filter_expand, index.config.gather_block),
+                         tables=index.sorted_hash.shape[0], loop_stats=loop_stats)
     return _jaccard_run_loop(index, streams, delta, k=k, chunk=chunk, min_depth=min_depth,
                              filter_type=filter_type, filter_expand=filter_expand,
                              loop_stats=loop_stats)

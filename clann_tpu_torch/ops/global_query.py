@@ -35,6 +35,12 @@ What changes from the JAX engine, none of it in the results:
   one-hot on the MXU; the values are the same). Its plain version, which
   CPU tensors take, is the torch chain the loop ran before, over K7.
 
+The batch entry points `global_search_batch_impl` (a static map, the
+shard bodies'), `global_search_batch_mapped` (a map sized from the batch)
+and `global_search_batch_graphed` (the same in the graphs' buffers, the
+card's) share one runner, `_run_loop` (`_advance`, which counts the loop,
+then a finalize), with core/jaccard; the window width is
+`query.window_blocks` and the map's depth `map_depth` for all of them.
 `global_search_continuous` is the continuous-batching driver: a fixed set
 of lanes, each step advancing them a few iterations and refilling finished
 lanes with pending queries (`_global_step_packed`).
@@ -72,14 +78,9 @@ from clann_tpu_torch.ops.query import (
     batched_query_driver,
     probs_lookup,
     sims_to_dists,
+    window_blocks,
 )
-from clann_tpu_torch.ops.window_filter import (
-    count_launches,
-    fetch_records,
-    pack_window,
-    window_entries,
-    window_filter,
-)
+from clann_tpu_torch.ops.window_filter import count_launches, pack_window, window_filter
 from clann_tpu_torch.parallel.mesh import host_read
 
 
@@ -168,45 +169,6 @@ def _reset_state(state: tuple, total: torch.Tensor) -> None:
         t.zero_()
 
 
-def _record_window(streams: dict, records: torch.Tensor, *, gather_block: int, wb: int,
-                   dense_index: bool, routing: bool):
-    """fetch(qdone, off, use_map) -> (t_sel (Q, WB), rec (Q, WB, G, R),
-    valid (Q, WB * G)): the next WB stream blocks of every query, mapped to
-    (table, block, lane mask) from the stream map (`use_map`; the caller
-    guarantees every live cursor + WB fits it) or by the in-loop
-    derivation (prefixmap.blocked_window, the same values), and their G
-    packed records of R words each, fetched with one row gather per block
-    (K7, ops.window_filter.fetch_records, which the window filter's plain
-    version shares). With `routing` the dead blocks (done queries, fully
-    masked edge blocks) fetch table 0's block 0; `valid` masks every
-    consumer of their words. The Jaccard engine's window (core/jaccard.py);
-    the cosine engine's is the window filter's."""
-    starts_s, sizes_s = streams["starts"], streams["sizes"]
-    bstarts, fc = streams["bstarts"], streams["fc"]
-    smap = streams.get("smap")
-    L, n_pad = records.shape[:2]
-    G = gather_block
-    if n_pad % G:
-        raise ValueError(
-            "the records' slot axis is not a multiple of config.gather_block; "
-            "build them with pad_to=gather_block"
-        )
-    g_log = int(np.log2(G))
-
-    def window(off, use_map):
-        if use_map:
-            # one contiguous slice of the precomputed map per query
-            return window_entries(smap, off, wb=wb, gather_block=G)
-        j, blk, _, lane_valid = blocked_window(
-            fc, off, wb, bstarts, starts_s, sizes_s, g_log, dense_index=dense_index)
-        return (j % L), blk, lane_valid
-
-    def fetch(qdone, off, use_map: bool):
-        return fetch_records(records, *window(off, use_map), qdone, routing=routing)
-
-    return fetch
-
-
 def derived_window(streams: dict, off: torch.Tensor, *, wb: int, gather_block: int,
                    tables: int, dense_index: bool) -> torch.Tensor:
     """The next WB stream blocks at the cursors `off` by the in-loop
@@ -242,7 +204,7 @@ def _loop_pieces(index, streams: dict, delta, *, k: int, chunk: int,
     # blocked gather: G consecutive records per gather lane; the stream
     # cursor runs in block units (prefixmap.block_stream)
     G = max(1, index.config.gather_block)
-    WB = max(1, (chunk * filter_expand) // G)  # window width in blocks
+    WB = window_blocks(chunk, filter_expand, G)
     CB = chunk + G  # compacted rescore capacity (block-granular overshoot)
     smap = streams.get("smap")
     delta = torch.as_tensor(delta, dtype=torch.float32, device=dev)
@@ -318,13 +280,15 @@ def _finalize(index, streams, state, *, k):
     return topk_sims, topk_ids, SearchStats(dc, cand_ct, visited)
 
 
-def _advance(cond, body, state, *, tb: int, wb: int, max_iters: Optional[int] = None):
+def _advance(cond, body, state, *, tb: int, wb: int, loop_stats: Optional[LoopStats],
+             max_iters: Optional[int] = None):
     """Run body while some query is live (and at most `max_iters` steps):
     the stop flag and the live cursors' maximum are read once per
     SYNC_EVERY steps; a step may read the stream map where every live
     cursor + its WB blocks still fit it. Steps past the last live query
-    change nothing (frozen cursors, no valid lane). Returns (state,
-    iterations, host syncs, iterations without the map)."""
+    change nothing (frozen cursors, no valid lane). Returns the state;
+    its iterations, host syncs and iterations without the map are counted
+    into `loop_stats`."""
     iters = syncs = unmapped = 0
     while max_iters is None or iters < max_iters:
         qdone, off = state[2], state[3]
@@ -344,57 +308,42 @@ def _advance(cond, body, state, *, tb: int, wb: int, max_iters: Optional[int] = 
                 state = body(state, use_map)
             iters += 1
             unmapped += not use_map
-    return state, iters, syncs, unmapped
-
-
-def _run_loop(index, streams, delta, *, k, chunk, min_depth, filter_type,
-              filter_expand, loop_stats: Optional[LoopStats] = None,
-              graphs: Optional["_BodyGraphs"] = None):
-    """The adaptive loop + finalize over prepared (possibly mapped) streams;
-    with `graphs` (loaded with those streams) each body is a graph replay."""
-    Q = streams["qn"].shape[0]
-    if graphs is None:
-        cond, body = _loop_pieces(
-            index, streams, delta, k=k, chunk=chunk, min_depth=min_depth,
-            filter_type=filter_type, filter_expand=filter_expand, loop_stats=loop_stats,
-        )
-        state = _init_state(Q, _buffer_depth(index, k), streams["total"])
-    else:
-        cond, body, state = graphs.cond, graphs.replayer(loop_stats), graphs.state
-    G = max(1, index.config.gather_block)
-    tb = streams["smap"].shape[1] if "smap" in streams else 0
-    state, iters, syncs, unmapped = _advance(cond, body, state, tb=tb,
-                                             wb=max(1, (chunk * filter_expand) // G))
     if loop_stats is not None:
-        loop_stats.batches += 1
         loop_stats.iterations += iters
         loop_stats.syncs += syncs
         loop_stats.unmapped_iterations += unmapped
+    return state
+
+
+def _run_loop(streams: dict, cond, body, state, finalize, *, wb: int,
+              loop_stats: Optional[LoopStats]):
+    """One batch of a delta engine (this module's and core/jaccard's):
+    `cond` / `body` (eager, or a graph replayer) from `state` over the
+    prepared, possibly mapped, `streams` until no query is live, counted
+    into `loop_stats` as a batch, then the engine's `finalize(state)`."""
+    tb = streams["smap"].shape[1] if "smap" in streams else 0
+    state = _advance(cond, body, state, tb=tb, wb=wb, loop_stats=loop_stats)
+    if loop_stats is not None:
+        loop_stats.batches += 1
     with TRACER.span("engine/finalize"):
-        return _finalize(index, streams, state, k=k)
+        return finalize(state)
 
 
-def global_search_batch_impl(index, queries_n, query_hashes, query_sketches, delta, *,
-                             k: int, chunk: int, min_depth: int = 1,
-                             filter_type: str = "default", filter_expand: int = 8,
-                             static_map_tb: int = 0,
-                             loop_stats: Optional[LoopStats] = None):
-    """Search a pre-hashed query batch on the global tables.
-
-    Returns (sims desc (Q, k), ids (Q, k) int32, SearchStats) tensors.
-    static_map_tb > 0 attaches the stream map at that position count
-    without a host sync; cursors past it take the in-loop derivation.
-    """
-    with TRACER.span("engine/prepare"):
-        streams = _prepare_streams(index, queries_n, query_hashes, query_sketches,
-                                   min_depth=min_depth)
-        G = max(1, index.config.gather_block)
-        if static_map_tb > 0 and index.config.stream_map and G <= 32:
-            streams = _attach_stream_map(streams, g=int(np.log2(G)),
-                                         L=index.g_sorted_hash.shape[0], tb=static_map_tb)
-    return _run_loop(index, streams, delta, k=k, chunk=chunk, min_depth=min_depth,
-                     filter_type=filter_type, filter_expand=filter_expand,
-                     loop_stats=loop_stats)
+def _search_prepared(index, streams: dict, delta, *, loop_stats: Optional[LoopStats],
+                     graphs: Optional["_BodyGraphs"] = None, **pieces):
+    """The cosine engine's batch over prepared streams (`pieces`: k, chunk,
+    min_depth, filter_type, filter_expand); with `graphs` (loaded with
+    those streams) each body is a graph replay."""
+    if graphs is None:
+        cond, body = _loop_pieces(index, streams, delta, loop_stats=loop_stats, **pieces)
+        state = _init_state(streams["total"].shape[0], _buffer_depth(index, pieces["k"]),
+                            streams["total"])
+    else:
+        cond, body, state = graphs.cond, graphs.replayer(loop_stats), graphs.state
+    wb = window_blocks(pieces["chunk"], pieces["filter_expand"], index.config.gather_block)
+    return _run_loop(streams, cond, body, state,
+                     lambda s: _finalize(index, streams, s, k=pieces["k"]),
+                     wb=wb, loop_stats=loop_stats)
 
 
 def _attach_stream_map(streams: dict, *, g: int, L: int, tb: int) -> dict:
@@ -418,35 +367,80 @@ def _map_tb(total_max: Optional[int], cap: int, wb: int, q: int) -> int:
     return max(tb, 1 << max(0, wb - 1).bit_length())
 
 
+def map_depth(config, wb: int, q: int, total_max: Optional[int] = None) -> int:
+    """The stream map's depth for q queries and windows of `wb` blocks: 0
+    where the map is off (config.stream_map off, or gather blocks of more
+    than 32 lanes), else _map_tb's. total_max None gives the deepest map
+    any batch of q queries can need: the graphs' buffer, and the sharded
+    bodies' static map (JAX sizes it at total_max = the cap, the same
+    depth)."""
+    if not config.stream_map or config.gather_block > 32:
+        return 0
+    return _map_tb(total_max, config.stream_map_blocks, wb, q)
+
+
+def _map_batch(streams: dict, config, *, wb: int, tables: int,
+               loop_stats: Optional[LoopStats], write=None) -> dict:
+    """`streams` with the batch's stream map where the map is on: sized by
+    map_depth from the batch's deepest stream, read once on the host (a
+    sync, counted into `loop_stats`), inside `engine/map`. Built anew, or
+    by `write(tb, g=, L=)` into a buffer (_BodyGraphs.write_map)."""
+    q = streams["total"].shape[0]
+    if not map_depth(config, wb, q):
+        return streams
+    g = int(np.log2(config.gather_block))
+    with TRACER.span("engine/map"):
+        total_max = host_read(torch.max(streams["total"]).item)
+        if loop_stats is not None:
+            loop_stats.syncs += 1
+        tb = map_depth(config, wb, q, total_max)
+        if write is None:
+            return _attach_stream_map(streams, g=g, L=tables, tb=tb)
+        return {**streams, "smap": write(tb, g=g, L=tables)}
+
+
+def global_search_batch_impl(index, queries_n, query_hashes, query_sketches, delta, *,
+                             k: int, chunk: int, min_depth: int = 1,
+                             filter_type: str = "default", filter_expand: int = 8,
+                             static_map_tb: int = 0,
+                             loop_stats: Optional[LoopStats] = None):
+    """Search a pre-hashed query batch on the global tables.
+
+    Returns (sims desc (Q, k), ids (Q, k) int32, SearchStats) tensors.
+    static_map_tb > 0 attaches the stream map at that position count
+    without a host sync, where the map is on (map_depth); cursors past it
+    take the in-loop derivation.
+    """
+    pieces = dict(k=k, chunk=chunk, min_depth=min_depth, filter_type=filter_type,
+                  filter_expand=filter_expand)
+    with TRACER.span("engine/prepare"):
+        streams = _prepare_streams(index, queries_n, query_hashes, query_sketches,
+                                   min_depth=min_depth)
+        cfg = index.config
+        wb = window_blocks(chunk, filter_expand, cfg.gather_block)
+        if static_map_tb > 0 and map_depth(cfg, wb, queries_n.shape[0]):  # the map is on
+            streams = _attach_stream_map(streams, g=int(np.log2(cfg.gather_block)),
+                                         L=index.g_sorted_hash.shape[0], tb=static_map_tb)
+    return _search_prepared(index, streams, delta, loop_stats=loop_stats, **pieces)
+
+
 def global_search_batch_mapped(index, queries_n, query_hashes, query_sketches, delta, *,
                                k: int, chunk: int, min_depth: int = 1,
                                filter_type: str = "default", filter_expand: int = 8,
                                loop_stats: Optional[LoopStats] = None):
     """global_search_batch_impl with the precomputed stream maps, sized
     from the batch's deepest stream: one host pull of `total_max` per batch
-    (global_query.py:580). Per-query results equal the unmapped path's.
-    Used when config.stream_map is on and gather_block <= 32."""
-    G = max(1, index.config.gather_block)
-    if G > 32 or not index.config.stream_map:
-        return global_search_batch_impl(
-            index, queries_n, query_hashes, query_sketches, delta, k=k, chunk=chunk,
-            min_depth=min_depth, filter_type=filter_type, filter_expand=filter_expand,
-            loop_stats=loop_stats,
-        )
+    (global_query.py:580), where the map is on (map_depth). Per-query
+    results equal the unmapped path's."""
+    pieces = dict(k=k, chunk=chunk, min_depth=min_depth, filter_type=filter_type,
+                  filter_expand=filter_expand)
     with TRACER.span("engine/prepare"):
         streams = _prepare_streams(index, queries_n, query_hashes, query_sketches,
                                    min_depth=min_depth)
-        with TRACER.span("engine/map"):
-            total_max = host_read(torch.max(streams["total"]).item)
-            if loop_stats is not None:
-                loop_stats.syncs += 1
-            wb = max(1, (chunk * filter_expand) // G)
-            tb = _map_tb(total_max, index.config.stream_map_blocks, wb, queries_n.shape[0])
-            streams = _attach_stream_map(streams, g=int(np.log2(G)),
-                                         L=index.g_sorted_hash.shape[0], tb=tb)
-    return _run_loop(index, streams, delta, k=k, chunk=chunk, min_depth=min_depth,
-                     filter_type=filter_type, filter_expand=filter_expand,
-                     loop_stats=loop_stats)
+        streams = _map_batch(streams, index.config,
+                             wb=window_blocks(chunk, filter_expand, index.config.gather_block),
+                             tables=index.g_sorted_hash.shape[0], loop_stats=loop_stats)
+    return _search_prepared(index, streams, delta, loop_stats=loop_stats, **pieces)
 
 
 # Bytes of the graphed path's stream map built at once: each slice of rows
@@ -572,11 +566,12 @@ def global_search_batch_graphed(index, queries_n, query_hashes, query_sketches, 
                                 k: int, chunk: int, min_depth: int = 1,
                                 filter_type: str = "default", filter_expand: int = 8,
                                 loop_stats: Optional[LoopStats] = None):
-    """global_search_batch_mapped with the loop's bodies replayed from CUDA
-    graphs (`_BodyGraphs`), cached on the index and captured at the first
-    batch of each shape: the batched search on one card. The results are
-    the eager body's, bit for bit, and leave the graphs' buffers. CPU
-    tensors take global_search_batch_mapped."""
+    """global_search_batch_mapped with its streams, stream map and loop
+    state in the buffers of `_BodyGraphs` (cached on the index, captured at
+    the first batch of each shape) and each loop body a replay of their
+    graphs: the batched search on one card. The results are the eager
+    body's, bit for bit, and leave the graphs' buffers. CPU tensors take
+    global_search_batch_mapped."""
     if not queries_n.is_cuda:
         return global_search_batch_mapped(
             index, queries_n, query_hashes, query_sketches, delta, k=k, chunk=chunk,
@@ -584,34 +579,24 @@ def global_search_batch_graphed(index, queries_n, query_hashes, query_sketches, 
             loop_stats=loop_stats,
         )
     cfg = index.config
-    G = max(1, cfg.gather_block)
-    Q = queries_n.shape[0]
-    wb = max(1, (chunk * filter_expand) // G)
-    mapped = cfg.stream_map and G <= 32
-    depth = _map_tb(None, cfg.stream_map_blocks, wb, Q) if mapped else 0
+    wb = window_blocks(chunk, filter_expand, cfg.gather_block)
+    depth = map_depth(cfg, wb, queries_n.shape[0])
     pieces = dict(k=k, chunk=chunk, min_depth=min_depth, filter_type=filter_type,
                   filter_expand=filter_expand)
-    graphs = _graphs_for(index, (Q, depth, float(delta), index.vectors_q8 is not None,
-                                 *sorted(pieces.items())))
+    graphs = _graphs_for(index, (queries_n.shape[0], depth, float(delta),
+                                 index.vectors_q8 is not None, *sorted(pieces.items())))
     with graphs.lock:
         with TRACER.span("engine/prepare"):
             streams = _prepare_streams(index, queries_n, query_hashes, query_sketches,
                                        min_depth=min_depth)
             graphs.load(index, streams, depth, delta, **pieces)
-            streams = graphs.streams
-            if mapped:
-                with TRACER.span("engine/map"):
-                    total_max = host_read(torch.max(streams["total"]).item)
-                    if loop_stats is not None:
-                        loop_stats.syncs += 1
-                    tb = _map_tb(total_max, cfg.stream_map_blocks, wb, Q)
-                    streams = {**streams, "smap": graphs.write_map(
-                        tb, g=int(np.log2(G)), L=index.g_sorted_hash.shape[0])}
+            streams = _map_batch(graphs.streams, cfg, wb=wb, tables=index.g_sorted_hash.shape[0],
+                                 loop_stats=loop_stats, write=graphs.write_map)
             if not graphs.graphs:  # the first batch of this key
                 with TRACER.span("engine/capture"):
-                    graphs.capture((True, False) if mapped else (False,))
-        sims, ids, stats = _run_loop(index, streams, delta, loop_stats=loop_stats,
-                                     graphs=graphs, **pieces)
+                    graphs.capture((True, False) if depth else (False,))
+        sims, ids, stats = _search_prepared(index, streams, delta, loop_stats=loop_stats,
+                                            graphs=graphs, **pieces)
         return sims.clone(), ids.clone(), SearchStats(*(t.clone() for t in stats))
 
 
@@ -644,6 +629,24 @@ def difficulty(index, query_hashes, *, d_entry: int, min_depth: int) -> torch.Te
     return torch.sum(sizes, dim=1)
 
 
+def _front_end(index, queries, k, delta, loop_stats: Optional[LoopStats]) -> tuple:
+    """What both global drivers do first: (k and delta, the config's where
+    None, the index's hash source and sketcher, the queries normalized on
+    the index's device as (Q, d), the LoopStats to count into: the
+    caller's, else the tracer's own while it is active)."""
+    from clann_tpu_torch.errors import DataError
+
+    if index.g_records is None:
+        raise DataError(
+            "index lacks global LSH structures; build with config.lsh_engine='global'"
+        )
+    q = as_device_f32(queries, index.device)
+    if q.dim() == 1:
+        q = q[None, :]
+    return (index.config.k if k is None else k, index.config.delta if delta is None else delta,
+            *index.rebuild_objects(), l2_normalize(q), TRACER.loop_stats(loop_stats))
+
+
 def global_search(
     index,
     queries,
@@ -665,22 +668,9 @@ def global_search(
     replays of CUDA graphs cached on the index
     (global_search_batch_graphed).
     """
-    from clann_tpu_torch.errors import DataError
-
-    if index.g_records is None:
-        raise DataError(
-            "index lacks global LSH structures; build with config.lsh_engine='global'"
-        )
+    k, delta, source, filterer, qn, loop_stats = _front_end(index, queries, k, delta,
+                                                            loop_stats)
     cfg = index.config
-    k = cfg.k if k is None else k
-    delta = cfg.delta if delta is None else delta
-    source, filterer = index.rebuild_objects()
-
-    loop_stats = TRACER.loop_stats(loop_stats)
-    q = as_device_f32(queries, index.device)
-    if q.dim() == 1:
-        q = q[None, :]
-    qn = l2_normalize(q)
 
     perm = None
     if sort_by_difficulty and qn.shape[0] > batch_size:
@@ -710,9 +700,8 @@ def global_search(
 
 
 def _global_step_packed(index, streams_all: dict, state_all: tuple, active: torch.Tensor,
-                        delta, *, k: int, chunk: int, min_depth: int, filter_type: str,
-                        filter_expand: int, max_iters: int,
-                        loop_stats: Optional[LoopStats] = None):
+                        delta, *, max_iters: int, loop_stats: Optional[LoopStats] = None,
+                        **pieces):
     """Advance the `active` lanes by at most `max_iters` loop iterations.
 
     The continuous-batching step (JAX global_query.py:603-649): the active
@@ -720,27 +709,24 @@ def _global_step_packed(index, streams_all: dict, state_all: tuple, active: torc
     lane batch, the bounded adaptive loop advances it, and the lanes' state
     is written back into the full state in place. `active` never holds a
     query twice, so the write-back is well defined. Returns (state_all,
-    the lanes' qdone flags).
+    the lanes' qdone flags on the host); `loop_stats` counts the step and
+    its reads.
     """
     lane_streams = {name: t[active] for name, t in streams_all.items()}
     lane_state = tuple(t[active] for t in state_all)
-    cond, body = _loop_pieces(
-        index, lane_streams, delta, k=k, chunk=chunk, min_depth=min_depth,
-        filter_type=filter_type, filter_expand=filter_expand, loop_stats=loop_stats,
-    )
-    G = max(1, index.config.gather_block)
+    cond, body = _loop_pieces(index, lane_streams, delta, loop_stats=loop_stats, **pieces)
     tb = lane_streams["smap"].shape[1] if "smap" in lane_streams else 0
-    lane_state, iters, syncs, unmapped = _advance(cond, body, lane_state, tb=tb,
-                                                  wb=max(1, (chunk * filter_expand) // G),
-                                                  max_iters=max_iters)
+    lane_state = _advance(cond, body, lane_state, tb=tb, max_iters=max_iters,
+                          wb=window_blocks(pieces["chunk"], pieces["filter_expand"],
+                                           index.config.gather_block),
+                          loop_stats=loop_stats)
     for full, lane in zip(state_all, lane_state):
         full[active] = lane
+    done = lane_state[2].cpu().numpy()
     if loop_stats is not None:
         loop_stats.outer_steps += 1
-        loop_stats.iterations += iters
-        loop_stats.unmapped_iterations += unmapped
-        loop_stats.syncs += syncs
-    return state_all, lane_state[2]
+        loop_stats.syncs += 1
+    return state_all, done
 
 
 def global_search_continuous(
@@ -770,24 +756,13 @@ def global_search_continuous(
     in JAX.
 
     Returns numpy (distances (Q, k) ascending, ids (Q, k), SearchStats).
-    `loop_stats` counts one batch, a step per outer step, the body's
+    `loop_stats` (the tracer's own while it is active and the caller
+    passes none) counts one batch, a step per outer step, the body's
     iterations and the host syncs (stop flags, done flags, map sizing).
     """
-    from clann_tpu_torch.errors import DataError
-
-    if index.g_records is None:
-        raise DataError(
-            "index lacks global LSH structures; build with config.lsh_engine='global'"
-        )
+    k, delta, source, filterer, qn, loop_stats = _front_end(index, queries, k, delta,
+                                                            loop_stats)
     cfg = index.config
-    k = cfg.k if k is None else k
-    delta = cfg.delta if delta is None else delta
-    source, filterer = index.rebuild_objects()
-
-    q = as_device_f32(queries, index.device)
-    if q.dim() == 1:
-        q = q[None, :]
-    qn = l2_normalize(q)
     Q = qn.shape[0]
     if Q <= lanes:
         # a single batch cannot be repacked (JAX passes the normalized queries)
@@ -797,38 +772,30 @@ def global_search_continuous(
     slabs = []
     for s in range(0, Q, prepare_batch):
         block = qn[s : s + prepare_batch]
-        slabs.append(_prepare_streams(index, block, source.hash(block), filterer.sketch(block),
-                                      min_depth=cfg.min_depth))
+        with TRACER.span("engine/hash"):
+            qh, qs = source.hash(block), filterer.sketch(block)
+        with TRACER.span("engine/prepare"):
+            slabs.append(_prepare_streams(index, block, qh, qs, min_depth=cfg.min_depth))
     streams_all = {name: torch.cat([sl[name] for sl in slabs], dim=0) for name in slabs[0]}
     del slabs
-    syncs = 0
-    G = max(1, cfg.gather_block)
-    if cfg.stream_map and G <= 32:
-        # one map depth for the whole set; lanes pick up map rows like any
-        # other stream row (_map_tb bounds the (Q, tb) footprint)
-        total_max = int(torch.max(streams_all["total"]))
-        syncs += 1
-        wb = max(1, (cfg.candidate_chunk * cfg.filter_expand) // G)
-        tb = _map_tb(total_max, cfg.stream_map_blocks, wb, Q)
-        streams_all = _attach_stream_map(streams_all, g=int(np.log2(G)),
-                                         L=index.g_sorted_hash.shape[0], tb=tb)
+    # one map depth for the whole set; lanes pick up map rows like any
+    # other stream row (map_depth bounds the (Q, tb) footprint)
+    streams_all = _map_batch(streams_all, cfg, wb=window_blocks(
+        cfg.candidate_chunk, cfg.filter_expand, cfg.gather_block),
+        tables=index.g_sorted_hash.shape[0], loop_stats=loop_stats)
     state_all = _init_state(Q, _buffer_depth(index, k), streams_all["total"])
+    pieces = dict(k=k, chunk=cfg.candidate_chunk, min_depth=cfg.min_depth,
+                  filter_type=filter_type, filter_expand=cfg.filter_expand)
 
     # lane scheduling on the host, O(lanes) per step. A lane whose query is
     # done, with no pending query left, keeps its assignment: its qdone
     # row masks all its work.
     active = np.arange(lanes, dtype=np.int64)
     next_q = lanes
-    stats = LoopStats() if loop_stats is None else loop_stats
     while True:
-        state_all, lane_done = _global_step_packed(
+        state_all, done_np = _global_step_packed(
             index, streams_all, state_all, torch.tensor(active, device=qn.device), delta,
-            k=k, chunk=cfg.candidate_chunk, min_depth=cfg.min_depth,
-            filter_type=filter_type, filter_expand=cfg.filter_expand,
-            max_iters=step_iters, loop_stats=stats,
-        )
-        done_np = lane_done.cpu().numpy()
-        syncs += 1
+            max_iters=step_iters, loop_stats=loop_stats, **pieces)
         refilled = False
         if next_q < Q:
             for i in np.nonzero(done_np)[0]:
@@ -841,13 +808,11 @@ def global_search_continuous(
         # refilled lanes hold unstarted queries
         if not refilled and done_np.all():
             break
-    stats.batches += 1
-    stats.syncs += syncs
+    if loop_stats is not None:
+        loop_stats.batches += 1
 
     sims, ids, st = _finalize(index, streams_all, state_all, k=k)
     sims, ids = sims.cpu().numpy(), ids.cpu().numpy()
     st = SearchStats(*(f.cpu().numpy() for f in st))
-    count_lanes(stats, st)
-    dists = 2.0 * (1.0 - sims)
-    dists = np.where(ids < 0, np.inf, dists)
-    return dists, ids, st
+    count_lanes(loop_stats, st)
+    return sims_to_dists(sims, ids), ids, st

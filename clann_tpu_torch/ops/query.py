@@ -58,6 +58,12 @@ from clann_tpu_torch.parallel.mesh import host_read
 SYNC_EVERY = 4
 
 
+def window_blocks(chunk: int, filter_expand: int, gather_block: int) -> int:
+    """A loop iteration's window width in stream blocks of `gather_block`
+    slots: chunk * filter_expand slots, at least one block."""
+    return max(1, (chunk * filter_expand) // gather_block)
+
+
 class SearchStats(NamedTuple):
     """Per-query counters (reference: performance.hpp + RunMetrics §2.1)."""
 
@@ -271,7 +277,7 @@ def search_batch_impl(
     records = index.slot_records is not None
     G = max(1, cfg.gather_block) if records else 1
     g_log = int(np.log2(G))
-    WB = max(1, (chunk * filter_expand) // G)  # window width in blocks
+    WB = window_blocks(chunk, filter_expand, G)
     WL = WB * G  # window width in record lanes
     CB = chunk + G  # compacted rescore capacity
     if records:

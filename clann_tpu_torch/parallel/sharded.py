@@ -43,7 +43,7 @@ import torch
 
 from clann_tpu_torch.config import Config
 from clann_tpu_torch.metrics.trace import TRACER, LoopStats
-from clann_tpu_torch.ops.query import SearchStats, search_batch_impl, topk_stable
+from clann_tpu_torch.ops.query import SearchStats, search_batch_impl, topk_stable, window_blocks
 from clann_tpu_torch.parallel.mesh import (
     CLUSTER_AXIS,
     QUERY_AXIS,
@@ -644,7 +644,7 @@ def sharded_global_search_batch(
     accumulates every shard's loop (a batch per shard): each body counts
     into its own, added up once the bodies are done.
     """
-    from clann_tpu_torch.ops.global_query import _map_tb, global_search_batch_impl
+    from clann_tpu_torch.ops.global_query import global_search_batch_impl, map_depth
 
     if sharded.g_records is None:
         raise ValueError(
@@ -655,15 +655,11 @@ def sharded_global_search_batch(
         mesh = make_mesh(sharded.n_devices)
     cfg = sharded.config
 
-    # the stream map at the JAX package's static size (the _map_tb rule
-    # with the per-batch total replaced by the config cap); cursors past it
-    # take the in-loop derivation, with identical results
-    G = max(1, cfg.gather_block)
-    map_tb = 0
-    if cfg.stream_map and G <= 32:
-        wb = max(1, (cfg.candidate_chunk * cfg.filter_expand) // G)
-        map_tb = _map_tb(cfg.stream_map_blocks, cfg.stream_map_blocks, wb,
-                         queries_n.shape[0])
+    # the stream map at the JAX package's static size (the deepest any
+    # batch of this size can need); cursors past it take the in-loop
+    # derivation, with identical results
+    map_tb = map_depth(cfg, window_blocks(cfg.candidate_chunk, cfg.filter_expand,
+                                          cfg.gather_block), queries_n.shape[0])
 
     shard_loops: List[LoopStats] = []
 

@@ -196,6 +196,36 @@ def test_static_map_impl_matches(world):
     _assert_same(_jax_ref(world), *out)
 
 
+@pytest.mark.parametrize("cap", [0, 1023, 1024, 65535, 65536, 1 << 20])
+@pytest.mark.parametrize("wb", [1, 64, 512, 4097, 70000])
+def test_map_depth_is_one_rule(cap, wb):
+    """map_depth without a batch total is the sharded bodies' former static
+    depth (_map_tb at total_max = the cap) and so the graphs' buffer; with
+    one it is the batch's _map_tb, never deeper than the buffer."""
+    cfg = TConfig(stream_map_blocks=cap)
+    for q in (1, 48, 256, 10_000, 1 << 20):
+        deepest = tgq.map_depth(cfg, wb, q)
+        assert deepest == tgq._map_tb(cap, cap, wb, q) == tgq._map_tb(None, cap, wb, q)
+        for total_max in (0, 1, 1023, 5000, cap, 1 << 22):
+            depth = tgq.map_depth(cfg, wb, q, total_max)
+            assert depth == tgq._map_tb(total_max, cap, wb, q) <= deepest
+
+
+@pytest.mark.parametrize("knob", [dict(stream_map=False), dict(gather_block=64)])
+def test_map_depth_is_zero_where_the_map_is_off(knob):
+    cfg = TConfig(**knob)
+    assert {tgq.map_depth(cfg, wb, q, t) for wb in (1, 64) for q in (1, 256)
+            for t in (None, 0, 1 << 20)} == {0}
+
+
+@pytest.mark.parametrize("chunk,filter_expand,gather_block",
+                         [(512, 8, 8), (512, 8, 16), (64, 4, 8), (1, 1, 64), (100, 3, 32),
+                          (2048, 4, 1)])
+def test_window_blocks_is_the_window_width(chunk, filter_expand, gather_block):
+    assert tgq.window_blocks(chunk, filter_expand, gather_block) == max(
+        1, (chunk * filter_expand) // gather_block)
+
+
 @pytest.fixture(scope="module")
 def jax_search(world):
     """JAX's global_search (its own normalization and hashing), 48 queries."""

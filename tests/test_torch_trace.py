@@ -7,9 +7,9 @@
   name, and per path the self seconds add up to the outermost span's.
 - The nesting stacks are per thread.
 - The loop counters reach the caller through the facade, the global
-  engine, the walk and the sharded engine (each shard's loop counted and
-  added by the controller), and into the tracer's own counters while a
-  profiler runs; tracing changes no answer.
+  engine, the walk, the continuous driver and the sharded engine (each
+  shard's loop counted and added by the controller), and into the
+  tracer's own counters while a profiler runs; tracing changes no answer.
 """
 
 import threading
@@ -205,6 +205,31 @@ def test_search_batch_passes_loop_stats_down(world, mode, monkeypatch):
         # a read per SYNC_EVERY iterations and the last, besides the map's
         assert tracer.named("engine/read")[2] == direct.syncs - 1
         assert tracer.named("engine/prepare")[2] == tracer.named("engine/finalize")[2] == 1
+
+
+def test_continuous_driver_is_counted_like_the_batched(world, monkeypatch):
+    """More queries than lanes: the continuous driver counts its loop into
+    the tracer's own LoopStats under a profiler, opens the batched
+    driver's engine/hash and engine/prepare spans for each slab, and
+    returns global_search's distances bit for bit."""
+    h, q = world["handle"], world["q"]
+    kw = dict(lanes=16, step_iters=3, prepare_batch=16)
+    direct = LoopStats()
+    want = tgq.global_search_continuous(h.index, q, loop_stats=direct, **kw)
+    assert direct.batches == 1 and direct.outer_steps > 0 and direct.iterations > 0
+    tracer = Tracer(enabled=False)
+    for mod in (trace, tgq, tq):
+        monkeypatch.setattr(mod, "TRACER", tracer)
+    with profile(activities=[ProfilerActivity.CPU]):
+        traced = tgq.global_search_continuous(h.index, q, **kw)
+    _same(traced, want)
+    assert tracer.loop == direct
+    slabs = -(-len(q) // kw["prepare_batch"])
+    assert tracer.named("engine/hash")[2] == tracer.named("engine/prepare")[2] == slabs
+    assert tracer.named("engine/body")[2] == direct.iterations
+    batched = tgq.global_search(h.index, q)
+    assert traced[0].dtype == batched[0].dtype
+    assert np.array_equal(traced[0], batched[0]) and np.array_equal(traced[1], batched[1])
 
 
 def test_sharded_engine_sums_its_shards(world, monkeypatch):

@@ -3,8 +3,8 @@ against the global engine's former chain of phases, on seeded random
 windows made as the engine makes them (testing.window_filter_case).
 
 The former chain is composed here from the pieces it was made of: the
-record window of `_record_window` (ops/global_query.py, kept for the
-Jaccard engine; it derives or maps the window from the streams itself,
+record window of `_record_window` (core/jaccard.py, the Jaccard
+engine's; it derives or maps the window from the streams itself,
 unpacked, and gathers the records through K7's plain version), the sketch, ball and
 sketch-threshold filters as the loop body wrote them, `_consumer` and
 `_compact_take`. Every output is an integer and must be equal.
@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from clann_tpu_torch.metrics.trace import LoopStats
-from clann_tpu_torch.ops import global_query as tgq
+from clann_tpu_torch.core import jaccard as tj
 from clann_tpu_torch.ops import window_filter as twf
 from clann_tpu_torch.ops.query import _compact_take
 from clann_tpu_torch.ops.sketches import popcount32
@@ -46,8 +46,8 @@ def former_chain(c, *, use_map, chunk, cap, use_filter, routing):
     Q, S, Wd = qsk.shape
     C = c["feas_bound"].shape[1]
     WL = wb * G
-    fetch = tgq._record_window(_streams(c), records, gather_block=G, wb=wb,
-                               dense_index=False, routing=routing)
+    fetch = tj._record_window(_streams(c), records, gather_block=G, wb=wb,
+                              dense_index=False, routing=routing)
     t_sel, rec, valid = fetch(qdone, off, use_map)
     q_sk = torch.gather(qsk, 1, (t_sel % S).to(torch.int64)[:, :, None].expand(Q, wb, Wd))
     ham = torch.sum(popcount32(rec[..., 1 : 1 + Wd] ^ q_sk[:, :, None, :]),
