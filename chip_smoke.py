@@ -21,7 +21,8 @@ caught):
    gather warp_gather_kernel (K6, K7) is there in the 11 instances its plan
    launches (4-byte units at each inflight, 16-byte units up to 16), each
    taking its rows' indices by shuffle (SHFL.IDX), that the window filter's
-   window_filter_kernel is there in its two instances, and no other kernel.
+   window_filter_kernel is there in its two instances, the score-and-merge's
+   score_merge_kernel in its four, and no other kernel.
 3. kernels vs plain, each against its plain PyTorch version on the card, at
    the main paths' shapes and at small ragged ones, then CUDA-event times of
    both at the main paths' shapes, beside the kernel's bound (the larger of
@@ -88,6 +89,24 @@ caught):
    version, identical in every bit, the launches of each (one kernel an
    iteration, no K7), QPS of both in turns, and the three timed on the
    windows of one 256-query batch.
+5c. score-merge: the global engine's score-and-merge
+   (csrc/score_merge.cu) against its plain version (the engine's former
+   /score chain: every slot's row gathered, a bmm, `_merge_topk`) on the
+   same CUDA tensors, at both engine cells' shapes (256 queries, CB 2,080,
+   d 100 and d 96), f32 rows (kk 10) and int8 rows (kk 20), on every case
+   of testing.SCORE_MERGE_CASES (duplicates, ids in the top-k, sentinels
+   anywhere, done queries, full rows, sims of 0 against empty slots, equal
+   sims): int8 bit for bit, f32 sims within 2e-6 and ids equal up to such
+   ties; then the kernel, its plain version and the torch index + bmm pair
+   of that chain timed at each shape (device ms by CUDA-graph replay, call
+   ms by a loop) beside the byte bound (the distinct new candidates' rows,
+   the queries, the id slots, the top-k read and written). After phase 7,
+   on its index: the score-and-merge calls of one 256-query batch of
+   global_search, each held to the plain version, and the three timed on
+   them. Every phase that runs the global engine counts both kernels'
+   launches and fails unless the score-and-merge launched once for each
+   window filter launch; the kernels line's score-merge launches are the
+   sum of those counts and this phase's.
 6. lsh-build: the LSH configuration of bench.py's lsh_at_0.9 row
    (LSH_AT_09.json "chosen": L = 128, gather_block 32, chunk 2048,
    filter_expand 8, global engine, no dense layout) built with
@@ -378,6 +397,29 @@ def log(msg: str):
     print(msg, flush=True)
 
 
+def reset_body_launches():
+    """Zero the launch counts of the cosine engine's two body kernels, the
+    window filter and the score-and-merge."""
+    from clann_tpu_torch.ops import score_merge as tsm
+    from clann_tpu_torch.ops import window_filter as twf
+
+    twf.reset_launches()
+    tsm.reset_launches()
+
+
+def body_launches(what: str):
+    """(window filter, score-and-merge) launches since reset_body_launches;
+    fails unless they are equal: every body of the cosine engine launches
+    each once, and nothing else launches either."""
+    from clann_tpu_torch.ops import score_merge as tsm
+    from clann_tpu_torch.ops import window_filter as twf
+
+    wf, sm = twf.FILTER_LAUNCHES, tsm.SCORE_LAUNCHES
+    if wf != sm:
+        fail(f"{what} launched the window filter {wf} times and the score-and-merge {sm}")
+    return wf, sm
+
+
 def import_port():
     """The port from THIS checkout (never an installed copy)."""
     sys.path.insert(0, HERE)
@@ -438,8 +480,8 @@ def check_sass(lib_path):
     cp.async.bulk); warp_gather_kernel (K6, K7) must be there in every
     instance its plan launches (4-byte units at each inflight, 16-byte
     units up to WARP_VEC16_INFLIGHT), each shuffling its rows' indices
-    (SHFL.IDX); window_filter_kernel in its two instances; no other kernel
-    may be there."""
+    (SHFL.IDX); window_filter_kernel in its two instances;
+    score_merge_kernel in its four; no other kernel may be there."""
     from clann_tpu_torch.ops import gather as tg
 
     import re
@@ -471,6 +513,8 @@ def check_sass(lib_path):
             key = f"other gather kernel {name}"
         elif "window_filter_kernel" in name:
             key = "window_filter_kernel"
+        elif "score_merge_kernel" in name:
+            key = "score_merge_kernel"
         else:
             key = f"other kernel {name}"
         counts.setdefault(key, []).append((len(re.findall(r"\bHGMMA\.", part)),
@@ -499,6 +543,9 @@ def check_sass(lib_path):
     if len(counts.get("window_filter_kernel", [])) != 2:
         fail("window_filter_kernel must be in the library in its two instances (16-byte "
              "records and any width)")
+    if len(counts.get("score_merge_kernel", [])) != 4:
+        fail("score_merge_kernel must be in the library in its four instances (f32 and int8 "
+             "rows, each in vector and scalar units)")
 
 
 def _norm(x):
@@ -1677,13 +1724,16 @@ def phase_window_filter_path(handle, test, card):
 
     from clann_tpu_torch.ops import gather as tg
     from clann_tpu_torch.ops import global_query as tgq
+    from clann_tpu_torch.ops import score_merge as tsm
     from clann_tpu_torch.ops import window_filter as twf
 
     idx, q, delta = handle.index, test[:LSH_QUERIES], LSH_DELTAS[0]
     kernel_filter, graphed = tgq.window_filter, tgq.global_search_batch_graphed
 
     def plain_filter(*a, cap, **kw):
-        return twf.window_filter_plain(*a, cap=min(cap, kw["wb"] * kw["gather_block"]), **kw)
+        ids, *counts = twf.window_filter_plain(*a, cap=min(cap, kw["wb"] * kw["gather_block"]),
+                                               **kw)
+        return (ids.contiguous(), *counts)  # the kernel's layout, as the score-merge takes it
 
     def search(fn, ls=None, queries=q):
         """The eager body, through the window filter `fn`."""
@@ -1701,23 +1751,24 @@ def phase_window_filter_path(handle, test, card):
     for name, fn in (("kernel", kernel_filter), ("plain", plain_filter)):
         ls = tgq.LoopStats()
         tg.reset_launches()
-        twf.reset_launches()
+        reset_body_launches()
         res[name] = search(fn, ls)
         sync()
-        launches[name] = (twf.FILTER_LAUNCHES, tg.ROWS_LAUNCHES, ls)
+        launches[name] = (twf.FILTER_LAUNCHES, tg.ROWS_LAUNCHES, ls, tsm.SCORE_LAUNCHES)
     (kd, ki, kst), (pd, pi, pst) = res["kernel"], res["plain"]
     same = (np.array_equal(kd, pd) and np.array_equal(ki, pi)
             and all(np.array_equal(a, b) for a, b in zip(kst, pst)))
-    wf, k7, ls = launches["kernel"]
+    wf, k7, ls, sm = launches["kernel"]
 
     # as global_search runs: the bodies replayed from graphs captured at the
     # first batch (the index's graphs dropped first, so this call captures)
     idx.body_graphs = None
     gls = tgq.LoopStats()
-    twf.reset_launches()
+    reset_body_launches()
     gd, gi, gst = replayed(gls)
     sync()
-    g_wf, graphs = twf.FILTER_LAUNCHES, idx.body_graphs
+    g_wf, _ = body_launches("[window-filter] the replayed main path")
+    graphs = idx.body_graphs
     g_same = (np.array_equal(gd, kd) and np.array_equal(gi, ki)
               and all(np.array_equal(a, b) for a, b in zip(gst, kst)))
     g_counts = dataclasses.replace(gls, graph_replays=0) == ls
@@ -1730,8 +1781,8 @@ def phase_window_filter_path(handle, test, card):
         f"op by op: through the kernel and through its plain version (the former chain): "
         f"distances, ids and stats identical {same}; dc/query "
         f"{float(np.mean(kst.distance_computations)):.1f}; kernel path: window filter launches "
-        f"{wf} (LoopStats.filter_launches {ls.filter_launches}, iterations {ls.iterations}), K7 "
-        f"launches {k7}; plain path: window filter launches {launches['plain'][0]}, K7 launches "
+        f"{wf} (LoopStats.filter_launches {ls.filter_launches}, iterations {ls.iterations}), "
+        f"score-merge launches {sm}, K7 launches {k7}; plain path: window filter launches {launches['plain'][0]}, K7 launches "
         f"{launches['plain'][1]} on {card}")
     log(f"[window-filter] the main path, bodies replayed from CUDA graphs: {gls.graph_replays} "
         f"replays over {gls.iterations} iterations, {graphs.captures} graphs captured (one a "
@@ -1746,10 +1797,11 @@ def phase_window_filter_path(handle, test, card):
     if not same:
         fail("[window-filter] global_search through the kernel differs from its plain version")
     if (wf < 1 or k7 or wf != ls.filter_launches or wf != ls.iterations
-            or launches["plain"][2].filter_launches):
-        fail(f"[window-filter] the main path launched the window filter {wf} times and K7 "
-             f"{k7} times over {ls.iterations} iterations; LoopStats counted "
-             f"{ls.filter_launches} (plain path: {launches['plain'][2].filter_launches})")
+            or launches["plain"][2].filter_launches or sm != wf or sm != ls.score_launches):
+        fail(f"[window-filter] the main path launched the window filter {wf} times, the "
+             f"score-merge {sm} and K7 {k7} times over {ls.iterations} iterations; LoopStats "
+             f"counted {ls.filter_launches} and {ls.score_launches} (plain path: "
+             f"{launches['plain'][2].filter_launches})")
     if not (g_same and g_counts and gls.graph_replays == gls.iterations and graphs.captures
             and g_wf == gls.filter_launches + graphs.captures):
         fail(f"[window-filter] the replayed main path differs from the eager body (results "
@@ -1766,7 +1818,189 @@ def phase_window_filter_path(handle, test, card):
     out = window_filter_times(calls, card, f"the {len(calls)} windows of one 256-query batch "
                                            f"of global_search at delta {delta}")
     del calls
-    return out, wf
+    return out, wf, sm
+
+
+# [score-merge]: the engine cells' shapes, Q 256 and CB chunk + G = 2,080:
+# glove's d 100 and deep96's d 96, kk 10 on f32 rows and 20 on int8 rows
+SM_SHAPES = {"glove d 100": dict(q=256, n=200_000, d=100, cb=2080),
+             "deep96 d 96": dict(q=256, n=200_000, d=96, cb=2080)}
+SM_KK = {False: 10, True: 20}
+SM_F32_TOL = 2e-6  # f32 sims: the kernel's sums against cuBLAS's, in another order
+
+
+def check_score_merge(label, got, want, int8):
+    """The score-and-merge's (sims, ids) against its plain version's: int8
+    bit for bit; f32 sims within SM_F32_TOL slot by slot and the id sets
+    equal except for ids whose sim ties the k-th within it
+    (testing.assert_topk_match). Returns the largest sim error."""
+    import torch
+
+    from clann_tpu_torch.testing import assert_topk_match
+
+    (gs, gi), (ws, wi) = got, want
+    err = float((gs - ws).abs().max()) if gs.numel() else 0.0
+    if int8 and not (torch.equal(gs, ws) and torch.equal(gi, wi)):
+        fail(f"[score-merge] {label}: the int8 kernel differs from its plain version (max sim "
+             f"error {err:.3g})")
+    if not int8:
+        try:
+            assert_topk_match(gi.cpu().numpy(), gs.cpu().numpy(), wi.cpu().numpy(),
+                              ws.cpu().numpy(), atol=SM_F32_TOL, tie_eps=0.0)
+        except AssertionError as e:
+            fail(f"[score-merge] {label}: the kernel differs from its plain version beyond f32 ties: {e}")
+    return err
+
+
+def score_merge_bytes(vectors, queries, topk_ids, compact_ids, n_sentinel):
+    """The bytes one score-and-merge call needs (each read once, each output
+    written once): the rows of the distinct live candidates not in the
+    top-k, the queries, the id slots, the old top-k read and the new one
+    written. Returns (bytes, those rows, the live slots)."""
+    import torch
+
+    live = (compact_ids >= 0) & (compact_ids < n_sentinel)
+    rows = 0
+    for q in range(compact_ids.shape[0]):
+        ids = torch.unique(compact_ids[q][live[q]])
+        rows += int((~torch.isin(ids, topk_ids[q])).sum())
+    Q, kk = topk_ids.shape
+    row_bytes = vectors.shape[1] * vectors.element_size()
+    nbytes = (rows * row_bytes + queries.numel() * queries.element_size()
+              + compact_ids.numel() * 4 + 2 * Q * kk * 8)
+    return nbytes, rows, int(live.sum())
+
+
+def score_merge_times(calls, card, what):
+    """The kernel, its plain version (the former chain) and the torch index
+    + bmm pair of that chain (every slot's row gathered, then one bmm) on a
+    list of score-and-merge calls ((args, kwargs) as the engine makes
+    them), each timed by CUDA-graph replay of the list (device ms a call)
+    and by a Python loop (call ms), in turns plain, kernel, kernel, plain,
+    library; beside the calls' byte bound. Returns the kernels line's
+    numbers."""
+    import torch
+
+    from clann_tpu_torch.ops import score_merge as tsm
+    from clann_tpu_torch.probes import gather_rate as gr
+
+    def library(vectors, queries, topk_sims, topk_ids, compact_ids, **kw):
+        safe = torch.clamp(compact_ids, 0, vectors.shape[0] - 1).to(torch.int64)
+        return torch.bmm(vectors[safe].to(torch.float32),
+                         queries.to(torch.float32)[:, :, None])
+
+    sets = [tuple(a) for a, _ in calls]
+    n_sentinel = calls[0][1]["n_sentinel"]
+    runs = {}
+    for name, fn in (("plain", tsm.score_merge_plain), ("kernel", tsm.score_merge),
+                     ("kernel", tsm.score_merge), ("plain", tsm.score_merge_plain),
+                     ("library", library)):
+        f = (lambda fn: lambda *a: fn(*a, n_sentinel=n_sentinel))(fn)
+        runs.setdefault(name, []).append((gr.time_graph(f, sets, 3), gr.time_iters(f, sets, 3)))
+    t = {k: (sum(d for d, _ in v) / len(v), sum(c for _, c in v) / len(v),
+             [d for d, _ in v]) for k, v in runs.items()}
+    sizes = [score_merge_bytes(a[0], a[1], a[3], a[4], n_sentinel) for a in sets]
+    nbytes = sum(b for b, _, _ in sizes) / len(sizes)
+    rows = sum(r for _, r, _ in sizes) / len(sizes)
+    live = sum(x for _, _, x in sizes) / len(sizes)
+    b_ms, b_by = bound(0.0, nbytes)
+    ms, call_ms, each = t["kernel"]
+    log(f"[score-merge-time] {what}: kernel device {ms:.4f} ms a call ({each[0]:.4f}, "
+        f"{each[1]:.4f}; {b_ms / ms:.3f} of the {b_ms:.4f} ms bound by {b_by}: "
+        f"{nbytes / 1e6:.2f} MB, {rows:.0f} distinct new rows of {live:.0f} live slots), call "
+        f"{call_ms:.4f} ms; plain device {t['plain'][0]:.4f} / call {t['plain'][1]:.4f} ms; "
+        f"library (index + bmm of every slot) device {t['library'][0]:.4f} / call "
+        f"{t['library'][1]:.4f} ms; {len(calls)} calls, device ms by CUDA-graph replay, call "
+        f"ms by a Python loop, on {card}")
+    return {"ms": ms, "plain_ms": t["plain"][0], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": t["library"][0], "call_ms": call_ms}
+
+
+def phase_score_merge(card):
+    """[score-merge] The score-and-merge's kernel against its plain version
+    (the engine's former /score chain) on the same CUDA tensors, at both
+    engine shapes (SM_SHAPES), f32 (kk 10) and int8 (kk 20) rows, on every
+    case of testing.SCORE_MERGE_CASES: int8 bit for bit, f32 within
+    SM_F32_TOL; then the kernel, its plain version and the library pair
+    timed at each shape on 20 "compacted" cases (live ids at the front of
+    each row, as the window filter writes them). Returns the kernels
+    line's numbers (glove's shape) with deep96's under "deep96"."""
+    import torch
+
+    from clann_tpu_torch.ops import score_merge as tsm
+    from clann_tpu_torch.testing import SCORE_MERGE_CASES, run_score_merge, score_merge_case
+
+    dev = torch.device(DEVICE)
+    tsm.reset_launches()
+    errs = {}
+    for shape_name, shape in SM_SHAPES.items():
+        for int8 in (False, True):
+            for i, case in enumerate(SCORE_MERGE_CASES):
+                c = score_merge_case(case=case, int8=int8, kk=SM_KK[int8], seed=200 + i,
+                                     device=dev, **shape)
+                before = tsm.SCORE_LAUNCHES
+                got = run_score_merge(tsm.score_merge, c)
+                want = run_score_merge(tsm.score_merge_plain, c)
+                sync()
+                if tsm.SCORE_LAUNCHES != before + 1:
+                    fail(f"[score-merge] {case} at {shape_name}: the kernel did not launch")
+                key = f"{shape_name} {'int8' if int8 else 'f32'}"
+                errs[key] = max(errs.get(key, 0.0),
+                                check_score_merge(f"{case} at {shape_name}", got, want, int8))
+    log(f"[score-merge] kernel equal to its plain version on {len(SCORE_MERGE_CASES)} cases "
+        f"({', '.join(SCORE_MERGE_CASES)}) at {SM_SHAPES}, f32 (kk 10) and int8 (kk 20) rows: "
+        f"int8 bit for bit, f32 sims within {SM_F32_TOL} (max sim error {errs}) on {card}")
+    out = {}
+    for shape_name, shape in SM_SHAPES.items():
+        c = score_merge_case(case="compacted", int8=False, kk=SM_KK[False], seed=299,
+                             device=dev, **shape)
+        calls = []
+        for r in range(20):  # each call other rows: the ids shifted
+            ids = c["compact_ids"]
+            ids = torch.where(ids < c["n_sentinel"], (ids + 7919 * r) % c["n_sentinel"], ids)
+            calls.append(((c["vectors"], c["queries"], c["topk_sims"], c["topk_ids"], ids),
+                          dict(n_sentinel=c["n_sentinel"])))
+        out[shape_name] = score_merge_times(calls, card, f"compacted rows at {shape_name} "
+                                                         f"{shape}, kk {SM_KK[False]}")
+        del c, calls
+    torch.cuda.empty_cache()
+    res = out["glove d 100"]
+    return dict(res, deep96=out["deep96 d 96"], max_abs_err=max(errs.values()),
+                launches=tsm.SCORE_LAUNCHES)
+
+
+def phase_score_merge_path(handle, test, card):
+    """[score-merge] the main path: the score-and-merge calls of one
+    256-query batch of global_search at delta 0.95 (bodies issued op by
+    op), each kernel call held to its plain version, then the kernel, its
+    plain version and the library pair timed on them."""
+    from clann_tpu_torch.ops import global_query as tgq
+    from clann_tpu_torch.ops import score_merge as tsm
+
+    idx, q, delta = handle.index, test[:256], LSH_DELTAS[0]
+    kernel, graphed = tgq.score_merge, tgq.global_search_batch_graphed
+    calls = []
+
+    def capture(*a, **kw):
+        calls.append((a, {"n_sentinel": kw["n_sentinel"]}))
+        return kernel(*a, **kw)
+
+    tgq.score_merge = capture
+    tgq.global_search_batch_graphed = tgq.global_search_batch_mapped
+    try:
+        tgq.global_search(idx, q, delta=delta)
+    finally:
+        tgq.score_merge, tgq.global_search_batch_graphed = kernel, graphed
+    sync()
+    err = max(check_score_merge(f"main-path call {i}", tsm.score_merge(*a, **kw),
+                                tsm.score_merge_plain(*a, **kw), False)
+              for i, (a, kw) in enumerate(calls))
+    log(f"[score-merge] the {len(calls)} calls of one 256-query batch of global_search at delta "
+        f"{delta}: kernel equal to its plain version (max sim error {err:.3g}) on {card}")
+    out = score_merge_times(calls, card, f"the {len(calls)} calls of one 256-query batch of "
+                                         f"global_search at delta {delta}")
+    del calls
+    return out
 
 
 def lsh_config():
@@ -1819,18 +2053,19 @@ def phase_lsh(handle, test, gt_d, gt_i, card):
 
     from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
     from clann_tpu_torch.ops import gather as tg
-    from clann_tpu_torch.ops import window_filter as twf
     from clann_tpu_torch.ops.global_query import LoopStats, global_search
 
     q, gd, gi = test[:LSH_QUERIES], gt_d[:LSH_QUERIES], gt_i[:LSH_QUERIES]
-    launches = 0
+    launches = scores = 0
     for delta in LSH_DELTAS:
         tg.reset_launches()
-        twf.reset_launches()
+        reset_body_launches()
         d, i, st = handle.search_batch(q, mode="lsh", delta=delta)
         sync()
-        launches_d, k7_d = twf.FILTER_LAUNCHES, tg.ROWS_LAUNCHES
+        launches_d, scores_d = body_launches(f"lsh delta={delta}")
+        k7_d = tg.ROWS_LAUNCHES
         launches += launches_d
+        scores += scores_d
         check_result(d, i, f"lsh delta={delta}", LSH_QUERIES)
         rec, idr = recall_values(gd, d, K)[0], recall_by_ids(gi, i, K)
         rate, times = qps(lambda: handle.search_batch(q, mode="lsh", delta=delta),
@@ -1841,7 +2076,8 @@ def phase_lsh(handle, test, gt_d, gt_i, card):
             f"{idr:.4f}; dc/query {float(np.mean(st.distance_computations)):.1f}, "
             f"candidates/query {float(np.mean(st.candidates)):.1f}, feasible clusters/query "
             f"{float(np.mean(st.clusters_visited)):.1f}; window filter launches {launches_d}, "
-            f"K7 {k7_d}; {ls.batches} batches of 256: {ls.iterations / ls.batches:.1f} loop iterations "
+            f"score-merge {scores_d}, K7 {k7_d}; {ls.batches} batches of 256: "
+            f"{ls.iterations / ls.batches:.1f} loop iterations "
             f"and {ls.syncs / ls.batches:.2f} host syncs per batch; {rate:.1f} QPS "
             f"(s/call of {LSH_QUERIES}: {', '.join(f'{x:.4f}' for x in times)}) on {card}")
         if launches_d < 1 or k7_d:
@@ -1863,7 +2099,7 @@ def phase_lsh(handle, test, gt_d, gt_i, card):
     log(f"[lsh] delta={delta} batch {LSH_BIG_BATCH}: {LSH_QUERIES / big_s:.1f} QPS "
         f"({big_s:.4f} s per call of {LSH_QUERIES}); against batch 256: same ids "
         f"{same_ids:.5f}, same dc {same_dc:.5f} on {card}")
-    return launches
+    return launches, scores
 
 
 def _qps_line(times):
@@ -2188,7 +2424,6 @@ def phase_lsh_continuous(handle, test, gt_d, gt_i, card):
 
     from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
     from clann_tpu_torch.ops import gather as tg
-    from clann_tpu_torch.ops import window_filter as twf
     from clann_tpu_torch.ops.global_query import (LoopStats, global_search,
                                                   global_search_continuous)
 
@@ -2198,10 +2433,11 @@ def phase_lsh_continuous(handle, test, gt_d, gt_i, card):
                                            step_iters=CONT_STEP_ITERS, loop_stats=ls)
     ls = LoopStats()
     tg.reset_launches()
-    twf.reset_launches()
+    reset_body_launches()
     cd, ci, cst = run()
     sync()
-    launches, k7 = twf.FILTER_LAUNCHES, tg.ROWS_LAUNCHES
+    launches, scores = body_launches("global_search_continuous")
+    k7 = tg.ROWS_LAUNCHES
     steps, iters, syncs = ls.outer_steps, ls.iterations, ls.syncs
     bd, bi, bst = global_search(idx, q, delta=delta, batch_size=CONT_LANES)
     check_result(cd, ci, "lsh-continuous", LSH_QUERIES)
@@ -2233,7 +2469,7 @@ def phase_lsh_continuous(handle, test, gt_d, gt_i, card):
         fail("global_search_continuous differs from global_search per query")
     if rec < 0.8 * delta:
         fail(f"lsh-continuous: recall@10 {rec:.4f} below 0.8 * delta")
-    return launches
+    return launches, scores
 
 
 def int8_handle(handle):
@@ -2274,7 +2510,6 @@ def phase_lsh_int8(handle, test, gt_d, gt_i, card):
 
     from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
     from clann_tpu_torch.ops import gather as tg
-    from clann_tpu_torch.ops import window_filter as twf
 
     q, gd, gi = test[:LSH_QUERIES], gt_d[:LSH_QUERIES], gt_i[:LSH_QUERIES]
     delta = LSH_DELTAS[0]
@@ -2282,16 +2517,17 @@ def phase_lsh_int8(handle, test, gt_d, gt_i, card):
     log(f"[lsh-int8] vectors_q8 {tuple(h8.index.vectors_q8.shape)} "
         f"{h8.index.vectors_q8.numel() / 1e6:.1f} MB; torch.bmm on int8 CUDA operands: "
         f"{int8_bmm_probe()}")
-    launches = 0
+    launches = (0, 0)
     for label, h in (("float32", handle), ("int8", h8)):
         sync()
         reset_peak()
         tg.reset_launches()
-        twf.reset_launches()
+        reset_body_launches()
         d, i, st = h.search_batch(q, mode="lsh", delta=delta)
         sync()
         peak = torch.cuda.max_memory_allocated()
-        launches_d, k7_d = twf.FILTER_LAUNCHES, tg.ROWS_LAUNCHES
+        launches_d, scores_d = body_launches(f"the {label} lsh search")
+        k7_d = tg.ROWS_LAUNCHES
         check_result(d, i, f"lsh-int8 {label}", LSH_QUERIES)
         rec, idr = recall_values(gd, d, K)[0], recall_by_ids(gi, i, K)
         rate, times = qps(lambda: h.search_batch(q, mode="lsh", delta=delta), reps=3,
@@ -2300,9 +2536,10 @@ def phase_lsh_int8(handle, test, gt_d, gt_i, card):
             f"{f' (gate {0.8 * delta:.2f})' if label == 'int8' else ''}, id-recall {idr:.4f}; "
             f"dc/query {float(np.mean(st.distance_computations)):.1f}; {rate:.1f} QPS (median "
             f"of 3: {_qps_line(times)}); peak device memory of the search {peak / 1e9:.3f} GB "
-            f"(index resident); window filter launches {launches_d}, K7 {k7_d} on {card}")
+            f"(index resident); window filter launches {launches_d}, score-merge {scores_d}, "
+            f"K7 {k7_d} on {card}")
         if label == "int8":
-            launches = launches_d
+            launches = launches_d, scores_d
             if launches_d < 1 or k7_d:
                 fail(f"the int8 lsh search launched the window filter {launches_d} times, "
                      f"K7 {k7_d}")
@@ -2862,7 +3099,6 @@ def phase_update(train, test, gt_d, gt_i, card):
     from clann_tpu_torch.config import MetricsOutput
     from clann_tpu_torch.core.index import unsort_hashes
     from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
-    from clann_tpu_torch.ops import window_filter as twf
     from clann_tpu_torch.ops import scan_topk as st
 
     cfg = lsh_config().replace(metrics_output=MetricsOutput.DB)
@@ -2900,10 +3136,10 @@ def phase_update(train, test, gt_d, gt_i, card):
         fail("[update] an inserted point lies outside its ball, or a radius shrank")
 
     q, gd, gi = test[:LSH_QUERIES], gt_d[:LSH_QUERIES], gt_i[:LSH_QUERIES]
-    twf.reset_launches()
+    reset_body_launches()
     d, i, _ = h.search_batch(q, mode="lsh")
     sync()
-    wf = twf.FILTER_LAUNCHES
+    wf, sm = body_launches("[update] lsh before rebuild")
     check_result(d, i, "update lsh before rebuild", LSH_QUERIES)
     if i.max() >= n_old:
         fail("[update] mode=lsh returned a pending point before rebuild")
@@ -2936,17 +3172,19 @@ def phase_update(train, test, gt_d, gt_i, card):
     same_sk = torch.equal(idx.sketches[:n_old], idx0.sketches)
     del idx0
     h.reset_metrics()
-    twf.reset_launches()
+    reset_body_launches()
     d, i, stats = h.search_batch(q, mode="lsh")
     sync()
-    wf_after = twf.FILTER_LAUNCHES
+    wf_after, sm_after = body_launches("[update] lsh after rebuild")
     check_result(d, i, "update lsh after rebuild", LSH_QUERIES)
     rec, idr = recall_values(gd, d, K)[0], recall_by_ids(gi, i, K)
     ids = n_old + np.arange(UPDATE_SELF) * ((N_TRAIN - n_old) // UPDATE_SELF)
-    twf.reset_launches()
+    reset_body_launches()
     sd, si, _ = h.search_batch(train[ids], mode="lsh")
     sync()
-    wf_after += twf.FILTER_LAUNCHES
+    wf_self, sm_self = body_launches("[update] lsh self-find")
+    wf_after += wf_self
+    sm_after += sm_self
     self_rate = float(np.mean((si[:, 0] >= n_old) & (sd[:, 0] < 1e-5)))
     peak = torch.cuda.max_memory_allocated()
     log(f"[update] rebuild {rebuild_s:.3f} s (build of {n_old} points {build_s:.3f} s); "
@@ -2965,7 +3203,8 @@ def phase_update(train, test, gt_d, gt_i, card):
         fail(f"[update] lsh recall@10 {rec:.4f} below 0.8 * delta")
     if self_rate < 0.9:
         fail(f"[update] inserted points found themselves at a rate of {self_rate:.4f}")
-    return h, k1, wf + wf_after, LSH_QUERIES + UPDATE_SELF, build_bytes, (gd, d)
+    return (h, k1, (wf + wf_after, sm + sm_after), LSH_QUERIES + UPDATE_SELF, build_bytes,
+            (gd, d))
 
 
 def phase_metrics_db(h, n_searched, build_bytes, gd, d, card):
@@ -3021,7 +3260,6 @@ def phase_puffinn(train, test, gt_d, o_pairs, o_sims, card):
 
     from clann_tpu_torch import puffinn
     from clann_tpu_torch.ops import join as tjoin
-    from clann_tpu_torch.ops import window_filter as twf
 
     sync()
     reset_peak()
@@ -3045,7 +3283,7 @@ def phase_puffinn(train, test, gt_d, o_pairs, o_sims, card):
 
     q = test[:PUFFINN_QUERIES]
     kth_dot = 1.0 - gt_d[:PUFFINN_QUERIES, K - 1]
-    twf.reset_launches()
+    reset_body_launches()
     correct, times = 0, []
     for qi in range(PUFFINN_QUERIES):
         t0 = time.perf_counter()
@@ -3054,7 +3292,7 @@ def phase_puffinn(train, test, gt_d, o_pairs, o_sims, card):
         if len(res) != K:
             fail(f"[puffinn] search returned {len(res)} ids")
         correct += int(np.sum(train[res] @ q[qi] >= kth_dot[qi] - 1e-6))
-    wf = twf.FILTER_LAUNCHES
+    wf, sm = body_launches("[puffinn] search")
     gate = 0.8 * PUFFINN_RECALL * K * PUFFINN_QUERIES
     log(f"[puffinn] {PUFFINN_QUERIES} single-query search(q, {K}, {PUFFINN_RECALL}): correct "
         f"ids {correct} (gate {gate:.0f}); ms per call median {np.median(times) * 1e3:.2f}, "
@@ -3068,7 +3306,7 @@ def phase_puffinn(train, test, gt_d, o_pairs, o_sims, card):
         res = pf.search_from_index(i, K, PUFFINN_RECALL)
         if i in res or len(res) != K:
             fail(f"[puffinn] search_from_index({i}) returned the point itself or {len(res)} ids")
-    twf.reset_launches()
+    reset_body_launches()
     pairs, windows, cp_s, _ = timed_join(lambda: np.asarray(pf.closest_pairs(10, PUFFINN_RECALL)))
     # the surface returns ids only: they must be ops.join's pairs on the same
     # index, in its order, and those pairs with its sims go to check_join
@@ -3084,26 +3322,28 @@ def phase_puffinn(train, test, gt_d, o_pairs, o_sims, card):
         f"{in_range:.2f} (the JAX compat test's 0.5 at 600 points; not gated here), of the "
         f"true top 10: "
         f"{len({tuple(p) for p in pairs.tolist()} & {tuple(p) for p in o_pairs[:10].tolist()})}")
-    wf += twf.FILTER_LAUNCHES
+    wf_join, sm_join = body_launches("[puffinn] closest_pairs")
 
     t0 = time.perf_counter()
     blob = pickle.dumps(pf)
     pf2 = pickle.loads(blob)
     pickle_s = time.perf_counter() - t0
-    twf.reset_launches()
+    reset_body_launches()
     t0 = time.perf_counter()
     same = all(pf2.search(q[qi], K, PUFFINN_RECALL) == pf.search(q[qi], K, PUFFINN_RECALL)
                for qi in range(2))
     sync()
     lazy_s = time.perf_counter() - t0
-    wf += twf.FILTER_LAUNCHES
+    wf_lazy, sm_lazy = body_launches("[puffinn] the lazy second build's search")
+    wf += wf_join + wf_lazy
+    sm += sm_join + sm_lazy
     peak = torch.cuda.max_memory_allocated()
     log(f"[puffinn] pickle round trip {len(blob) / 1e6:.1f} MB in {pickle_s:.3f} s; the lazy "
         f"second build and 2 queries on each {lazy_s:.3f} s; identical results: {same}; peak "
         f"device memory {peak / 1e9:.3f} GB (two indexes) on {card}")
     if not same:
         fail("[puffinn] the pickled index answers differently")
-    return wf
+    return wf, sm
 
 
 def profile_lsh(handle, test, label="lsh", sessions=2, host_ops=True):
@@ -3233,7 +3473,6 @@ def phase_sharded_lsh(lsh, test, gt_d, gt_i, card):
     import torch
 
     from clann_tpu_torch.metrics.recall import recall_by_ids, recall_values
-    from clann_tpu_torch.ops import window_filter as twf
     from clann_tpu_torch.ops.join import closest_pairs
     from clann_tpu_torch.parallel import sharded as sh
     from clann_tpu_torch.parallel.join import sharded_closest_pairs
@@ -3248,12 +3487,12 @@ def phase_sharded_lsh(lsh, test, gt_d, gt_i, card):
     shards = sh.shard_index(lsh.index, SHARDS, mesh=mesh)
     sync()
     shard_s = time.perf_counter() - t0
-    twf.reset_launches()
+    reset_body_launches()
     t0 = time.perf_counter()
     d, i, st = sh.sharded_global_search(shards, q, delta=delta, mesh=mesh)
     sync()
     search_s = time.perf_counter() - t0
-    launches = twf.FILTER_LAUNCHES
+    launches, scores = body_launches("the sharded global engine")
     check_result(d, i, "sharded global", LSH_QUERIES)
     rec, idr = recall_values(gd, d, K)[0], recall_by_ids(gi, i, K)
     log(f"[sharded] lsh index over {SHARDS} shards: shard_index {shard_s:.3f} s; "
@@ -3272,12 +3511,12 @@ def phase_sharded_lsh(lsh, test, gt_d, gt_i, card):
     mesh1 = shard_mesh(2)
     half = sh.shard_index(lsh.index, 2, mesh=mesh1)
     q2 = q[:MESH_2D_QUERIES]
-    twf.reset_launches()
+    reset_body_launches()
     a = sh.sharded_global_search(half, q2, delta=delta, mesh=mesh1)
     b = sh.sharded_global_search(half, q2, delta=delta,
                                  mesh=make_mesh_2d(2, 2, devices=[f"{DEVICE}:0"] * 4))
     sync()
-    launches_2d = twf.FILTER_LAUNCHES
+    launches_2d, scores_2d = body_launches("the 2 x 2 mesh's global engine")
     same = (np.array_equal(a[1], b[1]) and np.array_equal(a[0], b[0])
             and all(np.array_equal(x, y) for x, y in zip(a[2], b[2])))
     log(f"[sharded] 2 x 2 make_mesh_2d against its 1-D 2-shard mesh, {MESH_2D_QUERIES} "
@@ -3299,7 +3538,7 @@ def phase_sharded_lsh(lsh, test, gt_d, gt_i, card):
         f"ops.join.closest_pairs: {same}")
     if not same:
         fail("the sharded join differs from ops.join.closest_pairs")
-    return launches + launches_2d
+    return launches + launches_2d, scores + scores_2d
 
 
 def phase_sharded_walk(walk, test, gt_d, gt_i, source, card):
@@ -3481,7 +3720,6 @@ def phase_bench(train, test, gt_d, gt_i, card):
     from clann_tpu_torch.data.hdf5 import AnnDataset
     from clann_tpu_torch.metrics.recall import recall_by_ids
     from clann_tpu_torch.ops import gather as tg
-    from clann_tpu_torch.ops import window_filter as twf
 
     name = f"glove-{DIMS}-angular-synthetic"
     ds = AnnDataset(train, test, gt_d, gt_i, name=name)
@@ -3532,11 +3770,12 @@ def phase_bench(train, test, gt_d, gt_i, card):
     cfg = clann_tpu_torch.Config(num_tables=50, num_clusters_factor=0.4, k=K, delta=0.9,
                                  seed=0, dataset_name=name)
     tg.reset_launches()
-    twf.reset_launches()
+    reset_body_launches()
     t0 = time.perf_counter()
     times = hb.compare_implementations_time(cfg, ds, device=DEVICE)
     sync()
-    launches_t, wf = tg.ROWS_LAUNCHES, twf.FILTER_LAUNCHES
+    launches_t = tg.ROWS_LAUNCHES
+    wf, sm = body_launches("[bench] compare_implementations_time")
     log(f"[bench] compare_implementations_time (the reference's 10 sampled queries, 15 "
         f"repetitions): {json.dumps(times)} in "
         f"{time.perf_counter() - t0:.3f} s (two builds included); window filter launches {wf} "
@@ -3564,7 +3803,7 @@ def phase_bench(train, test, gt_d, gt_i, card):
     if len(batch) != N_QUERIES or any(len(r) != K for r in batch):
         fail("[bench] ClannTPU batch results are not K ids per query")
     algo.done()
-    return launches + launches_t, wf
+    return launches + launches_t, (wf, sm)
 
 
 def main():
@@ -3626,7 +3865,7 @@ def main():
         for mode in ("scan-pallas", "scan-block", "dense"):
             profile_search(handle, test, mode)
     sh_k1 = phase_sharded_scan(handle, train, test, gt_d, gt_i, label)
-    cards_k1 = cards_k7 = cards_wf = 0
+    cards_k1 = cards_k7 = cards_wf = cards_sm = 0
     if n_cards > 1:
         cards_k1 += cards_phase(mc.glove_scan, handle, train, test, gt_d, gt_i, label, n_cards)
     del handle
@@ -3635,21 +3874,25 @@ def main():
     gather = phase_gather(label)
     probe_launches = phase_gather_probe(label)
     wf = phase_window_filter(label)
+    sm = phase_score_merge(label)
     lsh = phase_lsh_build(train, label)
-    launches_lsh = phase_lsh(lsh, test, gt_d, gt_i, label)
-    wf_path, launches_wf_path = phase_window_filter_path(lsh, test, label)
+    launches_lsh, sm_lsh = phase_lsh(lsh, test, gt_d, gt_i, label)
+    wf_path, launches_wf_path, sm_wf_path = phase_window_filter_path(lsh, test, label)
+    sm_path = phase_score_merge_path(lsh, test, label)
     if args.profile:
         profile_lsh(lsh, test)
     # the new LSH paths run on this index here, so that the walk's build
     # below sees the device as before
-    launches_cont = phase_lsh_continuous(lsh, test, gt_d, gt_i, label)
-    launches_lsh8 = phase_lsh_int8(lsh, test, gt_d, gt_i, label)
+    launches_cont, sm_cont = phase_lsh_continuous(lsh, test, gt_d, gt_i, label)
+    launches_lsh8, sm_lsh8 = phase_lsh_int8(lsh, test, gt_d, gt_i, label)
     o_pairs, o_sims = phase_join(lsh, label)
-    sh_lsh = phase_sharded_lsh(lsh, test, gt_d, gt_i, label)
+    sh_lsh, sm_sh_lsh = phase_sharded_lsh(lsh, test, gt_d, gt_i, label)
     if n_cards > 1:
-        wf_cards, cards_ref = cards_phase(mc.glove_lsh, lsh, train, test, gt_d, gt_i, label,
-                                          n_cards, profile=args.profile)
+        (wf_cards, sm_cards), cards_ref = cards_phase(mc.glove_lsh, lsh, train, test, gt_d,
+                                                      gt_i, label, n_cards,
+                                                      profile=args.profile)
         cards_wf += wf_cards
+        cards_sm += sm_cards
     del lsh
     torch.cuda.empty_cache()
     walk = phase_walk_build(train, label)
@@ -3675,16 +3918,16 @@ def main():
             n_cards)
     del jac_data, jac_queries
     torch.cuda.empty_cache()
-    upd, k1_upd, wf_upd, n_searched, build_bytes, (gd_upd, d_upd) = phase_update(
+    upd, k1_upd, (wf_upd, sm_upd), n_searched, build_bytes, (gd_upd, d_upd) = phase_update(
         train, test, gt_d, gt_i, label)
     phase_metrics_db(upd, n_searched, build_bytes, gd_upd, d_upd, label)
     del upd
     torch.cuda.empty_cache()
-    launches_pf = phase_puffinn(train, test, gt_d, o_pairs, o_sims, label)
+    launches_pf, sm_pf = phase_puffinn(train, test, gt_d, o_pairs, o_sims, label)
     torch.cuda.empty_cache()
     cli_k1 = phase_cli(label)
     torch.cuda.empty_cache()
-    bench_k7, bench_wf = phase_bench(train, test, gt_d, gt_i, label)
+    bench_k7, (bench_wf, bench_sm) = phase_bench(train, test, gt_d, gt_i, label)
     torch.cuda.empty_cache()
     if n_cards > 1:
         cards_phase(mc.dryruns, n_cards)
@@ -3694,6 +3937,7 @@ def main():
         past = cards_phase(mc.past_one_card, lsh_config(), label, n_cards=n_cards)
         cards_k1 += past["k1"]
         cards_wf += past["wf"]
+        cards_sm += past["sm"]
     counts = {"walk": launches_walk, "walk-int8": launches_walk8, "interop": launches_interop,
               "jaccard": launches_jac, "sharded walk": sh_walk, "sharded jaccard": sh_jac,
               "bench": bench_k7}
@@ -3711,6 +3955,14 @@ def main():
     launches_wf = sum(wf_counts.values())
     log(f"[main] window filter launches: {launches_wf} = "
         + " + ".join(f"{k} {v}" for k, v in wf_counts.items()))
+    sm_counts = {"score-merge": sm["launches"], "lsh": sm_lsh, "window-filter path": sm_wf_path,
+                 "lsh-continuous": sm_cont, "lsh-int8": sm_lsh8, "update": sm_upd,
+                 "puffinn": sm_pf, "sharded lsh": sm_sh_lsh, "bench": bench_sm}
+    if n_cards > 1:
+        sm_counts["cards"] = cards_sm
+    launches_sm = sum(sm_counts.values())
+    log(f"[main] score-merge launches: {launches_sm} = "
+        + " + ".join(f"{k} {v}" for k, v in sm_counts.items()))
     k1_counts = {"main": launches_k1, "scan-options": sum(opt_k1.values()), "update": k1_upd,
                  "sharded": sh_k1, "cli": cli_k1}
     if n_cards > 1:
@@ -3739,6 +3991,8 @@ def main():
         ("window_filter", "clann_tpu_torch/csrc/window_filter.cu",
          "clann_tpu/ops/global_query.py:222 (the loop body's fetch to take, :284-362)",
          launches_wf, wf),
+        ("score_merge", "clann_tpu_torch/csrc/score_merge.cu",
+         "none (the loop body's /score, jnp in the JAX engine)", launches_sm, sm),
     ]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3750,13 +4004,17 @@ def main():
                              for o in k1["options"]]
     # K7's numbers above are at the engine's 512 B records; the walk, which
     # makes many of its launches, gathers 192 B records
-    entries[-2]["walk"] = walk_k7
+    entries[-3]["walk"] = walk_k7
     # and the Jaccard engine's 256 B records (G 16 x [id, 2 sketch words, cluster])
-    entries[-2]["jaccard"] = jaccard_k7
+    entries[-3]["jaccard"] = jaccard_k7
     # the window filter's numbers above are on random windows at the engine's
     # shape; on the windows of one batch of the main path, with K7 alone
-    entries[-1]["main_path"] = wf_path
-    entries[-1]["k7_ms"] = wf["k7_ms"]
+    entries[-2]["main_path"] = wf_path
+    entries[-2]["k7_ms"] = wf["k7_ms"]
+    # the score-and-merge's numbers above are at glove's shape on compacted
+    # random rows; at deep96's, and on the calls of one batch of the main path
+    entries[-1]["deep96"] = sm["deep96"]
+    entries[-1]["main_path"] = sm_path
     log(json.dumps({"kernels": entries}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

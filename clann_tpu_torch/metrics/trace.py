@@ -51,6 +51,10 @@ class LoopStats:
     `graph_replays` counts the bodies run as a replay of a captured CUDA
     graph (the batched cosine global engine on one card, whose replays
     also count their window-filter launches; ops/global_query._BodyGraphs).
+    `score_launches` counts the score-and-merge kernel's launches as
+    `filter_launches` counts the window filter's (ops/score_merge; one an
+    iteration of the cosine global engine's bodies on a card, replays
+    included).
     The global and Jaccard engines also count the iterations whose window
     was derived in the loop (`derived_window`: a live cursor past the
     batch's stream map, or no map), and the global engines the valid
@@ -66,6 +70,7 @@ class LoopStats:
     unmapped_iterations: int = 0
     lanes: int = 0
     graph_replays: int = 0
+    score_launches: int = 0
 
     def add(self, other: "LoopStats") -> None:
         for f in dataclasses.fields(self):

@@ -140,6 +140,9 @@ def _load() -> ctypes.CDLL:
         vp, i32, i64, i32, i32, vp, i32, i32, vp, vp, vp, i32, i32, vp, i32, vp, vp, i32, i32,
         vp, i32, i32, vp, i32, i32, i32, vp]
     lib.clann_window_filter.restype = i32
+    lib.clann_score_merge.argtypes = [
+        vp, i64, i32, i32, vp, vp, vp, vp, i32, i32, i32, i32, vp, vp, i32, i32, i32, vp]
+    lib.clann_score_merge.restype = i32
     lib.clann_cuda_error_string.argtypes = [i32]
     lib.clann_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib

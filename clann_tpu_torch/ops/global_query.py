@@ -34,6 +34,12 @@ What changes from the JAX engine, none of it in the results:
   which looks the ball feasibility up in a bit table (JAX contracts a
   one-hot on the MXU; the values are the same). Its plain version, which
   CPU tensors take, is the torch chain the loop ran before, over K7.
+- The candidates' scoring and the top-k merge run as one kernel, the
+  score-and-merge (`ops.score_merge`, csrc/score_merge.cu), which reads
+  only the distinct live candidates' rows (JAX gathers and scores every
+  compacted slot); its f32 dots sum in another order than cuBLAS's, its
+  int8 sims and every merge decision are the torch chain's, which CPU
+  tensors take.
 
 The batch entry points `global_search_batch_impl` (a static map, the
 shard bodies'), `global_search_batch_mapped` (a map sized from the batch)
@@ -73,14 +79,15 @@ from clann_tpu_torch.ops.query import (
     LoopStats,
     SearchStats,
     _exact_rescore_topk,
-    _merge_topk,
-    _score_candidates,
     batched_query_driver,
     probs_lookup,
     sims_to_dists,
     window_blocks,
 )
-from clann_tpu_torch.ops.window_filter import count_launches, pack_window, window_filter
+from clann_tpu_torch.ops import score_merge as tsm
+from clann_tpu_torch.ops import window_filter as twf
+from clann_tpu_torch.ops.score_merge import score_merge
+from clann_tpu_torch.ops.window_filter import pack_window, window_filter
 from clann_tpu_torch.parallel.mesh import host_read
 
 
@@ -196,6 +203,9 @@ def _loop_pieces(index, streams: dict, delta, *, k: int, chunk: int,
     ball_floor = streams["ball_floor"]
     fc, total = streams["fc"], streams["total"]
     queries_q8 = streams.get("q8")
+    # the records scored: the int8 shadows under int8 rescoring
+    score_operands = ((index.vectors, queries_n) if queries_q8 is None
+                      else (index.vectors_q8, queries_q8))
     dev = queries_n.device
 
     L = index.g_sorted_hash.shape[0]
@@ -238,10 +248,9 @@ def _loop_pieces(index, streams: dict, delta, *, k: int, chunk: int,
                 chunk=chunk, cap=CB, n_sentinel=n, use_filter=filter_type != "none",
                 routing=index.config.dead_block_routing, loop_stats=loop_stats)
         with TRACER.span("engine/score"):
-            sims = _score_candidates(index, queries_n, queries_q8,
-                                     torch.clamp(compact_ids, 0, n - 1))
-            topk_sims, topk_ids = _merge_topk(topk_sims, topk_ids, compact_ids, sims,
-                                              n_sentinel=n)
+            topk_sims, topk_ids = score_merge(
+                *score_operands, topk_sims, topk_ids, compact_ids, n_sentinel=n,
+                loop_stats=loop_stats)
 
         with TRACER.span("engine/stop"):
             dc = dc + taken
@@ -470,7 +479,7 @@ class _BodyGraphs:
         self.lock = threading.Lock()
         self.streams = self.state = self.cond = self._body = self._pool = None
         self.graphs = {}  # use_map -> torch.cuda.CUDAGraph
-        self.launches = {}  # use_map -> window-filter launches a replay makes
+        self.launches = {}  # use_map -> (window-filter, score-merge) launches a replay makes
         self.captures = 0
 
     def load(self, index, streams: dict, depth: int, delta, **pieces) -> None:
@@ -523,12 +532,13 @@ class _BodyGraphs:
                 with torch.cuda.stream(side):
                     self._body(self.state, use_map)  # its next state is dropped
                 torch.cuda.current_stream().wait_stream(side)
-                before = self._stats.filter_launches
+                before = (self._stats.filter_launches, self._stats.score_launches)
                 graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graph, pool=self._pool):
                     for buf, t in zip(self.state, self._body(self.state, use_map)):
                         buf.copy_(t)
-                launches[use_map] = self._stats.filter_launches - before
+                launches[use_map] = (self._stats.filter_launches - before[0],
+                                     self._stats.score_launches - before[1])
                 graphs[use_map] = graph
         self.graphs, self.launches = graphs, launches
         self.captures += len(graphs)
@@ -536,12 +546,15 @@ class _BodyGraphs:
     def replayer(self, loop_stats: Optional[LoopStats]):
         """body(state, use_map) for `_advance`: a replay of that form's
         graph, which leaves the next state in `state`, counted into
-        `loop_stats` (its replays and the window-filter launches it makes)."""
+        `loop_stats` (its replays and the window-filter and score-merge
+        launches it makes)."""
         dev = self.state[0].get_device()
 
         def body(state, use_map: bool):
             self.graphs[use_map].replay()
-            count_launches(dev, self.launches[use_map], loop_stats)
+            filters, scores = self.launches[use_map]
+            twf.count_launches(dev, filters, loop_stats)
+            tsm.count_launches(dev, scores, loop_stats)
             if loop_stats is not None:
                 loop_stats.graph_replays += 1
             return state

@@ -27,6 +27,15 @@ What changes from the JAX walk, none of it in the results:
 - The prefix directory is read by plain gathers (JAX's `dir_onehot` MXU
   contractions give the same values).
 
+The walk scores and merges through `_score_candidates` and `_merge_topk`
+on every device, not through the global engine's score-and-merge kernel
+(ops/score_merge.py), although that kernel takes the same operands. It is
+held back on purpose: no benchmark cell runs the walk, so a change to its
+body could not be measured, and on a card the kernel's f32 sums would move
+the walk's scores in their last bits. It moves to the kernel with the
+graph of its inner body (ROADMAP, queue 2 item 5), where the walk's card
+checks are rerun.
+
 `lax.top_k` puts the lower index first among equal values; every top-k
 here is a stable descending sort cut to k, which keeps that order, because
 the merge's ties (empty slots, equal scores) decide which ids survive.
@@ -134,19 +143,28 @@ def _int8_dots(vecs: torch.Tensor, q8: torch.Tensor) -> torch.Tensor:
     return prod.sum(dim=-1, dtype=torch.int32).to(torch.float32)
 
 
-def _score_candidates(index, queries_n, queries_q8, safe_ids):
-    """Candidate similarity (Q, CB) in f32: (dot + 1) / 2 clipped to [0, 1]
-    (cosine.hpp:19-23). f32 products at full precision (TF32 off, the
-    JAX package's Precision.HIGHEST); with `queries_q8` (rescore_dtype
-    "int8") the exact integer dot of the int8 shadows, scaled by 1/127^2
-    (the reference's i16 ranking dot, math.hpp:11-34)."""
-    if queries_q8 is not None:
-        vecs = index.vectors_q8[safe_ids.to(torch.int64)]  # (Q, CB, d) int8
-        dots = _int8_dots(vecs, queries_q8) * (1.0 / (127.0 * 127.0))
+def score_rows(vectors, queries, safe_ids):
+    """Similarity (Q, CB) in f32 of the rows `safe_ids` (Q, CB) of
+    `vectors` (n, d) to `queries` (Q, d): (dot + 1) / 2 clipped to [0, 1]
+    (cosine.hpp:19-23). f32 products at full precision (TF32 off, the JAX
+    package's Precision.HIGHEST); int8 rows and queries give the exact
+    integer dot, scaled by 1/127^2 (the reference's i16 ranking dot,
+    math.hpp:11-34)."""
+    vecs = vectors[safe_ids.to(torch.int64)]  # (Q, CB, d)
+    if vectors.dtype == torch.int8:
+        dots = _int8_dots(vecs, queries) * (1.0 / (127.0 * 127.0))
     else:
-        vecs = index.vectors[safe_ids.to(torch.int64)]  # (Q, CB, d)
-        dots = torch.bmm(vecs, queries_n[:, :, None]).squeeze(2)
+        dots = torch.bmm(vecs, queries[:, :, None]).squeeze(2)
     return torch.clamp((dots + 1.0) * 0.5, 0.0, 1.0)
+
+
+def _score_candidates(index, queries_n, queries_q8, safe_ids):
+    """Candidate similarity (Q, CB) in f32 (`score_rows`): the int8 shadows
+    against `queries_q8` where given (rescore_dtype "int8"), else the f32
+    vectors against `queries_n`."""
+    if queries_q8 is not None:
+        return score_rows(index.vectors_q8, queries_q8, safe_ids)
+    return score_rows(index.vectors, queries_n, safe_ids)
 
 
 def _exact_rescore_topk(index, queries_n, topk_sims, topk_ids, out_k):

@@ -128,14 +128,16 @@ def still_on_card_0(what: str) -> None:
 @dataclasses.dataclass
 class Reading:
     """One timed call: its result, wall seconds and the K1 / K7 / window
-    filter launches by card (the global engine launches the window filter,
-    the walk and Jaccard's engine K7)."""
+    filter / score-and-merge launches by card (the global engine launches
+    the window filter and the score-and-merge, the walk and Jaccard's
+    engine K7)."""
 
     out: object
     seconds: float
     k1: Dict[int, int]
     k7: Dict[int, int]
     wf: Dict[int, int]
+    sm: Dict[int, int]
 
     def line(self) -> str:
         return f"{self.seconds:.3f} s"
@@ -146,6 +148,7 @@ def timed(fn: Callable[[], object]) -> Reading:
     and after."""
     from clann_tpu_torch.ops import gather as tg
     from clann_tpu_torch.ops import scan_topk as st
+    from clann_tpu_torch.ops import score_merge as tsm
     from clann_tpu_torch.ops import window_filter as twf
 
     sync_all()
@@ -153,11 +156,13 @@ def timed(fn: Callable[[], object]) -> Reading:
     st.KERNEL_DEVICE_LAUNCHES.clear()
     tg.reset_launches()
     twf.reset_launches()
+    tsm.reset_launches()
     t0 = time.perf_counter()
     out = fn()
     sync_all()
     return Reading(out, time.perf_counter() - t0, dict(st.KERNEL_DEVICE_LAUNCHES),
-                   dict(tg.ROWS_DEVICE_LAUNCHES), dict(twf.FILTER_DEVICE_LAUNCHES))
+                   dict(tg.ROWS_DEVICE_LAUNCHES), dict(twf.FILTER_DEVICE_LAUNCHES),
+                   dict(tsm.SCORE_DEVICE_LAUNCHES))
 
 
 def timed_spans(fn: Callable[[], object]):
@@ -558,9 +563,9 @@ def glove_lsh(lsh, train, test, gt_d, gt_i, label: str, n_cards: int = 4,
     window filter), the 2 x 2 mesh, the table-sharded join; then
     build_sharded with the lsh configuration and its two searches, which
     the NCCL run is held to. With `profile`, profile_overlap of the
-    four-card global engine. Returns (window filter launches of the
-    four-card global search, the reference results {"global": ...,
-    "scan": ...})."""
+    four-card global engine. Returns ((window filter, score-and-merge)
+    launches of the four-card global search, the reference results
+    {"global": ..., "scan": ...})."""
     from clann_tpu_torch.parallel import sharded as sh
     from clann_tpu_torch.parallel.join import sharded_closest_pairs
     from clann_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
@@ -595,7 +600,9 @@ def glove_lsh(lsh, train, test, gt_d, gt_i, label: str, n_cards: int = 4,
         f"bit-identical; "
         f"single device (facade, batches of 256) {queries / single.seconds:.1f} QPS; peak "
         f"memory per card {peaks_gb()} GB on {label}")
-    wf = sum(r4.wf.values())
+    launches = sum(r4.wf.values()), sum(r4.sm.values())
+    check(r4.sm == r4.wf, f"the four-card global engine launched the window filter {r4.wf} "
+                          f"and the score-and-merge {r4.sm} by card")
     if profile:
         profile_overlap(lambda: sh.sharded_global_search(s4, q, delta=delta, mesh=four),
                         f"sharded_global_search, {queries} queries on cuda:0-{n_cards - 1}")
@@ -644,7 +651,7 @@ def glove_lsh(lsh, train, test, gt_d, gt_i, label: str, n_cards: int = 4,
         f"id-recall {idr_s:.4f}, {len(test) / ref['scan_s']:.0f} QPS (second call)")
     check(rec_g >= LSH_GATE * delta and rec_s >= RECALL_GATE and idr_s >= ID_RECALL_GATE,
           "the four-card lsh build's searches are below their gates")
-    return wf, ref
+    return launches, ref
 
 
 def controller_run(train, test, cfg, mesh, lsh_queries: int = GLOVE_LSH_QUERIES,
@@ -951,7 +958,8 @@ def past_one_card(cfg, label: str, n: int = PAST_N, n_cards: int = 4,
     truth by brute_force_topk on cuda:0 (independent of the sharded code);
     build_sharded over cuda:0..n_cards-1 with its stage seconds; the global
     engine on lsh_queries at delta and the fused scan on all queries,
-    gated. Returns the K1 / window filter launches of the two searches."""
+    gated. Returns the K1 / window filter / score-and-merge launches of the two
+    searches."""
     from clann_tpu_torch.data.synthetic import clustered_unit_vectors
     from clann_tpu_torch.ops.distances import brute_force_topk
     from clann_tpu_torch.parallel import mesh as pm
@@ -1046,7 +1054,7 @@ def past_one_card(cfg, label: str, n: int = PAST_N, n_cards: int = 4,
     del built
     sh._SHARD_BASE_CACHE.clear()
     torch.cuda.empty_cache()
-    return {"k1": sum(s0.k1.values()), "wf": sum(g.wf.values())}
+    return {"k1": sum(s0.k1.values()), "wf": sum(g.wf.values()), "sm": sum(g.sm.values())}
 
 
 def main(argv=None) -> None:

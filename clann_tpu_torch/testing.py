@@ -278,3 +278,110 @@ def run_window_filter(fn, case: Dict[str, object], *, use_map: bool, chunk: int,
               gather_block=1 << case["g_log"], wb=case["wb"], chunk=chunk, cap=cap,
               n_sentinel=case["n_sentinel"], use_filter=use_filter, routing=routing,
               loop_stats=loop_stats)
+
+
+# The score-and-merge's cases (score_merge_case's `case`): what each forces
+# on every query's row of candidate slots.
+SCORE_MERGE_CASES = ("random", "compacted", "duplicates", "in_topk", "sentinels",
+                     "all_sentinel", "full_row", "sim_zero", "equal_sims", "empty_topk")
+# The shape the score-and-merge is held to on the CPU: (Q, n, d, CB); kk
+# is 10 with f32 rows and 20 (2k) with int8 rows, as in the engine.
+SCORE_MERGE_SHAPE = dict(q=12, n=600, d=13, cb=72)
+_TWINS = 4  # rows of a twin group: equal sims on distinct ids
+
+
+def score_merge_case(*, q: int, n: int, d: int, cb: int, kk: int, int8: bool = False,
+                     case: str = "random", seed: int = 0, device="cpu") -> Dict[str, object]:
+    """Seeded operands of `ops.score_merge.score_merge`, made as the global
+    engine makes them: vectors (n, d) (unit rows, or their int8 shadows
+    with `int8`) and queries; a running top-kk per query (distinct ids of
+    unit rows, their sims in descending order, empty slots (0, -1) after
+    them); (Q, CB) candidate slots whose live ids sit anywhere in the row
+    ("compacted": at its front, as the window filter writes them), the
+    sentinel n elsewhere. Rows [0, 32) form twin groups of 4 equal rows
+    (equal sims on distinct ids); rows [n - 4Q, n) hold 4 rows a query at
+    -2x the query, whose sims are exactly 0. `case` (SCORE_MERGE_CASES)
+    picks the live ids: "random" a mix of every kind below, "duplicates"
+    from a few ids, "in_topk" mostly the query's top-kk ids, "sentinels"
+    also sentinels above n, "all_sentinel" none (done queries),
+    "full_row" every slot live, "sim_zero" the query's sim-0 rows against
+    an empty top-kk, "equal_sims" twins (also in the top-kk), "empty_topk"
+    random ids into an empty top-kk."""
+    from clann_tpu_torch.core.index import quantize_q8
+    from clann_tpu_torch.ops.query import score_rows
+
+    if case not in SCORE_MERGE_CASES:
+        raise ValueError(f"case {case!r} not in {SCORE_MERGE_CASES}")
+    if n < 4 * q + 8 * _TWINS + kk:
+        raise ValueError(f"n {n} too small for {q} queries' sim-0 rows and the twins")
+    gen = torch.Generator().manual_seed(seed)
+
+    def unit(x):
+        return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+
+    def ints(hi, size):
+        return torch.randint(0, hi, (size,), generator=gen, dtype=torch.int64)
+
+    qn = unit(torch.randn((q, d), generator=gen))
+    vec = unit(torch.randn((n, d), generator=gen))
+    n_twin, zero0 = 8 * _TWINS, n - 4 * q
+    vec[:n_twin] = vec[:n_twin:_TWINS].repeat_interleave(_TWINS, dim=0)
+    if int8:
+        vec, queries = quantize_q8(vec), quantize_q8(qn)
+        vec[zero0:] = torch.where(queries >= 0, -127, 127).to(torch.int8).repeat_interleave(
+            4, dim=0)
+    else:
+        vec[zero0:] = -2.0 * qn.repeat_interleave(4, dim=0)
+        queries = qn
+
+    topk_sims = torch.zeros((q, kk), dtype=torch.float32)
+    topk_ids = torch.full((q, kk), -1, dtype=torch.int32)
+    cand = torch.full((q, cb), n, dtype=torch.int32)
+    for i in range(q):
+        filled = 0 if case in ("sim_zero", "empty_topk") else (
+            int(ints(kk + 1, 1)) if case == "random" else kk)
+        old = torch.randperm(zero0, generator=gen)[:filled]
+        if case == "equal_sims":  # the top-kk holds twins of the candidates
+            old = torch.cat([ints(n_twin, 2 * filled).unique()[:filled // 2],
+                             old])[:filled].unique()
+        if filled:
+            sims = score_rows(vec, queries[i : i + 1], old[None])[0]
+            sims, order = torch.sort(sims, descending=True, stable=True)
+            topk_sims[i, : len(old)] = sims
+            topk_ids[i, : len(old)] = old[order].to(torch.int32)
+        live = {"all_sentinel": 0, "full_row": cb}.get(case, int(ints(cb + 1, 1)))
+        kinds = {
+            "random": ints(zero0, live),
+            "duplicates": ints(zero0, max(2, live // 8))[ints(max(2, live // 8), live)],
+            "in_topk": ints(zero0, live),
+            "sim_zero": zero0 + 4 * i + ints(4, live),
+            "equal_sims": ints(n_twin, live),
+        }
+        ids = kinds.get(case, ints(zero0, live))
+        pick = torch.rand((live,), generator=gen)
+        mine = topk_ids[i][topk_ids[i] >= 0].to(torch.int64)
+        if case in ("random", "in_topk", "full_row") and len(mine):
+            share = 0.6 if case == "in_topk" else 0.15
+            ids = torch.where(pick < share, mine[ints(len(mine), live)], ids)
+        if case in ("random", "full_row", "sim_zero", "empty_topk"):
+            ids = torch.where(pick > 0.85, zero0 + 4 * i + ints(4, live), ids)
+        if case in ("random", "full_row"):
+            ids = torch.where((pick > 0.7) & (pick <= 0.85), ints(n_twin, live), ids)
+        row = torch.full((cb,), n, dtype=torch.int64)
+        if case == "sentinels":
+            row = torch.where(torch.rand((cb,), generator=gen) < 0.3, n + ints(1000, cb), row)
+        pos = torch.arange(live) if case == "compacted" else torch.randperm(cb, generator=gen)[:live]
+        row[pos] = ids
+        cand[i] = row.to(torch.int32)
+    out = dict(vectors=vec, queries=queries, topk_sims=topk_sims, topk_ids=topk_ids,
+               compact_ids=cand)
+    out = {k: v.to(device).contiguous() for k, v in out.items()}
+    out["n_sentinel"] = n
+    return out
+
+
+def run_score_merge(fn, case: Dict[str, object], loop_stats=None):
+    """`fn` (ops.score_merge's wrapper or plain version) on a
+    `score_merge_case`."""
+    return fn(case["vectors"], case["queries"], case["topk_sims"], case["topk_ids"],
+              case["compact_ids"], n_sentinel=case["n_sentinel"], loop_stats=loop_stats)

@@ -10,7 +10,8 @@ LoopStats.add carries graph_replays (test_torch_trace.py).
 On the card (marked `card`, skipped elsewhere): global_search with its
 bodies replayed equals the eager body (global_search_batch_mapped, by
 which the tests replace the graphed route) bit for bit, in distances, ids,
-SearchStats and the loop's counters, with both body forms (a map capped
+SearchStats and the loop's counters (one window-filter and one
+score-and-merge launch a body, replays included), with both body forms (a map capped
 below the deepest cursors), with int8 rescoring, across batches of new
 data through one capture, and after insert and rebuild, which capture
 anew. The card machine has no jax, so it runs without tests/conftest.py:
@@ -30,6 +31,7 @@ from clann_tpu_torch.core import index as tindex
 from clann_tpu_torch.data.synthetic import clustered_unit_vectors
 from clann_tpu_torch.metrics.trace import LoopStats
 from clann_tpu_torch.ops import global_query as tgq
+from clann_tpu_torch.ops import score_merge as tsm
 from clann_tpu_torch.ops import window_filter as twf
 from clann_tpu_torch.ops.prefixmap import stream_block_map
 
@@ -93,9 +95,10 @@ def test_map_written_into_a_buffer_equals_its_own(cpu_index, monkeypatch, below,
 def test_cpu_tensors_run_the_eager_body(cpu_index, knob):
     idx = _with(cpu_index, **knob)
     ls = LoopStats()
-    launches = twf.FILTER_LAUNCHES
+    launches, scores = twf.FILTER_LAUNCHES, tsm.SCORE_LAUNCHES
     tgq.global_search(idx, _data(48, 1), batch_size=16, loop_stats=ls)
     assert ls.iterations > 0 and ls.graph_replays == 0 and ls.filter_launches == 0
+    assert ls.score_launches == 0 and tsm.SCORE_LAUNCHES == scores
     assert twf.FILTER_LAUNCHES == launches and idx.body_graphs is None
 
 
@@ -138,6 +141,8 @@ def _assert_bit_identical(got, want):
     assert gls.graph_replays == gls.iterations > 0 and wls.graph_replays == 0
     assert dataclasses.replace(gls, graph_replays=0) == wls
     assert gls.filter_launches == gls.iterations
+    # a replay counts its score-and-merge launch, as the eager body launches one
+    assert gls.score_launches == gls.graph_replays == wls.score_launches
 
 
 @pytest.mark.card

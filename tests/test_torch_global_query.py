@@ -43,6 +43,7 @@ from clann_tpu_torch.core.index import index_from_arrays
 from clann_tpu_torch.metrics.recall import recall_values
 from clann_tpu_torch.ops import gather as tg
 from clann_tpu_torch.ops import global_query as tgq
+from clann_tpu_torch.ops import score_merge as tsm
 from clann_tpu_torch.ops import window_filter as twf
 from clann_tpu_torch.testing import assert_topk_match, index_arrays
 
@@ -125,16 +126,22 @@ def test_graphed_route_runs_the_eager_body_on_cpu(world, delta, filter_type):
 
 @pytest.mark.parametrize("path", ["batched", "continuous"])
 def test_bodies_count_filter_launches_into_their_loop(world, monkeypatch, path):
-    """Every loop body hands the window filter its loop's LoopStats, in
-    which the wrapper counts each kernel launch (a card's; the CPU's plain
-    version counts none): one call a body, all into the caller's stats."""
-    seen = []
+    """Every loop body hands the window filter and the score-and-merge its
+    loop's LoopStats, in which each wrapper counts its kernel's launches (a
+    card's; the CPU's plain versions count none): one call of each a body,
+    all into the caller's stats."""
+    seen, scored = [], []
 
     def spy(*a, loop_stats=None, **kw):
         seen.append(loop_stats)
         return twf.window_filter(*a, loop_stats=loop_stats, **kw)
 
+    def score_spy(*a, loop_stats=None, **kw):
+        scored.append(loop_stats)
+        return tsm.score_merge(*a, loop_stats=loop_stats, **kw)
+
     monkeypatch.setattr(tgq, "window_filter", spy)
+    monkeypatch.setattr(tgq, "score_merge", score_spy)
     ls = tgq.LoopStats()
     if path == "batched":
         tgq.global_search_batch_mapped(world["tidx"], *world["tq"], 0.9, loop_stats=ls, **KW)
@@ -142,7 +149,8 @@ def test_bodies_count_filter_launches_into_their_loop(world, monkeypatch, path):
         tgq.global_search_continuous(world["tidx"], world["ds"].test, lanes=16, step_iters=3,
                                      loop_stats=ls)
     assert len(seen) == ls.iterations >= 1 and all(s is ls for s in seen)
-    assert ls.filter_launches == 0
+    assert len(scored) == ls.iterations and all(s is ls for s in scored)
+    assert ls.filter_launches == 0 and ls.score_launches == 0
 
 
 @pytest.mark.parametrize("knob", [

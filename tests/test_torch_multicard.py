@@ -264,6 +264,7 @@ def test_shards_on_cards_names_a_stray_tensor():
 def test_timed_reads_launches_and_spans_on_the_cpu():
     r = mc.timed(lambda: 7)
     assert r.out == 7 and r.seconds >= 0 and r.k1 == {} and r.k7 == {} and r.wf == {}
+    assert r.sm == {}
     assert r.line() == f"{r.seconds:.3f} s"
     r, spans = mc.timed_spans(lambda: tsh.build_sharded(
         clustered_unit_vectors(600, 8, n_modes=6, seed=2),

@@ -157,11 +157,11 @@ def test_marked_threads_are_active():
 
 
 def test_loop_stats_add():
-    a, b = LoopStats(1, 2, 3, 4, 5, 6, 7, 8), LoopStats(10, 20, 30, 40, 50, 60, 70, 80)
+    a, b = LoopStats(1, 2, 3, 4, 5, 6, 7, 8, 9), LoopStats(10, 20, 30, 40, 50, 60, 70, 80, 90)
     a.add(b)
-    assert a == LoopStats(11, 22, 33, 44, 55, 66, 77, 88) and tq.LoopStats is LoopStats
-    assert (a.filter_launches, a.unmapped_iterations, a.lanes, a.graph_replays) == (
-        55, 66, 77, 88)
+    assert a == LoopStats(11, 22, 33, 44, 55, 66, 77, 88, 99) and tq.LoopStats is LoopStats
+    assert (a.filter_launches, a.unmapped_iterations, a.lanes, a.graph_replays,
+            a.score_launches) == (55, 66, 77, 88, 99)
 
 
 @pytest.fixture(scope="module")
